@@ -1,0 +1,602 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--report PATH]
+
+Phases:
+  1. build the CUDA kernels under mi_optimize_tpu_torch/csrc/ with nvcc
+     (one nvcc per source, all at once) into build/torch_kernels/;
+  2. hold each kernel against its plain PyTorch version on the card at the
+     main path's Llama-2-7B shapes in bf16, and time both;
+  3. serve the main path at Llama-2-7B width and depth (int4 g128 symmetric
+     packed weights made on the card from seed 0): three requests through
+     `generate` with an int8 KV cache (per-layer decode kernel), then one
+     128-token prefill plus a 128-token `decode_loop_flat` (whole-model
+     decode kernel); every kernel's launch counter must be > 0;
+  4. check the outputs: tokens in range, logits finite, and on a small f32
+     model the card's prefill logits and greedy tokens agree with the plain
+     versions run on the CPU;
+  5. where the time goes: torch.profiler device time by kernel and the
+     device busy share over a prefill, flat decode and per-layer decode.
+
+Earlier lines report each phase; the line before the last is a JSON object
+with every kernel's launches, error, time, plain time, library time (torch's
+own int4 product for the 4-bit dequant_matmul rows) and bound; the last
+line is {"ok": true, "device": {...}}. Without a CUDA device the script
+exits with code 2 and prints no result. `--report PATH` also writes the
+whole report (per-kernel bytes and flops included) there as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+TOL = 2e-2                  # max|kernel - plain| <= TOL * max|plain| in bf16
+SPIN_CYCLES = 4_000_000     # about 2 ms of device spin at the H100's clock
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms the card could take, what bounds it)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def time_ms(fn, reps: int, flush) -> float:
+    """Mean device ms of fn() over reps runs, each after an L2 flush, timed
+    with CUDA events around the call alone. A spin kernel keeps the card busy
+    while the host enqueues the events and the call, so the host's wrapper
+    time does not land between the events as device idle time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def max_err(got, ref):
+    """(max|got - ref|, max|ref|) in f32."""
+    g, r = got.float(), ref.float()
+    return float((g - r).abs().max()), float(r.abs().max())
+
+
+def check_close(what, got, ref, tol=TOL):
+    err, scale = max_err(got, ref)
+    ok = err <= tol * scale
+    log(f"  {what}: max|diff| {err:.3e} vs bound {tol * scale:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version")
+    return err
+
+
+def check_token(what, tok, ref_tok, ref_logits, tol_abs):
+    """The kernel's token equals the plain version's unless the plain top-2
+    logit gap is below the tolerance."""
+    import torch
+
+    top2 = torch.topk(ref_logits.float().reshape(-1), 2).values
+    gap = float(top2[0] - top2[1])
+    same = int(tok) == int(ref_tok)
+    log(f"  {what}: kernel {int(tok)} plain {int(ref_tok)} (top-2 gap {gap:.3e})")
+    if not same and gap >= tol_abs:
+        raise AssertionError(f"{what}: kernel token differs from the plain version's")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def tinygemm_operands(lin, st, bt):
+    """A 4-bit linear in the layout of torch's own int4 product,
+    torch._weight_int4pack_mm: (weight [N, K] packed by
+    torch._convert_weight_to_int4pack, bf16 [K/g, N, 2] scales and zeros).
+    That product dequantizes w = (q - 8)*scale + zero per group; ours is
+    q*scale + bias on the same biased codes q, so zero = bias + 8*scale."""
+    import torch
+
+    from mi_optimize_tpu_torch.core.packing import unpack_words
+
+    q = unpack_words(lin.packed, 4).t().contiguous()           # [N, K] codes 0..15
+    w = torch._convert_weight_to_int4pack((q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.stack([st, bt + 8.0 * st], dim=-1).to(torch.bfloat16).contiguous()
+    return w, sz
+
+
+def check_dequant_matmul(model, cfg, dev, flush, reps):
+    """Also times torch's int4 product (the library yardstick) on the same x
+    and the same 4-bit weights; it is held to the same tolerance against the
+    plain version and used nowhere in the port."""
+    import torch
+
+    from mi_optimize_tpu_torch.models.quant_linear import group_size
+    from mi_optimize_tpu_torch.ops import dequant_matmul as dm
+
+    blk = model.params["layers"][0]
+    lins = {"qkv": blk["qkv_proj"], "o": blk["o_proj"], "gate_up": blk["gateup_proj"],
+            "down": blk["down_proj"], "lm_head": model.params["lm_head"]}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    lib_ops = {}
+    rows = []
+    for M in (128, 1):
+        for name, lin in lins.items():
+            K, N, bits, g = lin.in_features, lin.out_features, lin.spec.wbit, group_size(lin)
+            st, bt = dm.kernel_tables(lin)
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            run = lambda: dm.packed_matmul(x, lin.packed, st, bt, bits, g)
+            plain = lambda: dm.dequant_matmul_ref(x, lin.packed, st, bt, bits, g)
+            y, ref = run(), plain()
+            torch.cuda.synchronize()
+            err = check_close(f"dequant_matmul {name} M={M} [{K}->{N}]", y, ref)
+            ms = time_ms(run, reps, flush)
+            plain_ms = time_ms(plain, max(2, reps // 10), flush)
+            lib_ms = lib_err = None
+            if bits == 4 and g in (32, 64, 128, 256):
+                if name not in lib_ops:
+                    lib_ops[name] = tinygemm_operands(lin, st, bt)
+                w4, sz = lib_ops[name]
+                lib = lambda: torch._weight_int4pack_mm(x, w4, g, sz)
+                lib_err = check_close(f"  torch._weight_int4pack_mm {name} M={M}", lib(), ref)
+                lib_ms = time_ms(lib, reps, flush)
+            nb, fl = nbytes(x, lin.packed, st, bt) + M * N * 2, 2.0 * M * N * K
+            b_ms, b_by = bound(nb, fl)
+            log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+                f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {b_ms:.4f} ms "
+                f"({b_by})")
+            rows.append(dict(name="dequant_matmul", shape=f"{name} M={M} K={K} N={N}",
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms, library_max_abs_err=lib_err,
+                             bytes=nb, flops=fl))
+    return rows
+
+
+def random_int8_cache(cfg, T, pos, dev, gen):
+    """A per-layer int8 cache [1, T, Hkv, D] whose rows t < pos hold codes
+    and absmax-like scales (rows past pos stay zero, as in a live cache)."""
+    import torch
+
+    shape = (1, T, cfg.num_kv_heads, cfg.head_dim)
+    c = {}
+    for f in ("k", "v"):
+        q = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int32)
+        q[:, pos:] = 0
+        c[f] = q.to(torch.int8)
+        s = torch.rand(shape[:3], generator=gen, device=dev) * 0.02 + 1e-3
+        s[:, pos:] = 0
+        c[f + "_scale"] = s
+    return c
+
+
+def decode_block_bytes(blk, mega, cfg, pos):
+    h, Hkv, D = cfg.hidden_size, cfg.num_kv_heads, cfg.head_dim
+    w = nbytes(*(blk[n].packed for n in ("qkv_proj", "o_proj", "gateup_proj", "down_proj")),
+               *mega.values(), blk["input_norm"], blk["post_norm"])
+    cache = 2 * pos * Hkv * (D + 4)      # live int8 k/v rows and their f32 scales
+    io = 2 * h * 2 + 2 * Hkv * (D + 4)   # x in, x out, the new rows and scales
+    return w + cache + io
+
+
+def decode_block_flops(cfg, pos):
+    h, H, Hkv, D, I = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       cfg.intermediate_size)
+    lin = h * (H + 2 * Hkv) * D + H * D * h + h * 2 * I + I * h
+    return 2.0 * lin + 4.0 * (pos + 1) * H * D
+
+
+def check_block(model, cfg, dev, flush, reps, T=384, pos=200):
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.ops import block_fused as bf
+
+    blk = model.params["layers"][0]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cache = random_int8_cache(cfg, T, pos, dev, gen)
+    x = (torch.randn(1, 1, cfg.hidden_size, generator=gen, device=dev)).to(torch.bfloat16)
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+    cos, sin = cos.reshape(-1), sin.reshape(-1)
+    run = lambda: bf.block_decode_rows(blk, blk["mega"], x, cos, sin, cache, pos, cfg)
+    plain = lambda: bf.block_decode_ref(blk, blk["mega"], x, cos, sin, cache, pos, cfg)
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = check_close(f"block_decode_mega x_out (T={T}, pos={pos})", got[0], ref[0])
+    for i, sc, f in ((1, 3, "k"), (2, 4, "v")):
+        check_close(f"block_decode_mega new {f} row (dequantized)",
+                    got[i].float() * got[sc][:, None], ref[i].float() * ref[sc][:, None])
+    ms = time_ms(run, reps, flush)
+    plain_ms = time_ms(plain, max(2, reps // 10), flush)
+    nb, fl = decode_block_bytes(blk, blk["mega"], cfg, pos), decode_block_flops(cfg, pos)
+    b_ms, b_by = bound(nb, fl)
+    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    return [dict(name="block_decode_mega", shape=f"one layer T={T} pos={pos}",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 bytes=nb, flops=fl)]
+
+
+def check_flat(model, fstack, fmeta, cfg, dev, flush, reps, T=384, pos=200):
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.ops import model_flat as mf
+    from mi_optimize_tpu_torch.serving.flatdecode import stack_cache_flat
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cache = stack_cache_flat([random_int8_cache(cfg, T, pos, dev, gen)
+                              for _ in range(cfg.num_layers)])
+    x = llama.embed(model.params, torch.tensor([[7]], device=dev))
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+    cossin = torch.cat([cos.reshape(-1), sin.reshape(-1)])
+    run = lambda: mf.model_decode_flat(fstack, x, cossin, cache, pos, cfg, fmeta)
+    plain = lambda: mf.model_decode_flat_ref(fstack, x, cossin, cache, pos, cfg, fmeta)
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = check_close(f"model_decode_flat logits ({cfg.num_layers} layers, T={T}, pos={pos})",
+                      got[1], ref[1])
+    check_token("model_decode_flat token", got[0], ref[0], ref[1],
+                TOL * float(ref[1].abs().max()))
+    check_close("model_decode_flat k/v rows (dequantized)",
+                got[2].float() * got[3].reshape(cfg.num_layers, 2, -1, 1),
+                ref[2].float() * ref[3].reshape(cfg.num_layers, 2, -1, 1))
+    ms = time_ms(run, reps, flush)
+    plain_ms = time_ms(plain, 2, flush)
+    nb = nbytes(*fstack.values()) + cfg.num_layers * 2 * pos * cfg.num_kv_heads * (
+        cfg.head_dim + 4) + fmeta[-1] * 4
+    fl = cfg.num_layers * decode_block_flops(cfg, pos) + 2.0 * cfg.hidden_size * fmeta[-1]
+    b_ms, b_by = bound(nb, fl)
+    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    return [dict(name="model_decode_flat",
+                 shape=f"{cfg.num_layers} layers + lm_head T={T} pos={pos}",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 bytes=nb, flops=fl)]
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at full width and depth
+# ---------------------------------------------------------------------------
+
+def serve_main_path(model, fstack, fmeta, cfg, dev, n_flat=128):
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat
+
+    res = {"requests": []}
+    gen = torch.Generator().manual_seed(4)
+    for S in (17, 64, 128):
+        prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen).numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate(model, prompt, max_new_tokens=16, cache_dtype=torch.int8)
+        dt = time.perf_counter() - t0
+        new = out[0, S:]
+        if out.shape != (1, S + 16) or not ((new >= 0) & (new < cfg.vocab_size)).all():
+            raise AssertionError(f"generate returned {out.shape} / out-of-range tokens")
+        log(f"  request prompt={S} new=16: {dt * 1e3:.1f} ms, tokens {new.tolist()}")
+        res["requests"].append({"prompt": S, "new": 16, "ms": dt * 1e3,
+                                "tokens": new.tolist()})
+
+    S = 128
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen).to(dev)
+    total = -(-(S + n_flat + 4) // 128) * 128
+    cache = engine.init_cache(cfg, 1, total, torch.int8, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = engine.prefill(model.params, cfg, prompt, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (1, cfg.vocab_size):
+        raise AssertionError("prefill logits are not finite / of the expected shape")
+    tok = torch.argmax(logits, -1)[:, None]
+    fcache = stack_cache_flat(cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = decode_loop_flat(model.params, fstack, fmeta, cfg, tok, fcache, S, n_flat)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    if toks.shape != (1, n_flat) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("decode_loop_flat returned out-of-range tokens")
+    # the same prefill's per-layer cache through engine.decode_loop: one
+    # block_decode_mega launch per layer and the lm_head through dequant_matmul
+    n_blk = 32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    btoks, _ = engine.decode_loop(model.params, cfg, tok, cache, S, n_blk)
+    torch.cuda.synchronize()
+    blk_s = time.perf_counter() - t0
+    k = min(n_blk, n_flat)
+    same = int((btoks[0, :k] == toks[0, :k]).cumprod(0).sum())
+    res.update(prefill_tokens=S, prefill_ms=prefill_ms, flat_tokens=n_flat,
+               flat_ms_per_token=dec_s * 1e3 / n_flat, flat_tokens_per_s=n_flat / dec_s,
+               flat_first_tokens=toks[0, :16].tolist(), block_tokens=n_blk,
+               block_ms_per_token=blk_s * 1e3 / n_blk, block_tokens_per_s=n_blk / blk_s,
+               block_flat_common_prefix=same)
+    log(f"  prefill {S} tokens: {prefill_ms:.1f} ms")
+    log(f"  decode_loop_flat {n_flat} tokens: {dec_s * 1e3 / n_flat:.3f} ms/token, "
+        f"{n_flat / dec_s:.1f} tokens/s")
+    log(f"  decode_loop (block_decode_mega) {n_blk} tokens: {blk_s * 1e3 / n_blk:.3f} "
+        f"ms/token, {n_blk / blk_s:.1f} tokens/s; greedy tokens agree with the flat "
+        f"path on the first {same}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where the time goes on the main path
+# ---------------------------------------------------------------------------
+
+def profile_windows(model, fstack, fmeta, cfg, dev):
+    """For a 128-token prefill, 16 tokens of decode_loop_flat and 8 tokens of
+    engine.decode_loop: the host wall time of the window (unprofiled, best
+    of 3, ending in a synchronize), the device time of every kernel and copy
+    from torch.profiler summed by name, and the busy share = summed device
+    time / wall time (one stream: kernels do not overlap). The busy share is
+    None when the profiler saw no device time."""
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat
+
+    S, T = 128, 512
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(6))
+    prompt = prompt.to(dev)
+
+    def prefill():
+        return engine.prefill(model.params, cfg, prompt,
+                              engine.init_cache(cfg, 1, T, torch.int8, device=dev))
+
+    logits, cache = prefill()
+    tok = torch.argmax(logits, -1)[:, None]
+    fcache = stack_cache_flat(cache)
+    windows = {
+        "prefill_128": (prefill, 1),
+        "decode_loop_flat_16": (lambda: decode_loop_flat(model.params, fstack, fmeta, cfg, tok,
+                                                         fcache, S, 16), 16),
+        "decode_loop_block_8": (lambda: engine.decode_loop(model.params, cfg, tok, cache, S, 8),
+                                8),
+    }
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for name, (fn, n_tok) in windows.items():
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = min(walls)
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.key_averages():
+            # device-side events only: a CPU op's device time repeats its kernels'
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+        dev_ms = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[name] = {"wall_ms": wall, "wall_ms_per_token": wall / n_tok,
+                     "device_ms": dev_ms or None, "busy_share": dev_ms / wall if dev_ms else None,
+                     "top_kernels_ms": [[k, v] for k, v in top]}
+        busy = f"{dev_ms / wall:.3f}" if dev_ms else "not measured"
+        log(f"  {name}: wall {wall:.3f} ms ({wall / n_tok:.3f} ms/token), device "
+            f"{dev_ms:.3f} ms, busy share {busy}")
+        for k, v in top:
+            log(f"      {v:9.3f} ms  {k[:90]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: a small f32 model on the card against the plain versions on the CPU
+# ---------------------------------------------------------------------------
+
+def small_reference_check(dev):
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.flatdecode import (decode_loop_flat, stack_cache_flat,
+                                                         stack_flat)
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    cpu = build_quantized_llama(cfg, dtype=torch.float32, seed=5, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    for blk in cpu["layers"]:  # non-unit norms, as the repository's tests use
+        for k in ("input_norm", "post_norm"):
+            blk[k] = 1.0 + 0.1 * torch.randn(cfg.hidden_size, generator=gen)
+    models = {}
+    for d in ("cpu", dev):
+        p = cpu if d == "cpu" else _to(cpu, dev)
+        models[d] = fuse_for_serving(Model(config=cfg, params=p))
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 19))
+    out = {}
+    for d, m in models.items():
+        toks = engine.generate(m, prompt, max_new_tokens=5, cache_dtype=torch.int8)
+        cache = engine.init_cache(cfg, 1, 256, torch.int8, device=d)
+        logits, cache = engine.prefill(m.params, cfg, torch.as_tensor(prompt, device=d), cache)
+        fstack, fmeta = stack_flat(m)
+        tok = torch.argmax(logits, -1)[:, None]
+        ftoks, _ = decode_loop_flat(m.params, fstack, fmeta, cfg, tok, stack_cache_flat(cache),
+                                    prompt.shape[1], 5)
+        out[d] = (toks, logits.cpu(), ftoks.cpu().numpy())
+    err, scale = max_err(out[dev][1], out["cpu"][1])
+    log(f"  small f32 model: prefill logits max|diff| {err:.3e} (max|ref| {scale:.3e}); "
+        f"generate {out[dev][0][0, 19:].tolist()} vs CPU {out['cpu'][0][0, 19:].tolist()}; "
+        f"flat {out[dev][2][0].tolist()} vs CPU {out['cpu'][2][0].tolist()}")
+    if err > 1e-3 * max(scale, 1.0):
+        raise AssertionError("small model: prefill logits on the card disagree with the CPU")
+    if (out[dev][0] != out["cpu"][0]).any() or (out[dev][2] != out["cpu"][2]).any():
+        raise AssertionError("small model: greedy tokens on the card differ from the CPU")
+
+
+def _to(tree, dev):
+    import dataclasses
+
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _to(getattr(tree, f.name), dev) for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)})
+    return tree
+
+
+KERNELS = {
+    "dequant_matmul": ("mi_optimize_tpu_torch/csrc/dequant_matmul.cu",
+                       "mi_optimize_tpu/ops/dequant_matmul.py:93"),
+    "block_decode_mega": ("mi_optimize_tpu_torch/csrc/block_fused.cu",
+                          "mi_optimize_tpu/ops/block_fused.py:328"),
+    "model_decode_flat": ("mi_optimize_tpu_torch/csrc/model_flat.cu",
+                          "mi_optimize_tpu/ops/model_flat.py:149"),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description="Drive the port's main path on one GPU.")
+    ap.add_argument("--report", help="also write the whole report as JSON to this path")
+    args = ap.parse_args()
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "mi_optimize_tpu_torch", "csrc")):
+        print("chip_smoke: run it from a checkout of the repository "
+              "(mi_optimize_tpu_torch/ is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
+    from mi_optimize_tpu_torch.ops import _build, block_fused, dequant_matmul, model_flat
+    from mi_optimize_tpu_torch.serving.flatdecode import stack_flat
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda"
+    smi = nvidia_smi_line()
+    log(f"gpu: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    report = {"gpu": smi, "device": torch.cuda.get_device_name(0)}
+
+    log("phase 1: build")
+    t0 = time.perf_counter()
+    _build.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"  built {', '.join(_build.SOURCES)} in {report['build_s']:.1f} s")
+
+    cfg = LlamaConfig.llama2_7b()
+    t0 = time.perf_counter()
+    model = fuse_for_serving(Model(config=cfg, params=build_quantized_llama(
+        cfg, bits=4, groupsize=128, dtype=torch.bfloat16, seed=0, device=dev)))
+    fl = stack_flat(model)
+    if fl is None:
+        raise AssertionError("the synthetic model does not meet the flat kernel's contract")
+    fstack, fmeta = fl
+    torch.cuda.synchronize()
+    log(f"  Llama-2-7B int4 g128 model built and stacked in {time.perf_counter() - t0:.1f} s")
+
+    log("phase 2: kernels against their plain versions (bf16, Llama-2-7B shapes)")
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
+    rows = check_dequant_matmul(model, cfg, dev, flush, reps=20)
+    rows += check_block(model, cfg, dev, flush, reps=20)
+    rows += check_flat(model, fstack, fmeta, cfg, dev, flush, reps=5)
+
+    log("phase 3: main path (Llama-2-7B, 32 layers, int4 g128, bf16, int8 KV cache)")
+    mods = {"dequant_matmul": dequant_matmul, "block_decode_mega": block_fused,
+            "model_decode_flat": model_flat}
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    report["main_path"] = serve_main_path(model, fstack, fmeta, cfg, dev)
+    counts = {k: m.launches for k, m in mods.items()}
+    report["main_path"]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    w_bytes = nbytes(*fstack.values())
+    report["main_path"]["decode_bound_ms_per_token"] = w_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  peak memory {report['main_path']['peak_mem_gib']:.2f} GiB; weights read per "
+        f"flat token {w_bytes / 1e9:.3f} GB -> bound "
+        f"{report['main_path']['decode_bound_ms_per_token']:.3f} ms/token")
+    log(f"  launches: {counts}")
+    missing = [k for k, n in counts.items() if n == 0]
+    if missing:
+        raise AssertionError(f"main path launched no {missing} kernel")
+
+    log("phase 4: small f32 model on the card vs the plain versions on the CPU")
+    small_reference_check(dev)
+
+    log("phase 5: where the time goes (torch.profiler, Llama-2-7B, T=512)")
+    report["profile"] = profile_windows(model, fstack, fmeta, cfg, dev)
+
+    kernels = []
+    for r in rows:
+        src, rep = KERNELS[r["name"]]
+        kernels.append({"name": r["name"], "shape": r["shape"], "route": "cuda",
+                        "source": src, "replaces": rep, "launches": counts[r["name"]],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+    report["kernels"] = [dict(k, bytes=r["bytes"], flops=r["flops"],
+                              library_max_abs_err=r.get("library_max_abs_err"))
+                         for k, r in zip(kernels, rows)]
+    if args.report:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=1)
+    log(f"gpu: {smi}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,15 @@
+"""PyTorch / CUDA port of mi_optimize_tpu for NVIDIA Hopper (H100, sm_90a).
+
+The JAX package `mi_optimize_tpu` is the reference; this package mirrors its
+sub-packages and module names (`core/`, `models/`, `ops/`, `serving/`) and
+never imports JAX or anything of the reference package. Every Pallas kernel
+on the ported path is a hand-written CUDA kernel under `csrc/`, built with
+nvcc at first use (`ops/_build.py`); on CPU tensors each wrapper runs its
+plain PyTorch version instead.
+
+This slice covers int4 (or int2/int8) packed Llama serving: prefill through
+`ops.dequant_matmul`, per-layer decode through `ops.block_fused`, and the
+whole-model flat decode through `ops.model_flat`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,312 @@
+"""Functional Llama-family model over plain dicts of tensors.
+
+Port of mi_optimize_tpu/models/llama.py: every linear is a QuantizedLinear,
+the rotary embedding uses the HF split-half convention (or the ChatGLM-style
+interleaved / partial one by config), GQA repeats kv heads, and the int8 KV
+cache holds per-(token, head) absmax scales.
+
+Differences from the reference:
+  * caches are updated in place (the reference returns fresh functional
+    arrays); `block_apply` still returns the cache it wrote;
+  * the decode-attention and fused-MLP branches the reference takes only on a
+    TPU backend are absent; a block prepared by serving.optimize (`"mega"`)
+    decodes through ops.block_fused instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from .quant_linear import QuantizedLinear, quant_linear_apply
+
+ATTN_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj")
+MLP_LINEARS = ("gate_proj", "up_proj", "down_proj")
+ALL_LINEARS = ATTN_LINEARS + MLP_LINEARS
+GROUP_ORDER: Tuple[Tuple[str, ...], ...] = (
+    ("k_proj", "v_proj", "q_proj"),
+    ("o_proj",),
+    ("up_proj", "gate_proj"),
+    ("down_proj",),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: int = 128
+    rms_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    max_seq_len: int = 2048
+    tie_embeddings: bool = False
+    attn_bias: bool = False
+    rotary_dim: int = -1     # -1 => full head_dim
+    rope_interleaved: bool = False
+
+    @classmethod
+    def tiny(cls, **kw):
+        d = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+                 num_heads=4, num_kv_heads=2, head_dim=16, max_seq_len=128)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
+    def llama2_7b(cls):
+        return cls()
+
+
+def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
+                dtype=torch.float32, device=None) -> Dict[str, Any]:
+    """Random-init fp params with model-shaped tensors."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=generator, device=dev, dtype=torch.float32)
+
+    def lin(out_f, in_f, bias=False):
+        w = (randn(out_f, in_f) * (in_f ** -0.5)).to(dtype)
+        b = torch.zeros(out_f, dtype=dtype, device=dev) if bias else None
+        return QuantizedLinear.fp(w, b)
+
+    h, q_dim = cfg.hidden_size, cfg.num_heads * cfg.head_dim
+    kv_dim = cfg.num_kv_heads * cfg.head_dim
+    layers = []
+    for _ in range(cfg.num_layers):
+        layers.append({
+            "input_norm": torch.ones(h, dtype=dtype, device=dev),
+            "post_norm": torch.ones(h, dtype=dtype, device=dev),
+            "q_proj": lin(q_dim, h, cfg.attn_bias),
+            "k_proj": lin(kv_dim, h, cfg.attn_bias),
+            "v_proj": lin(kv_dim, h, cfg.attn_bias),
+            "o_proj": lin(h, q_dim),
+            "gate_proj": lin(cfg.intermediate_size, h),
+            "up_proj": lin(cfg.intermediate_size, h),
+            "down_proj": lin(h, cfg.intermediate_size),
+        })
+    params = {
+        "embed": (randn(cfg.vocab_size, h) * 0.02).to(dtype),
+        "layers": layers,
+        "final_norm": torch.ones(h, dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = lin(cfg.vocab_size, h)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps):
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+def rope_tables(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [*, rotary_dim] for the given positions (float32)."""
+    rd = cfg.rotary_dim if cfg.rotary_dim > 0 else cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, rd, 2) / rd))
+    inv = torch.as_tensor(inv_freq.astype(np.float32), device=positions.device)
+    freqs = positions.to(torch.float32)[..., None] * inv
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rope(x, cos, sin, cfg: LlamaConfig):
+    """x: [..., seq, heads, head_dim]; cos/sin: [seq, rotary_dim] (broadcast)."""
+    rd = cfg.rotary_dim if cfg.rotary_dim > 0 else x.shape[-1]
+    xr, x_pass = x[..., :rd], x[..., rd:]
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    half = rd // 2
+    if cfg.rope_interleaved:
+        x1, x2 = xr[..., 0::2], xr[..., 1::2]
+        ch, sh = c[..., :half], s[..., :half]
+        rot = torch.stack([x1 * ch - x2 * sh, x2 * ch + x1 * sh], dim=-1).reshape(xr.shape)
+    else:
+        x1, x2 = xr[..., :half], xr[..., half:]
+        rot = xr * c + torch.cat([-x2, x1], dim=-1) * s
+    if x_pass.shape[-1]:
+        rot = torch.cat([rot.to(x.dtype), x_pass], dim=-1)
+    return rot.to(x.dtype)
+
+
+def attention(q, k, v, mask, cfg: LlamaConfig):
+    """q:[B,S,Hq,D] k,v:[B,T,Hkv,D]; GQA by head repetition. mask bool,
+    broadcast against scores [B,H,S,T]."""
+    reps = cfg.num_heads // cfg.num_kv_heads
+    if reps > 1:
+        k = torch.repeat_interleave(k, reps, dim=2)
+        v = torch.repeat_interleave(v, reps, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.to(torch.float32), k.to(torch.float32))
+    scores = scores / np.sqrt(cfg.head_dim)
+    scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs.to(torch.float32), v.to(torch.float32))
+    return out.to(v.dtype)
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(batch, token, head) symmetric int8 quantization of a K/V slab
+    [B, S, H, D] -> (int8 values, f32 scales [B, S, H])."""
+    xf = x.to(torch.float32)
+    amax = torch.clamp(xf.abs().amax(dim=-1), min=1e-8)
+    scale = amax / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _upd(buf: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
+    """Write `new` [B,S,...] into `buf` at time index `idx`, in place."""
+    if isinstance(idx, torch.Tensor) and idx.ndim > 0:
+        raise NotImplementedError(
+            "per-slot cache positions (continuous batching) are not ported yet "
+            "(ROADMAP.md A10)")
+    i = int(idx)
+    buf[:, i:i + new.shape[1]] = new.to(buf.dtype)
+    return buf
+
+
+def block_apply(
+    blk: Dict[str, Any],
+    x: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask: torch.Tensor,
+    cfg: LlamaConfig,
+    kv_cache=None,
+    cache_index=None,
+    capture: bool = False,
+    fused: bool = True,
+):
+    """One transformer block. Returns (out, kv_cache, captures); `captures`
+    maps each linear name to the activation that enters it."""
+    caps: Dict[str, torch.Tensor] = {}
+    B, S, _ = x.shape
+    q_dim = cfg.num_heads * cfg.head_dim
+    kv_dim = cfg.num_kv_heads * cfg.head_dim
+
+    # decode megakernel: the whole block in one launch (ops/block_fused.py)
+    if (fused and not capture and "mega" in blk and B == 1 and S == 1
+            and isinstance(kv_cache, dict)
+            and kv_cache["k"].shape[1] % 128 == 0
+            and not (isinstance(cache_index, torch.Tensor) and cache_index.ndim > 0)):
+        from ..ops.block_fused import block_decode_mega
+
+        x_out, new_cache = block_decode_mega(
+            blk, blk["mega"], x, cos.reshape(-1)[-cfg.head_dim:],
+            sin.reshape(-1)[-cfg.head_dim:], kv_cache, int(cache_index), cfg)
+        return x_out, new_cache, caps
+
+    h = rms_norm(x, blk["input_norm"], cfg.rms_eps)
+    if capture:
+        caps["q_proj"] = caps["k_proj"] = caps["v_proj"] = h
+    if "qkv_proj" in blk:
+        qkv = quant_linear_apply(blk["qkv_proj"], h, fused=fused)
+        q = qkv[..., :q_dim]
+        k = qkv[..., q_dim:q_dim + kv_dim]
+        v = qkv[..., q_dim + kv_dim:]
+    else:
+        q = quant_linear_apply(blk["q_proj"], h, fused=fused)
+        k = quant_linear_apply(blk["k_proj"], h, fused=fused)
+        v = quant_linear_apply(blk["v_proj"], h, fused=fused)
+
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = apply_rope(q, cos, sin, cfg)
+    k = apply_rope(k, cos, sin, cfg)
+
+    if isinstance(kv_cache, dict):
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        _upd(kv_cache["k"], kq, cache_index)
+        _upd(kv_cache["v"], vq, cache_index)
+        _upd(kv_cache["k_scale"], ks, cache_index)
+        _upd(kv_cache["v_scale"], vs, cache_index)
+        k_all = (kv_cache["k"].to(torch.float32) * kv_cache["k_scale"][..., None]).to(q.dtype)
+        v_all = (kv_cache["v"].to(torch.float32) * kv_cache["v_scale"][..., None]).to(q.dtype)
+        new_cache = kv_cache
+    elif kv_cache is not None:
+        ck, cv = kv_cache
+        _upd(ck, k, cache_index)
+        _upd(cv, v, cache_index)
+        k_all, v_all = ck, cv
+        new_cache = (ck, cv)
+    else:
+        k_all, v_all = k, v
+        new_cache = None
+
+    attn = attention(q, k_all.to(q.dtype), v_all.to(q.dtype), mask, cfg)
+    attn = attn.reshape(B, S, q_dim)
+    if capture:
+        caps["o_proj"] = attn
+    x = x + quant_linear_apply(blk["o_proj"], attn, fused=fused)
+    return _mlp_tail(blk, x, cfg, caps, capture, fused), new_cache, caps
+
+
+def _mlp_tail(blk, x, cfg: LlamaConfig, caps, capture: bool, fused: bool):
+    h = rms_norm(x, blk["post_norm"], cfg.rms_eps)
+    if capture:
+        caps["gate_proj"] = caps["up_proj"] = h
+    if "gateup_proj" in blk:
+        gu = quant_linear_apply(blk["gateup_proj"], h, fused=fused)
+        gate = gu[..., :cfg.intermediate_size]
+        up = gu[..., cfg.intermediate_size:]
+    else:
+        gate = quant_linear_apply(blk["gate_proj"], h, fused=fused)
+        up = quant_linear_apply(blk["up_proj"], h, fused=fused)
+    act = torch.nn.functional.silu(gate) * up
+    if capture:
+        caps["down_proj"] = act
+    return x + quant_linear_apply(blk["down_proj"], act, fused=fused)
+
+
+def causal_mask(seq_len: int, device=None) -> torch.Tensor:
+    return torch.tril(torch.ones(seq_len, seq_len, dtype=torch.bool, device=device))
+
+
+def embed(params, input_ids):
+    return params["embed"][input_ids]
+
+
+def unembed(params, cfg: LlamaConfig, h, fused=True):
+    if cfg.tie_embeddings:
+        return h @ params["embed"].t().to(h.dtype)
+    return quant_linear_apply(params["lm_head"], h, fused=fused)
+
+
+def forward(params, cfg: LlamaConfig, input_ids: torch.Tensor, fused: bool = True):
+    """Full forward: input_ids [B,S] -> logits [B,S,V] (prefill / eval path)."""
+    B, S = input_ids.shape
+    x = embed(params, input_ids)
+    cos, sin = rope_tables(cfg, torch.arange(S, device=x.device))
+    mask = causal_mask(S, x.device)
+    for blk in params["layers"]:
+        x, _, _ = block_apply(blk, x, cos, sin, mask, cfg, fused=fused)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return unembed(params, cfg, x, fused=fused)
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -100):
+    """Token-mean NLL over shifted (logits[:, :-1], labels[:, 1:]); returns
+    (loss, count)."""
+    lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    tgt = labels[:, 1:]
+    valid = tgt != ignore
+    tgt_safe = torch.where(valid, tgt, torch.zeros_like(tgt))
+    nll = -torch.gather(lp, -1, tgt_safe[..., None].to(torch.long))[..., 0]
+    count = valid.sum()
+    loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / torch.clamp(count, min=1)
+    return loss, count

@@ -1,0 +1,59 @@
+"""Synthetic packed Llama weights built on the device from a seed.
+
+Port of `build_quantized_llama_on_device` in the reference's bench.py: every
+linear is a random normal matrix scaled by in_features**-0.5, fake-quantized
+symmetric per-group, mapped to its integer grid and packed words-major, all
+on `device`. One linear is quantized and packed at a time, so the peak memory
+stays near the packed model plus one float32 weight matrix.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import packing, qparams
+from ..core.device import resolve_device
+from ..core.qparams import qrange
+from .llama import LlamaConfig
+from .quant_linear import QuantizedLinear, QuantSpec
+
+
+def build_quantized_llama(cfg: LlamaConfig, bits: int = 4, groupsize: int = 128,
+                          dtype=torch.bfloat16, seed: int = 0, device=None):
+    """Params dict of a packed int`bits` per-group Llama with random weights."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = qrange(bits, True)
+    spec = QuantSpec(wbit=bits, w_qtype="per_group", w_groupsize=groupsize, w_packed=True)
+
+    def lin(out_f, in_f):
+        w = torch.randn(out_f, in_f, generator=gen, device=dev) * (in_f ** -0.5)
+        fake, scale, zero = qparams.quantize_dequantize(w, bits, "per_group", groupsize)
+        del w
+        ints = qparams.quantize_to_int(fake, scale, zero, bits, "per_group", groupsize)
+        del fake
+        return QuantizedLinear(spec=spec, out_features=out_f, in_features=in_f,
+                               packed=packing.pack_weight_device(ints, bits, rng),
+                               w_scale=scale, w_zero=zero)
+
+    h, q_dim = cfg.hidden_size, cfg.num_heads * cfg.head_dim
+    kv_dim = cfg.num_kv_heads * cfg.head_dim
+    layers = []
+    for _ in range(cfg.num_layers):
+        layers.append({
+            "input_norm": torch.ones(h, dtype=dtype, device=dev),
+            "post_norm": torch.ones(h, dtype=dtype, device=dev),
+            "q_proj": lin(q_dim, h),
+            "k_proj": lin(kv_dim, h),
+            "v_proj": lin(kv_dim, h),
+            "o_proj": lin(h, q_dim),
+            "gate_proj": lin(cfg.intermediate_size, h),
+            "up_proj": lin(cfg.intermediate_size, h),
+            "down_proj": lin(h, cfg.intermediate_size),
+        })
+    embed = (torch.randn(cfg.vocab_size, h, generator=gen, device=dev) * 0.02).to(dtype)
+    return {
+        "embed": embed,
+        "layers": layers,
+        "final_norm": torch.ones(h, dtype=dtype, device=dev),
+        "lm_head": lin(cfg.vocab_size, h),
+    }

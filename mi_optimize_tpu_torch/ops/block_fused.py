@@ -1,0 +1,272 @@
+"""Decode block megakernel: one decoder layer for one token in ONE launch.
+
+Kernel: csrc/block_fused.cu (with csrc/decode_common.cuh), which replaces the
+TPU kernel mi_optimize_tpu/ops/block_fused.py::_kernel (block_decode_mega).
+It computes rmsnorm, the QKV dequant dot, RoPE, the new int8 k/v row and its
+scales, attention over the int8 cache (live prefix only, seeded with the new
+row), o_proj plus residual, rmsnorm, SwiGLU over gate/up/down, plus residual.
+
+What bounds it on an H100: the layer's packed weights and scales, read once
+(about 100 MB at Llama-2-7B width, int4 g128), over the memory rate. The
+kernel is one cooperative launch whose five phases are separated by grid
+barriers, so nothing but the packed words and a few f32 vectors that stay in
+L2 crosses device memory, and a layer costs one launch instead of a dozen.
+
+The reference's TPU layout tricks (the planar nibble permutation, the one-hot
+scale selection, 8-row padding) do not come along: the kernel reads the
+natural words-major packed matrices and f32 [ngroups, N] scale and bias
+tables (`prepare_block`). On CPU tensors the wrapper runs the plain version,
+`block_decode_ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict
+
+import torch
+
+from ..models.llama import quantize_kv
+from ..models.quant_linear import group_size
+from .dequant_matmul import kernel_tables, qdot_ref
+
+launches = 0  # kernel launches; chip_smoke.py resets and reads it
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LINEARS = ("qkv_proj", "o_proj", "gateup_proj", "down_proj")
+
+
+def _lin_ok(lin, cfg) -> bool:
+    if lin is None or lin.packed is None:
+        return False
+    if lin.bias is not None or lin.smooth_factor is not None:
+        return False
+    if lin.a_scale is not None or lin.perm is not None:
+        return False
+    s = lin.spec
+    if s.wbit not in (2, 4, 8) or s.abit is not None:
+        return False
+    if s.w_qtype not in ("per_group", "per_channel"):
+        return False
+    g = group_size(lin)
+    return g % (32 // s.wbit) == 0 and lin.in_features % g == 0
+
+
+def block_mega_supported(blk: Dict[str, Any], cfg) -> bool:
+    """Whether the one-launch decode kernel applies to this block."""
+    if "qkv_proj" not in blk or "gateup_proj" not in blk:
+        return False
+    lins = [blk[n] for n in _LINEARS]
+    if not all(_lin_ok(l, cfg) for l in lins):
+        return False
+    if len({l.spec.wbit for l in lins}) != 1:
+        return False
+    if cfg.rotary_dim not in (-1, cfg.head_dim) or cfg.rope_interleaved:
+        return False
+    # one warp lane per 32 head dims, one thread per dim in the RoPE step
+    return cfg.head_dim % 32 == 0 and cfg.head_dim <= 256
+
+
+def prepare_block(blk: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The four fused linears' kernel-layout f32 [ngroups, N] scale (`*s`)
+    and dequant-bias (`*b`) tables: the tensors each linear keeps
+    (`kernel_tables`), not copies."""
+    out = {}
+    for key, name in (("q", "qkv_proj"), ("o", "o_proj"), ("gu", "gateup_proj"),
+                      ("d", "down_proj")):
+        out[key + "s"], out[key + "b"] = kernel_tables(blk[name])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _rope_rows(x, cos, sin):
+    half = x.shape[-1] // 2
+    return x * cos + torch.cat([-x[:, half:], x[:, :half]], dim=-1) * sin
+
+
+def attend_ref(q, kq, ks, vq, vs, k_hist, ks_hist, v_hist, vs_hist, pos, n_kv_heads):
+    """Attention of q [H, D] over the int8 history rows t < pos plus the new
+    (dequantized) row. Returns f32 [H*D]."""
+    H, D = q.shape
+    reps = H // n_kv_heads
+    kd = kq.to(torch.float32) * ks[:, None]
+    vd = vq.to(torch.float32) * vs[:, None]
+    k_all = torch.cat([k_hist[:pos].to(torch.float32) * ks_hist[:pos, :, None], kd[None]], 0)
+    v_all = torch.cat([v_hist[:pos].to(torch.float32) * vs_hist[:pos, :, None], vd[None]], 0)
+    qh = q.reshape(n_kv_heads, reps, D)
+    scores = torch.einsum("grd,tgd->grt", qh, k_all) * (1.0 / float(D) ** 0.5)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("grt,tgd->grd", p, v_all).reshape(H * D)
+
+
+def norm_row(xf, w, eps, dtype):
+    """rms_norm with the model-dtype rounding points of the decode kernels:
+    ((x*rstd).to(dtype) * w.to(dtype)).to(f32)."""
+    rstd = torch.rsqrt(xf.square().mean() + eps)
+    return ((xf * rstd).to(dtype) * w.to(dtype)).to(torch.float32)
+
+
+def layer_ref(x32, dtype, lin, tabs, n1, n2, cos, sin, hist, pos, cfg):
+    """One decoder layer for one token on the plain path. x32: f32 [h]
+    residual. lin: packed words (qkv, o, gu, d); tabs: (scale, bias) per
+    linear; hist: (k, k_scale, v, v_scale) history [T, Hkv(, D)].
+    Returns (x_out f32 [h], krow, ks, vrow, vs)."""
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qdim, kvdim, inter = H * D, Hkv * D, cfg.intermediate_size
+    bits, groups = lin["bits"], lin["groups"]
+
+    def dot(vec, name):
+        s, b = tabs[name]
+        return qdot_ref(vec[None], lin[name], s, b, bits, groups[name])[0]
+
+    h = norm_row(x32, n1, cfg.rms_eps, dtype)
+    qkv = dot(h, "qkv")
+    q = _rope_rows(qkv[:qdim].reshape(H, D), cos, sin)
+    k = _rope_rows(qkv[qdim:qdim + kvdim].reshape(Hkv, D), cos, sin)
+    v = qkv[qdim + kvdim:].reshape(Hkv, D)
+    kq, ks = quantize_kv(k[None, None])
+    vq, vs = quantize_kv(v[None, None])
+    kq, ks, vq, vs = kq[0, 0], ks[0, 0], vq[0, 0], vs[0, 0]
+    attn = attend_ref(q, kq, ks, vq, vs, hist[0], hist[1], hist[2], hist[3], pos, Hkv)
+    xmid = x32 + dot(attn, "o")
+    h2 = norm_row(xmid, n2, cfg.rms_eps, dtype)
+    gu = dot(h2, "gu")
+    g, u = gu[:inter], gu[inter:]
+    act = g * (1.0 / (1.0 + torch.exp(-g))) * u
+    return xmid + dot(act, "d"), kq, ks, vq, vs
+
+
+def _block_lin(blk, mega):
+    lin = {"qkv": blk["qkv_proj"].packed, "o": blk["o_proj"].packed,
+           "gu": blk["gateup_proj"].packed, "d": blk["down_proj"].packed,
+           "bits": blk["qkv_proj"].spec.wbit,
+           "groups": {k: group_size(blk[n]) for k, n in
+                      (("qkv", "qkv_proj"), ("o", "o_proj"), ("gu", "gateup_proj"),
+                       ("d", "down_proj"))}}
+    tabs = {k: (mega[k + "s"], mega[k + "b"]) for k in ("q", "o", "gu", "d")}
+    tabs["qkv"] = tabs.pop("q")
+    return lin, tabs
+
+
+def block_decode_ref(blk, mega, x, cos, sin, cache, pos: int, cfg):
+    """Plain PyTorch version of the kernel. x [1,1,h] -> (x_out [1,h] in x's
+    dtype, krow [Hkv,D] int8, vrow, ks [Hkv] f32, vs)."""
+    lin, tabs = _block_lin(blk, mega)
+    hist = (cache["k"][0], cache["k_scale"][0], cache["v"][0], cache["v_scale"][0])
+    xo, kq, ks, vq, vs = layer_ref(
+        x.reshape(-1).to(torch.float32), x.dtype, lin, tabs, blk["input_norm"],
+        blk["post_norm"], cos.to(torch.float32), sin.to(torch.float32), hist, pos, cfg)
+    return xo.to(x.dtype)[None], kq, vq, ks, vs
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+class _BlockArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "x", "n1", "n2", "qkv", "qs", "qb", "o", "os", "ob", "gu", "gus", "gub",
+        "dn", "ds", "db", "cos", "sin", "ck", "cv", "cks", "cvs",
+        "x_out", "krow", "vrow", "ks", "vs", "scratch")] + [
+        (n, ctypes.c_int) for n in (
+            "hidden", "n_heads", "n_kv_heads", "head_dim", "inter", "pos",
+            "g_qkv", "g_o", "g_gu", "g_d")] + [("eps", ctypes.c_float)]
+
+
+def _check_cuda(name, t, dev, dtype=None, shape=None):
+    if t.device != dev:
+        raise ValueError(f"{name} must be on {dev}, not {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, not {tuple(t.shape)}")
+
+
+def _block_decode_cuda(blk, mega, x, cos, sin, cache, pos: int, cfg):
+    global launches
+    from . import _build
+
+    dev, dt = x.device, x.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"block_decode_mega kernel takes float32 or bfloat16, not {dt}")
+    if not block_mega_supported(blk, cfg):
+        raise ValueError("block does not meet the decode kernel's contract")
+    B, T = cache["k"].shape[:2]
+    if B != 1:
+        raise ValueError(f"the decode kernel takes a batch-1 cache, not batch {B}")
+    if not 0 <= pos < T:
+        raise ValueError(f"position {pos} outside the cache of {T} rows")
+    h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qdim, kvdim, inter = H * D, Hkv * D, cfg.intermediate_size
+    xr = x.reshape(h).contiguous()
+    n1 = blk["input_norm"].to(dt).contiguous()
+    n2 = blk["post_norm"].to(dt).contiguous()
+    cos = cos.to(torch.float32).contiguous()
+    sin = sin.to(torch.float32).contiguous()
+    for name, t, n in (("input norm", n1, h), ("post norm", n2, h), ("cos", cos, D),
+                       ("sin", sin, D)):
+        _check_cuda(name, t, dev, shape=(n,))
+    ck, cv = cache["k"][0], cache["v"][0]
+    cks, cvs = cache["k_scale"][0], cache["v_scale"][0]
+    for name, t, want, shape in (
+            ("k cache", ck, torch.int8, (T, Hkv, D)), ("v cache", cv, torch.int8, (T, Hkv, D)),
+            ("k scales", cks, torch.float32, (T, Hkv)), ("v scales", cvs, torch.float32, (T, Hkv))):
+        _check_cuda(name, t, dev, want, shape)
+    lins = [blk[n] for n in _LINEARS]
+    vpw = 32 // lins[0].spec.wbit
+    for l, n_out, k_in in zip(lins, (qdim + 2 * kvdim, h, 2 * inter, h), (h, qdim, h, inter)):
+        _check_cuda("packed weight", l.packed, dev, torch.int32, (k_in // vpw, n_out))
+    for key, l in zip(("q", "o", "gu", "d"), lins):
+        shape = (l.in_features // group_size(l), l.out_features)
+        _check_cuda(f"mega[{key}s]", mega[key + "s"], dev, torch.float32, shape)
+        _check_cuda(f"mega[{key}b]", mega[key + "b"], dev, torch.float32, shape)
+
+    x_out = torch.empty(h, dtype=dt, device=dev)
+    krow = torch.empty(Hkv, D, dtype=torch.int8, device=dev)
+    vrow = torch.empty_like(krow)
+    ks = torch.empty(Hkv, dtype=torch.float32, device=dev)
+    vs = torch.empty_like(ks)
+    scratch = torch.empty(h + qdim + 2 * kvdim + qdim + h + inter, dtype=torch.float32,
+                          device=dev)
+    p = lambda t: t.data_ptr()
+    args = _BlockArgs(
+        p(xr), p(n1), p(n2),
+        p(lins[0].packed), p(mega["qs"]), p(mega["qb"]),
+        p(lins[1].packed), p(mega["os"]), p(mega["ob"]),
+        p(lins[2].packed), p(mega["gus"]), p(mega["gub"]),
+        p(lins[3].packed), p(mega["ds"]), p(mega["db"]),
+        p(cos), p(sin), p(ck), p(cv), p(cks), p(cvs),
+        p(x_out), p(krow), p(vrow), p(ks), p(vs), p(scratch),
+        h, H, Hkv, D, inter, pos, *(group_size(l) for l in lins), cfg.rms_eps)
+    fn = _build.load("block_fused").mi_block_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_BlockArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    err = fn(ctypes.byref(args), lins[0].spec.wbit, _DTYPES[dt], _build.stream_ptr(dev))
+    _build.check(err, "block_decode_mega")
+    launches += 1
+    return x_out[None], krow, vrow, ks, vs
+
+
+def block_decode_rows(blk, mega, x, cos, sin, cache, pos: int, cfg):
+    """(x_out [1,h], krow, vrow, ks, vs): the kernel on GPU tensors, the plain
+    version on CPU tensors."""
+    if x.is_cuda:
+        return _block_decode_cuda(blk, mega, x, cos, sin, cache, pos, cfg)
+    return block_decode_ref(blk, mega, x, cos, sin, cache, pos, cfg)
+
+
+def block_decode_mega(blk, mega, x, cos, sin, cache, pos: int, cfg):
+    """One decoder block, one launch. x [1,1,h] -> (x_out like x, cache).
+
+    The cache is read by the kernel; the new int8 row and scales are then
+    scattered into it in place at `pos`."""
+    x_out, krow, vrow, ks, vs = block_decode_rows(blk, mega, x, cos, sin, cache, pos, cfg)
+    cache["k"][0, pos] = krow
+    cache["v"][0, pos] = vrow
+    cache["k_scale"][0, pos] = ks
+    cache["v_scale"][0, pos] = vs
+    return x_out.reshape(x.shape), cache

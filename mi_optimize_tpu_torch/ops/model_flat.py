@@ -1,0 +1,187 @@
+"""Flat whole-model decode: every layer, the final rmsnorm, the packed
+lm_head and a first-index argmax for one token in ONE launch.
+
+Kernel: csrc/model_flat.cu (with csrc/decode_common.cuh), which replaces the
+TPU kernel mi_optimize_tpu/ops/model_flat.py::_kernel_flat
+(model_decode_flat).
+
+What bounds it on an H100: the whole packed model plus the lm_head, read
+once per token (about 3.5 GB at Llama-2-7B, int4 g128) over the memory rate.
+The kernel is one cooperative launch that runs the layers of the per-layer
+decode kernel back to back, keeping the residual in f32 across all of them,
+with grid barriers in place of launches; the logits and the argmax follow
+after one more barrier. Symmetric grids only: the dequant bias is -zc*s from
+one constant per linear, so no bias table is streamed.
+
+Layout: the port's `serving.megadecode.stack_serving` stacks the natural
+words-major per-layer arrays into [L, KW, N] with f32 scales [L, K/g, N];
+the reference's TPU tiling of the intermediate axis is not copied. On CPU
+tensors the wrapper runs the plain version, `model_decode_flat_ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models.quant_linear import group_size
+from .block_fused import _check_cuda, layer_ref, norm_row
+from .dequant_matmul import kernel_tables, qdot_ref
+
+launches = 0  # kernel launches; chip_smoke.py resets and reads it
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BLOCKS = 1024  # cap on the cooperative grid (per-block argmax slots)
+
+
+def stack_flat_params(model, base_stack, base_meta):
+    """Extend a `stack_serving` stack with the lm_head, or None.
+
+    Requires every linear (lm_head included) on a symmetric grid (one
+    constant zero per stack, so the bias is computed in-kernel) and a packed
+    lm_head. Returns (stack, meta) with meta = base meta + (g_ue, zc_ue, vocab)."""
+    from ..core.qparams import qrange
+
+    bits, g_qkv, g_o, g_gu, g_d, zc_qkv, zc_o, zc_gu, zc_d = base_meta
+    if None in (zc_qkv, zc_o, zc_gu, zc_d):
+        return None
+    lm = model.params.get("lm_head")
+    cfg = model.config
+    if lm is None or getattr(lm, "packed", None) is None:
+        return None
+    s = lm.spec
+    if s.wbit != bits or s.abit is not None or lm.bias is not None \
+            or lm.smooth_factor is not None or lm.perm is not None:
+        return None
+    if s.w_qtype not in ("per_group", "per_channel"):
+        return None
+    g_ue = group_size(lm)
+    if g_ue % (32 // bits) or cfg.hidden_size % g_ue:
+        return None
+    z = lm.w_zero.reshape(-1)
+    if not bool(torch.all(z == z[0])):
+        return None
+    zc_ue = float(z[0]) - float(qrange(s.wbit, s.w_unsigned).qmin)
+    ues, _ = kernel_tables(lm)
+    stack = dict(base_stack)
+    stack.update({"ue": lm.packed, "ues": ues,
+                  "fnorm": model.params["final_norm"].reshape(-1)})
+    return stack, tuple(base_meta) + (g_ue, zc_ue, lm.out_features)
+
+
+def model_decode_flat_ref(stack, x, cossin, cache, pos: int, cfg, meta):
+    """Plain PyTorch version of the kernel (same signature and outputs as
+    `model_decode_flat`)."""
+    (bits, g_qkv, g_o, g_gu, g_d, zc_qkv, zc_o, zc_gu, zc_d, g_ue, zc_ue, vocab) = meta
+    D, L = cfg.head_dim, cfg.num_layers
+    cos = cossin.reshape(-1)[:D].to(torch.float32)
+    sin = cossin.reshape(-1)[D:].to(torch.float32)
+    dt = x.dtype
+    xr = x.reshape(-1).to(torch.float32)
+    groups = {"qkv": g_qkv, "o": g_o, "gu": g_gu, "d": g_d}
+    zcs = {"qkv": zc_qkv, "o": zc_o, "gu": zc_gu, "d": zc_d}
+    skey = {"qkv": "qs", "o": "os", "gu": "gus", "d": "ds"}
+    wkey = {"qkv": "qkv", "o": "o", "gu": "gu", "d": "d"}
+    kvrows, kvsc = [], []
+    for l in range(L):
+        lin = {k: stack[wkey[k]][l] for k in groups}
+        lin.update(bits=bits, groups=groups)
+        tabs = {}
+        for k in groups:
+            sc = stack[skey[k]][l]
+            tabs[k] = (sc, sc * (-zcs[k]))
+        kv, ks = cache["kv"][l], cache["kv_scale"][l]
+        hist = (kv[:, 0], ks[:, 0], kv[:, 1], ks[:, 1])
+        xr, kq, ksc, vq, vsc = layer_ref(xr, dt, lin, tabs, stack["n1"][l], stack["n2"][l],
+                                         cos, sin, hist, pos, cfg)
+        kvrows.append(torch.stack([kq, vq]))
+        kvsc.append(torch.stack([ksc, vsc])[:, None])
+    hh = norm_row(xr, stack["fnorm"], cfg.rms_eps, dt)
+    logits = qdot_ref(hh[None], stack["ue"], stack["ues"], stack["ues"] * (-zc_ue), bits, g_ue)
+    tok = torch.argmax(logits[0]).reshape(1).to(torch.int32)
+    return tok, logits, torch.stack(kvrows), torch.stack(kvsc)
+
+
+class _FlatArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "x", "n1", "n2", "qkv", "qs", "o", "os", "gu", "gus", "dn", "ds",
+        "ue", "ues", "fnorm", "cos", "sin", "kv", "kvs",
+        "token", "logits", "kvrow", "kvsc", "scratch", "part_idx")] + [
+        (n, ctypes.c_int) for n in (
+            "n_layers", "hidden", "n_heads", "n_kv_heads", "head_dim", "inter", "vocab",
+            "max_len", "pos", "g_qkv", "g_o", "g_gu", "g_d", "g_ue", "max_blocks")] + [
+        (n, ctypes.c_float) for n in ("zc_qkv", "zc_o", "zc_gu", "zc_d", "zc_ue", "eps")]
+
+
+def _model_decode_flat_cuda(stack, x, cossin, cache, pos: int, cfg, meta):
+    global launches
+    from . import _build
+
+    (bits, g_qkv, g_o, g_gu, g_d, zc_qkv, zc_o, zc_gu, zc_d, g_ue, zc_ue, vocab) = meta
+    dev, dt = x.device, x.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"model_decode_flat kernel takes float32 or bfloat16, not {dt}")
+    h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L, inter = cfg.num_layers, cfg.intermediate_size
+    qdim, kvdim = H * D, Hkv * D
+    if D % 32 or D > 256:
+        raise ValueError(f"head_dim {D} outside the decode kernel's contract")
+    T = cache["kv"].shape[1]
+    if not 0 <= pos < T:
+        raise ValueError(f"position {pos} outside the cache of {T} rows")
+    xr = x.reshape(h).contiguous()
+    n1 = stack["n1"].to(dt).contiguous()
+    n2 = stack["n2"].to(dt).contiguous()
+    fnorm = stack["fnorm"].to(dt).contiguous()
+    cos = cossin.reshape(-1)[:D].to(torch.float32).contiguous()
+    sin = cossin.reshape(-1)[D:].to(torch.float32).contiguous()
+    vpw = 32 // bits
+    nqkv = qdim + 2 * kvdim
+    for k, sk, k_in, n_out, g in (("qkv", "qs", h, nqkv, g_qkv), ("o", "os", qdim, h, g_o),
+                                  ("gu", "gus", h, 2 * inter, g_gu), ("d", "ds", inter, h, g_d)):
+        _check_cuda(f"stack[{k}]", stack[k], dev, torch.int32, (L, k_in // vpw, n_out))
+        _check_cuda(f"stack[{sk}]", stack[sk], dev, torch.float32, (L, k_in // g, n_out))
+    _check_cuda("stack[ue]", stack["ue"], dev, torch.int32, (h // vpw, vocab))
+    _check_cuda("stack[ues]", stack["ues"], dev, torch.float32, (h // g_ue, vocab))
+    for name, t, shape in (("n1", n1, (L, h)), ("n2", n2, (L, h)), ("final norm", fnorm, (h,)),
+                           ("cos", cos, (D,)), ("sin", sin, (D,))):
+        _check_cuda(name, t, dev, shape=shape)
+    _check_cuda("kv cache", cache["kv"], dev, torch.int8, (L, T, 2, Hkv, D))
+    _check_cuda("kv scales", cache["kv_scale"], dev, torch.float32, (L, T, 2, Hkv))
+
+    token = torch.empty(1, dtype=torch.int32, device=dev)
+    logits = torch.empty(1, vocab, dtype=torch.float32, device=dev)
+    kvrows = torch.empty(L, 2, Hkv, D, dtype=torch.int8, device=dev)
+    kvsc = torch.empty(L, 2, 1, Hkv, dtype=torch.float32, device=dev)
+    scratch = torch.empty(h + qdim + 2 * kvdim + qdim + h + inter + _MAX_BLOCKS,
+                          dtype=torch.float32, device=dev)
+    part_idx = torch.empty(_MAX_BLOCKS, dtype=torch.int32, device=dev)
+    p = lambda t: t.data_ptr()
+    args = _FlatArgs(
+        p(xr), p(n1), p(n2), p(stack["qkv"]), p(stack["qs"]), p(stack["o"]), p(stack["os"]),
+        p(stack["gu"]), p(stack["gus"]), p(stack["d"]), p(stack["ds"]),
+        p(stack["ue"]), p(stack["ues"]), p(fnorm), p(cos), p(sin),
+        p(cache["kv"]), p(cache["kv_scale"]),
+        p(token), p(logits), p(kvrows), p(kvsc), p(scratch), p(part_idx),
+        L, h, H, Hkv, D, inter, vocab, T, pos, g_qkv, g_o, g_gu, g_d, g_ue, _MAX_BLOCKS,
+        zc_qkv, zc_o, zc_gu, zc_d, zc_ue, cfg.rms_eps)
+    fn = _build.load("model_flat").mi_model_decode_flat
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_FlatArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    err = fn(ctypes.byref(args), bits, _DTYPES[dt], _build.stream_ptr(dev))
+    _build.check(err, "model_decode_flat")
+    launches += 1
+    return token, logits, kvrows, kvsc
+
+
+def model_decode_flat(stack, x, cossin, cache, pos: int, cfg, meta):
+    """One decoded token, one launch: x [1,1,h] (embedding row) ->
+    (token [1] int32, logits [1, V] f32, kvrows [L,2,Hkv,D] int8,
+    kvscales [L,2,1,Hkv] f32). The kernel on GPU tensors, the plain version
+    on CPU tensors.
+
+    cache: {"kv": [L,T,2,Hkv,D] int8, "kv_scale": [L,T,2,Hkv] f32}. The
+    caller scatters the rows into it."""
+    if x.is_cuda:
+        return _model_decode_flat_cuda(stack, x, cossin, cache, pos, cfg, meta)
+    return model_decode_flat_ref(stack, x, cossin, cache, pos, cfg, meta)

@@ -1,0 +1,181 @@
+"""The port's CUDA kernels against their plain versions on the card, at small
+shapes and in float32, over the options the main path does not reach:
+int2/int8 and per-channel weights, ragged M and N, head_dim 64, positions on
+and off the 128-row boundary.
+
+Needs an NVIDIA GPU and nvcc; every test skips without one. On the card:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+(`--noconftest`: the suite's conftest imports JAX, which the port's machine
+does not have; this file imports only torch, numpy and the port.)
+
+Tolerances: kernel and plain version sum in different orders in float32, so
+outputs agree to 1e-4 of their largest magnitude; int8 rows to one code on
+at most 0.1% of entries; greedy tokens exactly."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from mi_optimize_tpu_torch.core import packing, qparams
+from mi_optimize_tpu_torch.core.qparams import qrange
+from mi_optimize_tpu_torch.models import llama
+from mi_optimize_tpu_torch.models.llama import LlamaConfig
+from mi_optimize_tpu_torch.models.model import Model
+from mi_optimize_tpu_torch.models.quant_linear import QuantizedLinear, QuantSpec, group_size
+from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
+from mi_optimize_tpu_torch.ops import block_fused, dequant_matmul, model_flat
+from mi_optimize_tpu_torch.serving import engine
+from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat, stack_flat
+from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+
+pytestmark = pytest.mark.cuda
+
+RTOL = 1e-4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, rtol=RTOL):
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= rtol * max(float(ref.float().abs().max()), 1e-6), err
+
+
+def _rows_match(got, ref):
+    d = (got.cpu().to(torch.int32) - ref.cpu().to(torch.int32)).abs()
+    assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-3 * d.numel()
+
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    if isinstance(tree, QuantizedLinear):
+        return dataclasses.replace(tree, **{
+            f.name: getattr(tree, f.name).to(device) for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)})
+    return tree
+
+
+def _linear(out_f, in_f, bits, qtype, groupsize, symmetric, seed):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(out_f, in_f, generator=g) * in_f ** -0.5
+    fake, scale, zero = qparams.quantize_dequantize(w, bits, qtype, groupsize, symmetric)
+    ints = qparams.quantize_to_int(fake, scale, zero, bits, qtype, groupsize)
+    spec = QuantSpec(wbit=bits, w_qtype=qtype, w_groupsize=groupsize, w_symmetric=symmetric,
+                     w_packed=True)
+    return QuantizedLinear(spec=spec, out_features=out_f, in_features=in_f,
+                           packed=packing.pack_weight_device(ints, bits, qrange(bits, True)),
+                           w_scale=scale, w_zero=zero)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,qtype,groupsize,symmetric", [
+    (4, "per_group", 128, True), (4, "per_group", 32, False), (2, "per_group", 64, True),
+    (8, "per_group", 128, False), (4, "per_channel", -1, True), (8, "per_channel", -1, True)])
+@pytest.mark.parametrize("M", [1, 5, 8, 9, 33, 128])
+def test_dequant_matmul(dev, dtype, bits, qtype, groupsize, symmetric, M):
+    K, N = 384, 200  # N not a multiple of the 32- or 64-column tiles
+    lin = _to(_linear(N, K, bits, qtype, groupsize, symmetric, seed=M + bits), dev)
+    st, bt = dequant_matmul.kernel_tables(lin)
+    x = torch.randn(M, K, generator=torch.Generator().manual_seed(M)).to(dtype).to(dev)
+    before = dequant_matmul.launches
+    y = dequant_matmul.packed_matmul(x, lin.packed, st, bt, bits, group_size(lin))
+    assert dequant_matmul.launches == before + 1 and y.dtype == dtype
+    ref = dequant_matmul.dequant_matmul_ref(x, lin.packed, st, bt, bits, group_size(lin))
+    _close(y, ref, RTOL if dtype == torch.float32 else 2e-2)
+
+
+def _small(device, bits=4, groupsize=128, head_dim=128, layers=2, seed=0):
+    heads = 512 // head_dim
+    cfg = LlamaConfig(vocab_size=160, hidden_size=512, intermediate_size=1024, num_layers=layers,
+                      num_heads=heads, num_kv_heads=heads // 2, head_dim=head_dim,
+                      max_seq_len=512)
+    p = build_quantized_llama(cfg, bits=bits, groupsize=groupsize, dtype=torch.float32,
+                              seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    for blk in p["layers"]:
+        for k in ("input_norm", "post_norm"):
+            blk[k] = 1.0 + 0.1 * torch.randn(cfg.hidden_size, generator=gen)
+    cpu = fuse_for_serving(Model(config=cfg, params=p))
+    return cfg, cpu, fuse_for_serving(Model(config=cfg, params=_to(p, device)))
+
+
+def _cache(cfg, T, pos, layers=1, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    shape = (layers, T, cfg.num_kv_heads, cfg.head_dim)
+    c = {f: torch.randint(-127, 128, shape, generator=g).to(torch.int8) for f in ("k", "v")}
+    for f in ("k_scale", "v_scale"):
+        c[f] = torch.rand(shape[:3], generator=g) * 0.02 + 1e-3
+    for v in c.values():
+        v[:, pos:] = 0
+    return c
+
+
+@pytest.mark.parametrize("bits,head_dim", [(4, 128), (8, 128), (2, 128), (4, 64)])
+@pytest.mark.parametrize("T,pos", [(128, 0), (256, 127), (256, 130), (384, 383)])
+def test_block_decode(dev, bits, head_dim, T, pos):
+    cfg, _, gpu = _small(dev, bits=bits, head_dim=head_dim, seed=bits + pos)
+    blk = gpu.params["layers"][1]
+    cache = _to(_cache(cfg, T, pos, seed=pos), dev)
+    x = torch.randn(1, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(T)).to(dev)
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+    args = (blk, blk["mega"], x, cos.reshape(-1), sin.reshape(-1), cache, pos, cfg)
+    got = block_fused.block_decode_rows(*args)
+    ref = block_fused.block_decode_ref(*args)
+    _close(got[0], ref[0])
+    _rows_match(got[1], ref[1])
+    _rows_match(got[2], ref[2])
+    _close(got[3], ref[3], 1e-5)
+    _close(got[4], ref[4], 1e-5)
+
+
+@pytest.mark.parametrize("bits,head_dim", [(4, 128), (8, 64)])
+def test_model_decode_flat(dev, bits, head_dim):
+    cfg, _, gpu = _small(dev, bits=bits, head_dim=head_dim, layers=3, seed=7)
+    fstack, fmeta = stack_flat(gpu)
+    T, pos = 256, 150
+    cache = stack_cache_flat([_to(_cache(cfg, T, pos, seed=l), dev) for l in range(3)])
+    x = llama.embed(gpu.params, torch.tensor([[9]], device=dev))
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+    cossin = torch.cat([cos.reshape(-1), sin.reshape(-1)])
+    got = model_flat.model_decode_flat(fstack, x, cossin, cache, pos, cfg, fmeta)
+    ref = model_flat.model_decode_flat_ref(fstack, x, cossin, cache, pos, cfg, fmeta)
+    _close(got[1], ref[1])
+    assert int(got[0][0]) == int(ref[0][0]) == int(torch.argmax(got[1][0]))
+    _rows_match(got[2], ref[2])
+    _close(got[3], ref[3], 1e-5)
+
+
+def test_generate_and_flat_decode_match_the_cpu(dev):
+    """The slice on the card (all three kernels) against the plain versions
+    on the CPU: greedy tokens equal, prefill logits to 1e-4."""
+    cfg, cpu, gpu = _small(dev, seed=11)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 21))
+    counts = [m.launches for m in (dequant_matmul, block_fused, model_flat)]
+    outs = {}
+    for name, m in (("cpu", cpu), ("cuda", gpu)):
+        toks = engine.generate(m, prompt, max_new_tokens=6, cache_dtype=torch.int8)
+        d = m.params["embed"].device
+        log, cache = engine.prefill(m.params, cfg, torch.as_tensor(prompt, device=d),
+                                    engine.init_cache(cfg, 1, 256, torch.int8, device=d))
+        fstack, fmeta = stack_flat(m)
+        ftoks, _ = decode_loop_flat(m.params, fstack, fmeta, cfg, torch.argmax(log, -1)[:, None],
+                                    stack_cache_flat(cache), 21, 6)
+        outs[name] = (toks, log.cpu(), ftoks.cpu())
+    np.testing.assert_array_equal(outs["cuda"][0], outs["cpu"][0])
+    _close(outs["cuda"][1], outs["cpu"][1])
+    assert torch.equal(outs["cuda"][2], outs["cpu"][2])
+    after = [m.launches for m in (dequant_matmul, block_fused, model_flat)]
+    assert all(a > b for a, b in zip(after, counts))
