@@ -7,24 +7,39 @@ Phases:
   1. build the CUDA kernels under mi_optimize_tpu_torch/csrc/ with nvcc
      (one nvcc per source, all at once) into build/torch_kernels/;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's Llama-2-7B shapes in bf16, and time both;
-  3. serve the main path at Llama-2-7B width and depth (int4 g128 symmetric
-     packed weights made on the card from seed 0): three requests through
-     `generate` with an int8 KV cache (per-layer decode kernel), then one
-     128-token prefill plus a 128-token `decode_loop_flat` (whole-model
-     decode kernel); every kernel's launch counter must be > 0;
+     Llama-2-7B shapes of the paths below in bf16, and time both: the
+     dequant matmul, the per-layer and flat decode kernels, the whole-model
+     kernel on an asymmetric grid (bias tables streamed) and the batched
+     whole-model kernel at B = 8 (and B = 2 on the asymmetric grid);
+  3. serve three paths at Llama-2-7B width and depth (int4 g128 packed
+     weights made on the card from seed 0, int8 KV cache), each with the
+     launch counters set to 0 just before it and read just after:
+     a. three requests through `generate` (per-layer decode kernel), then
+        one 128-token prefill plus a 128-token `decode_loop_flat`
+        (whole-model flat kernel);
+     b. 24 requests through `ContinuousBatcher` (8 slots, max_len 512,
+        prompts of 16-256 tokens, 32 or 64 new tokens: slots free at
+        different steps and requests join mid-flight) on the batched
+        whole-model kernel;
+     c. a 128-token prefill plus 128 tokens of `decode_loop_model` on an
+        asymmetric-grid model (the whole-model kernel with bias tables);
+     every kernel must have launched on its path;
   4. check the outputs: tokens in range, logits finite, and on a small f32
-     model the card's prefill logits and greedy tokens agree with the plain
-     versions run on the CPU;
+     model the card's prefill logits and greedy tokens (generate, the flat
+     loop, the batcher with a mid-flight join, decode_loop_model on an
+     asymmetric grid) agree with the plain versions run on the CPU;
   5. where the time goes: torch.profiler device time by kernel and the
-     device busy share over a prefill, flat decode and per-layer decode.
+     device busy share over a prefill, flat decode, per-layer decode and 8
+     batcher steps with 8 active slots.
 
 Earlier lines report each phase; the line before the last is a JSON object
 with every kernel's launches, error, time, plain time, library time (torch's
-own int4 product for the 4-bit dequant_matmul rows) and bound; the last
-line is {"ok": true, "device": {...}}. Without a CUDA device the script
-exits with code 2 and prints no result. `--report PATH` also writes the
-whole report (per-kernel bytes and flops included) there as JSON.
+own int4 product for the 4-bit dequant_matmul rows; none for the decode
+kernels, since no single PyTorch call computes a decoder stack) and bound;
+the last line is {"ok": true, "device": {...}}. Without a CUDA device the
+script exits with code 2 and prints no result. `--report PATH` also writes
+the whole report (per-kernel bytes and flops, per-request latencies)
+there as JSON.
 """
 from __future__ import annotations
 
@@ -40,6 +55,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 TOL = 2e-2                  # max|kernel - plain| <= TOL * max|plain| in bf16
+F32_TOL = 1e-3              # the same in float32 (sum orders differ)
+DEPTH_GATE_POS = 64         # slots at or past this position are held in float32 at full depth
+WITNESS_RATIO = 3.0         # below it: batched drift <= this x the one-token kernel's
 SPIN_CYCLES = 4_000_000     # about 2 ms of device spin at the H100's clock
 
 
@@ -282,6 +300,207 @@ def check_flat(model, fstack, fmeta, cfg, dev, flush, reps, T=384, pos=200):
                  bytes=nb, flops=fl)]
 
 
+def code_diff(what, got, ref):
+    """Int8 rows [L, ...] of a whole-model kernel against the plain
+    version's: (max code difference and share of codes that differ in layer
+    0, the same over all layers), logged."""
+    d = (got.int() - ref.int()).abs()
+    st = (int(d[0].max()), float((d[0] > 0).float().mean()), int(d.max()),
+          float((d > 0).float().mean()))
+    log(f"  {what} int8 codes: layer 0 max|diff| {st[0]}, {st[1]:.2e} differ; "
+        f"all layers max|diff| {st[2]}, {st[3]:.2e} differ")
+    return st
+
+
+def check_whole_model(name, kernel, plain, stack, cache, x, cfg, positions, cut=2):
+    """A whole-model kernel (x_out, krows, vrows, kscales, vscales) against
+    its plain version on the same inputs; kernel/plain(stack, cache, x, cfg).
+
+    In bf16 at full depth: x_out within TOL, and layer 0's int8 rows, whose
+    inputs are the same up to the dot products' sum order, equal up to
+    one-code flips on at most 0.1% of entries. A flip moves that row by one
+    code, and where the new row dominates attention (a slot at a low
+    position) it moves the next layers' inputs; over depth, and wherever a
+    bf16 rounding flips with it, deeper rows drift. So in float32 every
+    layer's rows are held, over the first `cut` layers of the same stack at
+    full width: x_out within F32_TOL, codes one-code on at most 0.1%. At full
+    depth in float32, x_out of each slot at a position of DEPTH_GATE_POS or
+    more is held within F32_TOL of max|plain|; the slots below are reported
+    (check_mega_batch gives them a second witness). Returns (bf16 x_out
+    max|diff|, stats, (kernel, plain) outputs in float32 at full depth)."""
+    import dataclasses
+
+    import torch
+
+    def run(st, ca, xx, c):
+        got, ref = kernel(st, ca, xx, c), plain(st, ca, xx, c)
+        torch.cuda.synchronize()
+        return got, ref
+
+    stats = {}
+    got, ref = run(stack, cache, x.to(torch.bfloat16), cfg)
+    err = check_close(f"{name} x_out (bf16)", got[0], ref[0])
+    for i, f in ((1, "k"), (2, "v")):
+        st = stats[f"bf16_{f}_codes"] = code_diff(f"{name} new {f} rows (bf16)", got[i], ref[i])
+        if st[0] > 1 or st[1] > 1e-3:
+            raise AssertionError(f"{name}: layer-0 int8 rows disagree with the plain version")
+        check_close(f"{name} new {f} scales (bf16)", got[i + 2], ref[i + 2])
+    got, ref = run(stack, cache, x.float(), cfg)
+    full = (got, ref)
+    e, scale = max_err(got[0], ref[0])
+    stats["f32_full_depth_x_out_rel"] = e / scale
+    log(f"  {name} x_out (f32, all {cfg.num_layers} layers): max|diff| {e:.3e} "
+        f"= {e / scale:.2e} of max|plain|")
+    by_slot = ((got[0].float() - ref[0].float()).reshape(len(positions), -1).abs().amax(dim=1)
+               / scale).tolist()
+    stats["f32_full_depth_x_out_rel_by_slot"] = by_slot
+    held = [b for b, p in enumerate(positions) if p >= DEPTH_GATE_POS]
+    ok = all(by_slot[b] <= F32_TOL for b in held)
+    log(f"  {name} x_out (f32, all layers) by slot at positions {list(positions)}: "
+        f"{', '.join(f'{v:.1e}' for v in by_slot)} of max|plain|; held within {F32_TOL:.0e} "
+        f"at positions >= {DEPTH_GATE_POS} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: float32 x_out at full depth disagrees with the plain "
+                             "version")
+    for i, f in ((1, "k"), (2, "v")):
+        stats[f"f32_full_depth_{f}_codes"] = code_diff(
+            f"{name} new {f} rows (f32, all layers, reported)", got[i], ref[i])
+    c = dataclasses.replace(cfg, num_layers=cut)
+    got, ref = run({k: v[:cut] for k, v in stack.items()},
+                   {k: v[:cut] for k, v in cache.items()}, x.float(), c)
+    check_close(f"{name} x_out (f32, first {cut} layers)", got[0], ref[0], F32_TOL)
+    for i, f in ((1, "k"), (2, "v")):
+        st = stats[f"f32_{cut}_layers_{f}_codes"] = code_diff(
+            f"{name} new {f} rows (f32, first {cut} layers)", got[i], ref[i])
+        if st[2] > 1 or st[3] > 1e-3:
+            raise AssertionError(f"{name}: f32 int8 rows disagree with the plain version")
+        check_close(f"{name} new {f} scales (f32, first {cut} layers)", got[i + 2], ref[i + 2],
+                    F32_TOL)
+    return err, stats, full
+
+
+def stacked_bytes(stack) -> int:
+    return nbytes(*stack.values())
+
+
+def kv_history_bytes(cfg, positions) -> int:
+    """Live int8 k/v history and its f32 scales the kernels read, over all
+    layers, for tokens at these positions."""
+    return cfg.num_layers * 2 * sum(positions) * cfg.num_kv_heads * (cfg.head_dim + 4)
+
+
+def check_mega(model, stack, meta, cfg, dev, flush, reps, T=384, pos=200):
+    """The one-token whole-model kernel on an asymmetric-grid model."""
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.ops import model_fused as mf
+
+    L, h = cfg.num_layers, cfg.hidden_size
+    gen = torch.Generator(device=dev).manual_seed(7)
+    per_layer = [random_int8_cache(cfg, T, pos, dev, gen) for _ in range(L)]
+    cache = {f: torch.stack([c[f][0] for c in per_layer]) for f in per_layer[0]}
+    del per_layer
+    x = llama.embed(model.params, torch.tensor([[11]], device=dev))
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+    cos, sin = cos.reshape(-1), sin.reshape(-1)
+    log(f"  model_decode_mega: asymmetric, {L} layers, T={T}, pos={pos}")
+    err, stats, _ = check_whole_model(
+        "model_decode_mega",
+        lambda st, ca, xx, c: mf.model_decode_mega(st, xx, cos, sin, ca, pos, c, meta),
+        lambda st, ca, xx, c: mf.model_decode_mega_ref(st, xx, cos, sin, ca, pos, c, meta),
+        stack, cache, x, cfg, [pos])
+    ms = time_ms(lambda: mf.model_decode_mega(stack, x, cos, sin, cache, pos, cfg, meta), reps,
+                 flush)
+    plain_ms = time_ms(lambda: mf.model_decode_mega_ref(stack, x, cos, sin, cache, pos, cfg,
+                                                        meta), 2, flush)
+    nb = (stacked_bytes(stack) + kv_history_bytes(cfg, [pos])
+          + 2 * h * 2 + L * 2 * cfg.num_kv_heads * (cfg.head_dim + 4))
+    fl = L * decode_block_flops(cfg, pos)
+    b_ms, b_by = bound(nb, fl)
+    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
+        f"bias tables streamed: {sorted(k for k in stack if k.endswith('z'))}")
+    return [dict(name="model_decode_mega", shape=f"{L} layers asymmetric T={T} pos={pos}",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 bytes=nb, flops=fl, codes=stats)]
+
+
+def check_mega_batch(model, stack, meta, cfg, dev, flush, reps, positions, T=512, label=""):
+    """The batched whole-model kernel: B slots at their own positions over
+    the head-transposed cache. `stack` holds the decoder layers only (no
+    lm_head): the bound counts the bytes the kernel reads.
+
+    A second witness for the slots below DEPTH_GATE_POS in float32 at full
+    depth: the one-token kernel on that slot's inputs. The batched kernel's
+    drift from the plain version there must stay within WITNESS_RATIO of the
+    one-token kernel's (or within F32_TOL): the drift belongs to the inputs,
+    not to the batched kernel."""
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.ops import model_fused as mf
+
+    L, h, B = cfg.num_layers, cfg.hidden_size, len(positions)
+    gen = torch.Generator(device=dev).manual_seed(8 + B)
+    cache = {}
+    for f in ("k", "v"):
+        q = torch.randint(-127, 128, (L, B, cfg.num_kv_heads, T, cfg.head_dim), generator=gen,
+                          device=dev, dtype=torch.int32)
+        s = torch.rand((L, B, cfg.num_kv_heads, T), generator=gen, device=dev) * 0.02 + 1e-3
+        for b, p in enumerate(positions):  # rows past a slot's position stay zero
+            q[:, b, :, p:] = 0
+            s[:, b, :, p:] = 0
+        cache[f], cache[f + "_scale"] = q.to(torch.int8), s
+        del q
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    x = llama.embed(model.params, toks)
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    cos, sin = cos.reshape(B, -1), sin.reshape(B, -1)
+    log(f"  model_decode_mega_batch: {label}B={B}, {L} layers, T={T}, positions {positions}")
+    kernel = lambda st, ca, xx, c: mf.model_decode_mega_batch(st, xx, cos, sin, ca, positions,
+                                                               c, meta)
+    plain = lambda st, ca, xx, c: mf.model_decode_mega_batch_ref(st, xx, cos, sin, ca,
+                                                                  positions, c, meta)
+    err, stats, full = check_whole_model("model_decode_mega_batch", kernel, plain, stack, cache,
+                                         x, cfg, positions)
+    scale = float(full[1][0].float().abs().max())
+    for b, p in enumerate(positions):
+        if p >= DEPTH_GATE_POS:
+            continue
+        one = mf.model_decode_mega(stack, x[b:b + 1].float(), cos[b], sin[b],
+                                   {f: t[:, b].transpose(1, 2).contiguous()
+                                    for f, t in cache.items()}, p, cfg, meta)
+        torch.cuda.synchronize()
+        e_one = max_err(one[0][0], full[1][0][b])[0] / scale
+        e_bat = max_err(full[0][0][b], full[1][0][b])[0] / scale
+        e_two = max_err(one[0][0], full[0][0][b])[0] / scale
+        codes = [code_diff(f"  slot {b}: model_decode_mega vs the batched kernel, {f} rows "
+                           "(f32, all layers)", one[i], full[0][i][:, b])
+                 for i, f in ((1, "k"), (2, "v"))]
+        stats[f"f32_full_depth_witness_slot_{b}"] = dict(
+            position=p, one_token_vs_plain=e_one, batched_vs_plain=e_bat,
+            one_token_vs_batched=e_two, codes_one_token_vs_batched=codes)
+        ok = e_bat <= max(WITNESS_RATIO * e_one, F32_TOL)
+        log(f"  slot {b} at position {p} (f32, all layers): x_out of model_decode_mega vs "
+            f"plain {e_one:.2e}, batched vs plain {e_bat:.2e}, model_decode_mega vs batched "
+            f"{e_two:.2e} of max|plain|; batched within {WITNESS_RATIO:g}x the one-token "
+            f"kernel's -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"model_decode_mega_batch: slot {b} drifts more than the "
+                                 "one-token kernel on the same inputs")
+    ms = time_ms(lambda: kernel(stack, cache, x, cfg), reps, flush)
+    plain_ms = time_ms(lambda: plain(stack, cache, x, cfg), 2, flush)
+    nb = (stacked_bytes(stack) + kv_history_bytes(cfg, positions)
+          + B * (2 * h * 2 + L * 2 * cfg.num_kv_heads * (cfg.head_dim + 4)))
+    fl = L * sum(decode_block_flops(cfg, p) for p in positions)
+    b_ms, b_by = bound(nb, fl)
+    log(f"    kernel {ms:.4f} ms ({ms / B:.4f} ms a slot)  plain {plain_ms:.4f} ms  "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return [dict(name="model_decode_mega_batch", shape=f"{label}B={B} {L} layers T={T} "
+                 f"positions {positions}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=fl, codes=stats)]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width and depth
 # ---------------------------------------------------------------------------
@@ -351,20 +570,132 @@ def serve_main_path(model, fstack, fmeta, cfg, dev, n_flat=128):
     return res
 
 
+def serve_batcher(model, cfg, n_req=24, n_slots=8, max_len=512, n_compare=2):
+    """n_req requests arrive at once; prompt lengths uniform in 16-256 (seed
+    9), 32 or 64 new tokens in turn, so slots free at different steps and
+    the queue's requests join between steps while others decode. Latency of
+    a request = its last token's time since the burst arrived. Steps are
+    host-timed; each ends in the device-to-host copy of the new tokens."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
+
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in rng.integers(16, 257, n_req)]
+    new = [32 if i % 2 == 0 else 64 for i in range(n_req)]
+    b = ContinuousBatcher(model, n_slots=n_slots, max_len=max_len, cache_dtype=torch.int8)
+    if b._mega is None:
+        raise AssertionError("the batcher did not take the batched whole-model kernel")
+    pending, reqs, admitted, finished = list(range(n_req)), {}, {}, {}
+    full_ms, n_steps, joins_mid_flight = [], 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pending or any(r is not None for r in b.slot_req):
+        while pending and None in b.slot_req:
+            i = pending.pop(0)
+            joins_mid_flight += n_steps > 0 and any(r is not None for r in b.slot_req)
+            admitted[i] = time.perf_counter() - t0
+            rid = b.add_request(prompts[i], max_new_tokens=new[i])
+            reqs[i] = next(r for r in b.slot_req if r is not None and r.rid == rid)
+        full = all(r is not None for r in b.slot_req)
+        ts = time.perf_counter()
+        b.step()
+        if full:
+            full_ms.append((time.perf_counter() - ts) * 1e3)
+        n_steps += 1
+        for i, r in reqs.items():
+            if r.done and i not in finished:
+                finished[i] = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    for i, r in reqs.items():
+        if len(r.tokens) != new[i] or not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"request {i}: {len(r.tokens)} tokens, expected {new[i]} "
+                                 "in range")
+    n_tok = sum(len(r.tokens) for r in reqs.values())
+    lat = [finished[i] * 1e3 for i in range(n_req)]
+    res = dict(requests=n_req, slots=n_slots, max_len=max_len, tokens=n_tok, wall_s=wall,
+               tokens_per_s=n_tok / wall, steps=n_steps, steps_at_full=len(full_ms),
+               ms_per_step_full=float(np.mean(full_ms)) if full_ms else None,
+               ms_per_step_full_median=float(np.median(full_ms)) if full_ms else None,
+               joins_mid_flight=int(joins_mid_flight),
+               prompt_lens=[len(p) for p in prompts], new_tokens=new,
+               admitted_ms=[admitted[i] * 1e3 for i in range(n_req)], latency_ms=lat,
+               compare=[(prompts[i], reqs[i].tokens) for i in range(n_compare)])
+    log(f"  ContinuousBatcher: {n_req} requests, {n_tok} tokens in {wall:.3f} s -> "
+        f"{n_tok / wall:.1f} tokens/s; {n_steps} steps, {len(full_ms)} at {n_slots} active "
+        f"slots: {res['ms_per_step_full']:.3f} ms a step (median "
+        f"{res['ms_per_step_full_median']:.3f}); {joins_mid_flight} mid-flight joins")
+    log(f"  request latency ms (since the burst arrived): "
+        f"{', '.join(f'{x:.0f}' for x in lat)}")
+    return res
+
+
+def compare_with_generate(model, compare):
+    """For (prompt, batcher tokens) pairs: how many leading greedy tokens
+    engine.generate (the per-layer path) gives the same. Reported, not
+    gated: the two paths round in bf16 at different places."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+
+    agree = []
+    for prompt, toks in compare:
+        out = engine.generate(model, prompt[None], max_new_tokens=len(toks),
+                              cache_dtype=torch.int8)[0, len(prompt):]
+        agree.append([int(np.cumprod(np.asarray(toks) == out).sum()), len(toks)])
+    log(f"  batcher's greedy tokens equal to engine.generate's on the first: "
+        f"{', '.join(f'{a} of {n}' for a, n in agree)}")
+    return agree
+
+
+def serve_model_loop(model, stack, meta, cfg, dev, S=128, n=128):
+    """A 128-token prefill, then n tokens of decode_loop_model: one
+    whole-model launch per token (bias tables streamed on this grid), the
+    lm_head through dequant_matmul."""
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.megadecode import decode_loop_model, stack_cache
+
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(10))
+    total = -(-(S + n + 4) // 128) * 128
+    cache = engine.init_cache(cfg, 1, total, torch.int8, device=dev)
+    logits, cache = engine.prefill(model.params, cfg, prompt.to(dev), cache)
+    tok = torch.argmax(logits, -1)[:, None]
+    scache = stack_cache(cache)
+    del cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = decode_loop_model(model.params, stack, meta, cfg, tok, scache, S, n)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if toks.shape != (1, n) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("decode_loop_model returned out-of-range tokens")
+    log(f"  decode_loop_model (asymmetric grid) {n} tokens after a {S}-token prefill: "
+        f"{dt * 1e3 / n:.3f} ms/token, {n / dt:.1f} tokens/s")
+    return dict(prefill_tokens=S, tokens=n, ms_per_token=dt * 1e3 / n, tokens_per_s=n / dt,
+                first_tokens=toks[0, :16].tolist())
+
+
 # ---------------------------------------------------------------------------
 # phase 5: where the time goes on the main path
 # ---------------------------------------------------------------------------
 
 def profile_windows(model, fstack, fmeta, cfg, dev):
-    """For a 128-token prefill, 16 tokens of decode_loop_flat and 8 tokens of
-    engine.decode_loop: the host wall time of the window (unprofiled, best
-    of 3, ending in a synchronize), the device time of every kernel and copy
-    from torch.profiler summed by name, and the busy share = summed device
-    time / wall time (one stream: kernels do not overlap). The busy share is
-    None when the profiler saw no device time."""
+    """For a 128-token prefill, 16 tokens of decode_loop_flat, 8 tokens of
+    engine.decode_loop and 8 ContinuousBatcher steps with 8 active slots:
+    the host wall time of the window (unprofiled, best of 3, ending in a
+    synchronize), the device time of every kernel and copy from
+    torch.profiler summed by name, and the busy share = summed device time /
+    wall time (one stream: kernels do not overlap). The busy share is None
+    when the profiler saw no device time."""
+    import numpy as np
     import torch
 
     from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
     from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat
 
     S, T = 128, 512
@@ -385,6 +716,12 @@ def profile_windows(model, fstack, fmeta, cfg, dev):
         "decode_loop_block_8": (lambda: engine.decode_loop(model.params, cfg, tok, cache, S, 8),
                                 8),
     }
+    # 8 slots that stay active through the window's 5 runs of 8 steps each
+    batcher = ContinuousBatcher(model, n_slots=8, max_len=T, cache_dtype=torch.int8)
+    rng = np.random.default_rng(11)
+    for n in rng.integers(16, 257, 8):
+        batcher.add_request(rng.integers(0, cfg.vocab_size, (int(n),)), max_new_tokens=64)
+    windows["batcher_step_8"] = (lambda: [batcher.step() for _ in range(8)], 8)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     out = {}
     for name, (fn, n_tok) in windows.items():
@@ -407,11 +744,14 @@ def profile_windows(model, fstack, fmeta, cfg, dev):
                 by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
         dev_ms = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        if name == "batcher_step_8" and not all(r is not None for r in batcher.slot_req):
+            raise AssertionError("a batcher slot freed during the profile window")
         out[name] = {"wall_ms": wall, "wall_ms_per_token": wall / n_tok,
                      "device_ms": dev_ms or None, "busy_share": dev_ms / wall if dev_ms else None,
                      "top_kernels_ms": [[k, v] for k, v in top]}
         busy = f"{dev_ms / wall:.3f}" if dev_ms else "not measured"
-        log(f"  {name}: wall {wall:.3f} ms ({wall / n_tok:.3f} ms/token), device "
+        unit = "step" if name.startswith("batcher") else "token"
+        log(f"  {name}: wall {wall:.3f} ms ({wall / n_tok:.3f} ms/{unit}), device "
             f"{dev_ms:.3f} ms, busy share {busy}")
         for k, v in top:
             log(f"      {v:9.3f} ms  {k[:90]}")
@@ -466,6 +806,66 @@ def small_reference_check(dev):
         raise AssertionError("small model: greedy tokens on the card differ from the CPU")
 
 
+def small_serving_check(dev):
+    """ContinuousBatcher on the batched kernel (use_megakernel=True; a
+    request joins while another decodes) and decode_loop_model on an
+    asymmetric grid, on the card and with the plain versions on the CPU:
+    greedy tokens must be equal."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
+    from mi_optimize_tpu_torch.serving.megadecode import decode_loop_model, stack_cache
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (13, 40, 9)]
+    got = {}
+    for symmetric in (True, False):
+        cpu = build_quantized_llama(cfg, dtype=torch.float32, seed=6, device="cpu",
+                                    symmetric=symmetric)
+        gen = torch.Generator().manual_seed(6)
+        for blk in cpu["layers"]:
+            for k in ("input_norm", "post_norm"):
+                blk[k] = 1.0 + 0.1 * torch.randn(cfg.hidden_size, generator=gen)
+        for d in ("cpu", dev):
+            m = fuse_for_serving(Model(config=cfg, params=cpu if d == "cpu" else _to(cpu, dev)))
+            b = ContinuousBatcher(m, n_slots=2, max_len=256, cache_dtype=torch.int8,
+                                  use_megakernel=True)
+            reqs = [b.add_request(prompts[0], max_new_tokens=4),
+                    b.add_request(prompts[1], max_new_tokens=9)]
+            by_rid = {r.rid: r for r in b.slot_req}
+            while any(r is not None for r in b.slot_req):
+                b.step()
+                if len(reqs) == 2 and None in b.slot_req:
+                    reqs.append(b.add_request(prompts[2], max_new_tokens=6))
+                    by_rid[reqs[2]] = next(r for r in b.slot_req if r and r.rid == reqs[2])
+            res = [by_rid[r].tokens for r in reqs]
+            if not symmetric:
+                stack, meta = b._mega
+                ids = torch.as_tensor(prompts[1][None], device=d)
+                logits, cache = engine.prefill(m.params, cfg, ids, engine.init_cache(
+                    cfg, 1, 256, torch.int8, device=d))
+                toks, _ = decode_loop_model(m.params, stack, meta, cfg,
+                                            torch.argmax(logits, -1)[:, None], stack_cache(cache),
+                                            len(prompts[1]), 8)
+                res.append(toks[0].tolist())
+            got[(symmetric, d)] = res
+        log(f"  small f32 model ({'symmetric' if symmetric else 'asymmetric'}): batcher "
+            f"{got[(symmetric, dev)][:3]} vs CPU {got[(symmetric, 'cpu')][:3]}"
+            + ("" if symmetric else f"; decode_loop_model {got[(symmetric, dev)][3]} vs CPU "
+               f"{got[(symmetric, 'cpu')][3]}"))
+        if got[(symmetric, dev)] != got[(symmetric, "cpu")]:
+            raise AssertionError("small model: batcher / decode_loop_model tokens on the card "
+                                 "differ from the CPU")
+
+
 def _to(tree, dev):
     import dataclasses
 
@@ -491,7 +891,43 @@ KERNELS = {
                           "mi_optimize_tpu/ops/block_fused.py:328"),
     "model_decode_flat": ("mi_optimize_tpu_torch/csrc/model_flat.cu",
                           "mi_optimize_tpu/ops/model_flat.py:149"),
+    "model_decode_mega": ("mi_optimize_tpu_torch/csrc/model_fused.cu",
+                          "mi_optimize_tpu/ops/model_fused.py:99"),
+    "model_decode_mega_batch": ("mi_optimize_tpu_torch/csrc/model_fused.cu",
+                                "mi_optimize_tpu/ops/model_fused.py:594"),
 }
+
+
+def counters():
+    """(module, attribute) of each kernel's launch counter."""
+    from mi_optimize_tpu_torch.ops import block_fused, dequant_matmul, model_flat, model_fused
+
+    return {"dequant_matmul": (dequant_matmul, "launches"),
+            "block_decode_mega": (block_fused, "launches"),
+            "model_decode_flat": (model_flat, "launches"),
+            "model_decode_mega": (model_fused, "launches"),
+            "model_decode_mega_batch": (model_fused, "launches_batch")}
+
+
+def run_path(name, needs, fn):
+    """Drive one path with every launch counter at 0 just before it and read
+    just after; fail unless each kernel in `needs` launched. Returns (the
+    path's result with its peak memory, its counts)."""
+    import torch
+
+    cs = counters()
+    for m, attr in cs.values():
+        setattr(m, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    counts = {k: getattr(m, attr) for k, (m, attr) in cs.items()}
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["launches"] = counts
+    log(f"  {name}: peak memory {res['peak_mem_gib']:.2f} GiB; launches {counts}")
+    missing = [k for k in needs if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{name} launched no {missing} kernel")
+    return res, counts
 
 
 def main() -> int:
@@ -514,8 +950,9 @@ def main() -> int:
     from mi_optimize_tpu_torch.models.llama import LlamaConfig
     from mi_optimize_tpu_torch.models.model import Model
     from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
-    from mi_optimize_tpu_torch.ops import _build, block_fused, dequant_matmul, model_flat
+    from mi_optimize_tpu_torch.ops import _build
     from mi_optimize_tpu_torch.serving.flatdecode import stack_flat
+    from mi_optimize_tpu_torch.serving.megadecode import stack_serving
     from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -534,9 +971,26 @@ def main() -> int:
     log(f"  built {', '.join(_build.SOURCES)} in {report['build_s']:.1f} s")
 
     cfg = LlamaConfig.llama2_7b()
+
+    def build(symmetric, seed):
+        return fuse_for_serving(Model(config=cfg, params=build_quantized_llama(
+            cfg, bits=4, groupsize=128, dtype=torch.bfloat16, seed=seed, device=dev,
+            symmetric=symmetric)))
+
+    def asymmetric():
+        """The asymmetric-grid model (a zero per group, as GPTQ's default
+        grid): the flat kernel refuses it, the whole-model kernel streams its
+        bias tables. Built when needed and dropped after, so that each path's
+        peak memory holds one model."""
+        amodel = build(False, 1)
+        st = stack_serving(amodel)
+        if stack_flat(amodel, st) is not None or st is None or any(z is not None
+                                                                   for z in st[1][5:]):
+            raise AssertionError("the asymmetric model should take the bias-table route only")
+        return amodel, st[0], st[1]
+
     t0 = time.perf_counter()
-    model = fuse_for_serving(Model(config=cfg, params=build_quantized_llama(
-        cfg, bits=4, groupsize=128, dtype=torch.bfloat16, seed=0, device=dev)))
+    model = build(True, 0)
     fl = stack_flat(model)
     if fl is None:
         raise AssertionError("the synthetic model does not meet the flat kernel's contract")
@@ -549,28 +1003,54 @@ def main() -> int:
     rows = check_dequant_matmul(model, cfg, dev, flush, reps=20)
     rows += check_block(model, cfg, dev, flush, reps=20)
     rows += check_flat(model, fstack, fmeta, cfg, dev, flush, reps=5)
+    sstack, smeta = stack_serving(model)  # the layers' stack the flat one extends, not a copy
+    rows += check_mega_batch(model, sstack, smeta, cfg, dev, flush, 5,
+                             [0, 17, 64, 127, 128, 200, 383, 510])
+    del sstack, smeta
+    amodel, astack, ameta = asymmetric()
+    rows += check_mega(amodel, astack, ameta, cfg, dev, flush, reps=5)
+    rows += check_mega_batch(amodel, astack, ameta, cfg, dev, flush, 5, [77, 300],
+                             label="asymmetric ")
+    del amodel, astack, ameta
+    torch.cuda.empty_cache()
 
-    log("phase 3: main path (Llama-2-7B, 32 layers, int4 g128, bf16, int8 KV cache)")
-    mods = {"dequant_matmul": dequant_matmul, "block_decode_mega": block_fused,
-            "model_decode_flat": model_flat}
-    for m in mods.values():
-        m.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    report["main_path"] = serve_main_path(model, fstack, fmeta, cfg, dev)
-    counts = {k: m.launches for k, m in mods.items()}
-    report["main_path"]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("phase 3: serving at Llama-2-7B width and depth (int4 g128, bf16, int8 KV cache)")
+    counts = {k: 0 for k in KERNELS}
+
+    def tally(c):
+        for k, n in c.items():
+            counts[k] += n
+
+    log(" a. generate + decode_loop_flat")
+    report["main_path"], c = run_path(
+        "generate + decode_loop_flat", ("dequant_matmul", "block_decode_mega",
+                                        "model_decode_flat"),
+        lambda: serve_main_path(model, fstack, fmeta, cfg, dev))
+    tally(c)
     w_bytes = nbytes(*fstack.values())
     report["main_path"]["decode_bound_ms_per_token"] = w_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"  peak memory {report['main_path']['peak_mem_gib']:.2f} GiB; weights read per "
-        f"flat token {w_bytes / 1e9:.3f} GB -> bound "
+    log(f"  weights read per flat token {w_bytes / 1e9:.3f} GB -> bound "
         f"{report['main_path']['decode_bound_ms_per_token']:.3f} ms/token")
-    log(f"  launches: {counts}")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing} kernel")
+    log(" b. ContinuousBatcher, 8 slots, 24 requests")
+    report["batcher"], c = run_path("ContinuousBatcher", ("dequant_matmul",
+                                                          "model_decode_mega_batch"),
+                                    lambda: serve_batcher(model, cfg))
+    tally(c)
+    report["batcher"]["generate_agreement"] = compare_with_generate(
+        model, report["batcher"].pop("compare"))
+    log(" c. decode_loop_model on the asymmetric grid")
+    amodel, astack, ameta = asymmetric()
+    report["model_loop"], c = run_path(
+        "decode_loop_model", ("dequant_matmul", "model_decode_mega"),
+        lambda: serve_model_loop(amodel, astack, ameta, cfg, dev))
+    tally(c)
+    del amodel, astack, ameta
+    torch.cuda.empty_cache()
+    log(f"  launches over the three paths: {counts}")
 
     log("phase 4: small f32 model on the card vs the plain versions on the CPU")
     small_reference_check(dev)
+    small_serving_check(dev)
 
     log("phase 5: where the time goes (torch.profiler, Llama-2-7B, T=512)")
     report["profile"] = profile_windows(model, fstack, fmeta, cfg, dev)
@@ -584,7 +1064,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     report["kernels"] = [dict(k, bytes=r["bytes"], flops=r["flops"],
-                              library_max_abs_err=r.get("library_max_abs_err"))
+                              library_max_abs_err=r.get("library_max_abs_err"),
+                              codes=r.get("codes"))
                          for k, r in zip(kernels, rows)]
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -33,7 +33,7 @@ namespace {
 using namespace mi;
 
 template <class T, int BITS>
-__global__ void __launch_bounds__(NT) block_decode_kernel(LayerArgs a) {
+__global__ void __launch_bounds__(NT, COOP_PER_SM) block_decode_kernel(LayerArgs a) {
   extern __shared__ float smem[];
   float* red = smem;
   float* vec = smem + RED_FLOATS;

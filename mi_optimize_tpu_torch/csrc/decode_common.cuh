@@ -1,5 +1,5 @@
-// Device code shared by the decode kernels (block_fused.cu, model_flat.cu)
-// and the dequant matmul (dequant_matmul.cu).
+// Device code shared by the decode kernels (block_fused.cu, model_flat.cu,
+// model_fused.cu) and the dequant matmul (dequant_matmul.cu).
 //
 // Layout contract (core/packing.py): packed weights are words-major int32
 // [K*BITS/32, N], little-endian fields within a word, stored unsigned
@@ -36,6 +36,12 @@ namespace cg = cooperative_groups;
 constexpr int NT = 256;            // threads per block
 constexpr int NW = NT / 32;        // warps per block
 constexpr int RED_FLOATS = NW * 33;  // tile_dot partials; block_sum uses the first NW
+// Blocks per SM of a cooperative decode launch: coop_grid launches at most
+// this many. The decode kernels declare it in __launch_bounds__ so that ptxas
+// budgets registers for it (128 a thread); left to itself it may shrink a
+// kernel to 80 registers for a third block the grid never launches and lose
+// the GEMV loops' loads in flight.
+constexpr int COOP_PER_SM = 2;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -209,13 +215,22 @@ __device__ __forceinline__ void gemv_phase(const float* vec, int K, const int32_
   }
 }
 
+// The int8 history of one kv head: row t's codes at k + t*stride (v
+// likewise) and its scales at ks[t*sstride] (vs likewise); rows t < pos are
+// live. Serves the [T, Hkv, D] caches (stride Hkv*D) and the head-transposed
+// [Hkv, T, D] slot caches of the batched kernel (stride D).
+struct HeadHist {
+  const int8_t* k; const int8_t* v; const float* ks; const float* vs;
+  long stride, sstride;
+  int pos;
+};
+
 // Attention for one query head over the int8 cache, seeded with the new
 // (dequantized) row: warps stream history rows t < pos with an online softmax
-// each, then merge. Writes attn_buf[hq*D : (hq+1)*D]. smem holds
-// q[D], kd[D], vd[D] and NW*(D+2) merge floats.
-__device__ __forceinline__ void attend_head(const LayerArgs& a, int hq, int kvh, float* sm,
+// each, then merge. Writes out[0:D]. smem holds q[D], kd[D], vd[D] and
+// NW*(D+2) merge floats.
+__device__ __forceinline__ void attend_head(const HeadHist& hh, int D, float* out, float* sm,
                                             float* red) {
-  const int D = a.head_dim;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* q = sm;
   const float* kd = sm + D;
@@ -239,11 +254,11 @@ __device__ __forceinline__ void attend_head(const LayerArgs& a, int hq, int kvh,
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j) acc[j] = 0.f;
   }
-  for (int t = warp; t < a.pos; t += NW) {
-    const int8_t* kr = a.ck + (long)t * a.kv_stride + (long)kvh * D;
-    const int8_t* vr = a.cv + (long)t * a.kv_stride + (long)kvh * D;
-    const float ksc = a.cks[(long)t * a.s_stride + kvh];
-    const float vsc = a.cvs[(long)t * a.s_stride + kvh];
+  for (int t = warp; t < hh.pos; t += NW) {
+    const int8_t* kr = hh.k + (long)t * hh.stride;
+    const int8_t* vr = hh.v + (long)t * hh.stride;
+    const float ksc = hh.ks[(long)t * hh.sstride];
+    const float vsc = hh.vs[(long)t * hh.sstride];
     float p = 0.f;
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j)
@@ -273,48 +288,65 @@ __device__ __forceinline__ void attend_head(const LayerArgs& a, int hq, int kvh,
       L += mrg[w * (D + 2) + D + 1] * c;
       A += mrg[w * (D + 2) + d] * c;
     }
-    a.attn_buf[(long)hq * D + d] = A / L;
+    out[d] = A / L;
   }
   __syncthreads();
 }
 
-// P2 for one head: RoPE on q and k, the int8 k/v row of kv head kvh (written
-// once, by the first q head of its group), then attention.
+// One (token, q head) work item of P2: RoPE on q head hq and kv head kvh of
+// the token's f32 qkv vector (global scratch), the int8 k/v row of kv head
+// kvh and its scales (stored when `store_row`: the first q head of the
+// group), then attention over `hh` seeded with the new row, into out[0:D].
+__device__ __forceinline__ void attention_item(const float* qkv, const float* cos,
+                                               const float* sin, int hq, int kvh, int qdim,
+                                               int kvdim, int D, const HeadHist& hh,
+                                               bool store_row, int8_t* krow, int8_t* vrow,
+                                               float* ks_out, float* vs_out, float* out,
+                                               float* sm, float* red) {
+  const int half = D / 2;
+  const float* qs = qkv + (long)hq * D;
+  const float* ks = qkv + qdim + (long)kvh * D;
+  const float* vs = qkv + qdim + kvdim + (long)kvh * D;
+  float kr = 0.f, vr = 0.f;
+  const int d = threadIdx.x;
+  if (d < D) {
+    const float c = cos[d], s = sin[d];
+    const float qrot = d < half ? -__ldcg(qs + d + half) : __ldcg(qs + d - half);
+    const float krot = d < half ? -__ldcg(ks + d + half) : __ldcg(ks + d - half);
+    sm[d] = __ldcg(qs + d) * c + qrot * s;
+    kr = __ldcg(ks + d) * c + krot * s;
+    vr = __ldcg(vs + d);
+  }
+  const float kam = fmaxf(block_max(d < D ? fabsf(kr) : 0.f, red), 1e-8f);
+  const float vam = fmaxf(block_max(d < D ? fabsf(vr) : 0.f, red), 1e-8f);
+  const float ksc = kam / 127.f, vsc = vam / 127.f;
+  if (d < D) {
+    const float kq = fminf(fmaxf(rintf(kr / ksc), -127.f), 127.f);
+    const float vq = fminf(fmaxf(rintf(vr / vsc), -127.f), 127.f);
+    sm[D + d] = kq * ksc;
+    sm[2 * D + d] = vq * vsc;
+    if (store_row) {
+      krow[d] = (int8_t)kq;
+      vrow[d] = (int8_t)vq;
+      if (d == 0) { *ks_out = ksc; *vs_out = vsc; }
+    }
+  }
+  __syncthreads();
+  attend_head(hh, D, out, sm, red);
+}
+
+// P2 of one token: every q head, its kv head's new row, then attention.
 __device__ __forceinline__ void attention_phase(const LayerArgs& a, float* sm, float* red) {
-  const int D = a.head_dim, half = D / 2;
+  const int D = a.head_dim;
   const int reps = a.n_heads / a.n_kv_heads;
   const int qdim = a.n_heads * D, kvdim = a.n_kv_heads * D;
   for (int hq = blockIdx.x; hq < a.n_heads; hq += gridDim.x) {
     const int kvh = hq / reps;
-    const float* qs = a.qkv_buf + (long)hq * D;
-    const float* ks = a.qkv_buf + qdim + (long)kvh * D;
-    const float* vs = a.qkv_buf + qdim + kvdim + (long)kvh * D;
-    float kr = 0.f, vr = 0.f;
-    const int d = threadIdx.x;
-    if (d < D) {
-      const float c = a.cos[d], s = a.sin[d];
-      const float qrot = d < half ? -__ldcg(qs + d + half) : __ldcg(qs + d - half);
-      const float krot = d < half ? -__ldcg(ks + d + half) : __ldcg(ks + d - half);
-      sm[d] = __ldcg(qs + d) * c + qrot * s;
-      kr = __ldcg(ks + d) * c + krot * s;
-      vr = __ldcg(vs + d);
-    }
-    const float kam = fmaxf(block_max(d < D ? fabsf(kr) : 0.f, red), 1e-8f);
-    const float vam = fmaxf(block_max(d < D ? fabsf(vr) : 0.f, red), 1e-8f);
-    const float ksc = kam / 127.f, vsc = vam / 127.f;
-    if (d < D) {
-      const float kq = fminf(fmaxf(rintf(kr / ksc), -127.f), 127.f);
-      const float vq = fminf(fmaxf(rintf(vr / vsc), -127.f), 127.f);
-      sm[D + d] = kq * ksc;
-      sm[2 * D + d] = vq * vsc;
-      if (hq % reps == 0) {
-        a.krow[(long)kvh * D + d] = (int8_t)kq;
-        a.vrow[(long)kvh * D + d] = (int8_t)vq;
-        if (d == 0) { a.ks_out[kvh] = ksc; a.vs_out[kvh] = vsc; }
-      }
-    }
-    __syncthreads();
-    attend_head(a, hq, kvh, sm, red);
+    const HeadHist hh{a.ck + (long)kvh * D, a.cv + (long)kvh * D, a.cks + kvh, a.cvs + kvh,
+                      a.kv_stride, a.s_stride, a.pos};
+    attention_item(a.qkv_buf, a.cos, a.sin, hq, kvh, qdim, kvdim, D, hh, hq % reps == 0,
+                   a.krow + (long)kvh * D, a.vrow + (long)kvh * D, a.ks_out + kvh,
+                   a.vs_out + kvh, a.attn_buf + (long)hq * D, sm, red);
   }
 }
 
@@ -384,8 +416,8 @@ inline int decode_smem_floats(int hidden, int qdim, int inter, int head_dim) {
   return v + RED_FLOATS;
 }
 
-// Blocks for a cooperative launch: co-resident blocks per SM (at most 2)
-// times the SM count, capped at `cap` when cap > 0.
+// Blocks for a cooperative launch: co-resident blocks per SM (at most
+// COOP_PER_SM) times the SM count, capped at `cap` when cap > 0.
 template <class K>
 inline cudaError_t coop_grid(K kernel, size_t smem, int cap, int* grid) {
   cudaError_t e;
@@ -401,7 +433,7 @@ inline cudaError_t coop_grid(K kernel, size_t smem, int cap, int* grid) {
       cudaSuccess)
     return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  int g = sms * (per_sm < 2 ? per_sm : 2);
+  int g = sms * (per_sm < COOP_PER_SM ? per_sm : COOP_PER_SM);
   if (cap > 0 && g > cap) g = cap;
   *grid = g;
   return cudaSuccess;

@@ -44,7 +44,7 @@ template <int BITS>
 __device__ __forceinline__ long words(long k) { return k / (32 / BITS); }
 
 template <class T, int BITS>
-__global__ void __launch_bounds__(NT) model_flat_kernel(FlatArgs f) {
+__global__ void __launch_bounds__(NT, COOP_PER_SM) model_flat_kernel(FlatArgs f) {
   extern __shared__ float smem[];
   float* red = smem;
   float* vec = smem + RED_FLOATS;

@@ -1,0 +1,507 @@
+// Every decoder layer in ONE cooperative launch, without the lm_head: for one
+// token (model_decode_mega) and for B slots at their own positions
+// (model_decode_mega_batch).
+//
+// Replaces the TPU kernels mi_optimize_tpu/ops/model_fused.py::_kernel
+// (model_decode_mega) and ::_kernel_b in its batched-decode mode (a)
+// (model_decode_mega_batch).
+//
+// What bounds them on an H100: the stacked packed weights of the whole model
+// (about 3.4 GB at Llama-2-7B, int4 g128, plus 0.2 GB of f32 bias tables on
+// an asymmetric grid) read once per step over the memory rate, plus each
+// slot's live int8 KV history. Both kernels run the five phases of
+// decode_common.cuh per layer with grid barriers in place of launches and
+// the residual kept in f32 across all layers; only x_out is rounded to the
+// model dtype, after the last layer. Where a linear's zero is not one
+// constant across the model its f32 bias table is streamed beside the
+// scales; otherwise the bias is -zc*s in registers.
+//
+// The batched kernel reads each packed word ONCE per step and applies it to
+// all B rows: a lane loads a word and its scale once, dequantizes each value
+// once and keeps NB (>= B) accumulators. The B activation rows are staged in
+// shared memory KC columns at a time (NB x KC floats, 32 KB at NB = 8), not
+// whole: at B = 8 the down projection's input alone would be 352 KB, more
+// than a block may have. Attention runs one (slot, q head) work item per
+// block, over the slot's head-transposed cache [L, B, Hkv, T, D] up to its
+// own position (a free slot at position 0 has no history). New int8 rows and
+// scales go out for the caller to scatter.
+#include "decode_common.cuh"
+
+// Host-side argument blocks, mirrored field by field by the ctypes
+// Structures in ops/model_fused.py. Stacked arrays carry a leading layer
+// axis; a null bias table means "use -zc*s".
+struct MegaArgs {
+  const void* x;                                          // model dtype [h]
+  const void* n1; const void* n2;                         // model dtype [L, h]
+  const int32_t* qkv; const float* qs; const float* qb;   // [L, h/vpw, nqkv], [L, h/g, nqkv]
+  const int32_t* o; const float* os; const float* ob;     // [L, qdim/vpw, h], [L, qdim/g, h]
+  const int32_t* gu; const float* gus; const float* gub;  // [L, h/vpw, 2I], [L, h/g, 2I]
+  const int32_t* dn; const float* ds; const float* db;    // [L, I/vpw, h], [L, I/g, h]
+  const float* cos; const float* sin;                     // [D]
+  const int8_t* ck; const int8_t* cv;                     // [L, T, Hkv, D]
+  const float* cks; const float* cvs;                     // [L, T, Hkv]
+  void* x_out;                                            // model dtype [h]
+  int8_t* krow; int8_t* vrow; float* ks; float* vs;       // [L, Hkv, D], [L, Hkv]
+  float* scratch;  // f32: xres h | qkv nqkv | attn qdim | xmid h | act inter
+  int n_layers, hidden, n_heads, n_kv_heads, head_dim, inter, max_len, pos;
+  int g_qkv, g_o, g_gu, g_d;
+  float zc_qkv, zc_o, zc_gu, zc_d, eps;
+};
+
+struct BatchArgs {
+  const void* x;                                          // model dtype [B, h]
+  const void* n1; const void* n2;
+  const int32_t* qkv; const float* qs; const float* qb;
+  const int32_t* o; const float* os; const float* ob;
+  const int32_t* gu; const float* gus; const float* gub;
+  const int32_t* dn; const float* ds; const float* db;
+  const float* cos; const float* sin;                     // [B, D]
+  const int* pos;                                         // [B]
+  const int8_t* ck; const int8_t* cv;                     // [L, B, Hkv, T, D]
+  const float* cks; const float* cvs;                     // [L, B, Hkv, T]
+  void* x_out;                                            // model dtype [B, h]
+  int8_t* krow; int8_t* vrow; float* ks; float* vs;       // [L, B, Hkv, D], [L, B, Hkv]
+  float* scratch;  // f32: xres B*h | qkv B*nqkv | attn B*qdim | xmid B*h | act B*inter
+  int batch, n_layers, hidden, n_heads, n_kv_heads, head_dim, inter, max_len;
+  int g_qkv, g_o, g_gu, g_d;
+  float zc_qkv, zc_o, zc_gu, zc_d, eps;
+};
+
+namespace {
+
+using namespace mi;
+
+template <int BITS>
+__device__ __forceinline__ long words(long k) { return k / (32 / BITS); }
+
+__device__ __forceinline__ const float* layer_tab(const float* t, long per_layer, int l) {
+  return t ? t + (long)l * per_layer : nullptr;
+}
+
+// ---------------------------------------------------------------------------
+// model_decode_mega: B = S = 1
+// ---------------------------------------------------------------------------
+
+template <class T, int BITS>
+__global__ void __launch_bounds__(NT, COOP_PER_SM) mega_kernel(MegaArgs f) {
+  extern __shared__ float smem[];
+  float* red = smem;
+  float* vec = smem + RED_FLOATS;
+  cg::grid_group grid = cg::this_grid();
+
+  const int h = f.hidden, D = f.head_dim, I = f.inter, L = f.n_layers;
+  const int qdim = f.n_heads * D, kvdim = f.n_kv_heads * D, nqkv = qdim + 2 * kvdim;
+
+  LayerArgs a{};
+  a.xres = f.scratch;
+  a.qkv_buf = f.scratch + h;
+  a.attn_buf = a.qkv_buf + nqkv;
+  a.xmid_buf = a.attn_buf + qdim;
+  a.act_buf = a.xmid_buf + h;
+  a.cos = f.cos; a.sin = f.sin;
+  a.kv_stride = kvdim;
+  a.s_stride = f.n_kv_heads;
+  a.hidden = h; a.n_heads = f.n_heads; a.n_kv_heads = f.n_kv_heads; a.head_dim = D;
+  a.inter = I; a.pos = f.pos;
+  a.g_qkv = f.g_qkv; a.g_o = f.g_o; a.g_gu = f.g_gu; a.g_d = f.g_d;
+  a.zc_qkv = f.zc_qkv; a.zc_o = f.zc_o; a.zc_gu = f.zc_gu; a.zc_d = f.zc_d;
+  a.eps = f.eps;
+
+  const long tq = (long)(h / f.g_qkv) * nqkv, to = (long)(qdim / f.g_o) * h;
+  const long tgu = (long)(h / f.g_gu) * 2 * I, td = (long)(I / f.g_d) * h;
+  for (int l = 0; l < L; ++l) {
+    a.x_t = l == 0 ? f.x : nullptr;
+    a.x_out = l == L - 1 ? f.x_out : nullptr;  // x_out rounded once, after the last layer
+    a.n1 = (const T*)f.n1 + (long)l * h;
+    a.n2 = (const T*)f.n2 + (long)l * h;
+    a.qkv = f.qkv + (long)l * words<BITS>(h) * nqkv;
+    a.qs = f.qs + l * tq; a.qb = layer_tab(f.qb, tq, l);
+    a.o = f.o + (long)l * words<BITS>(qdim) * h;
+    a.os = f.os + l * to; a.ob = layer_tab(f.ob, to, l);
+    a.gu = f.gu + (long)l * words<BITS>(h) * 2 * I;
+    a.gus = f.gus + l * tgu; a.gub = layer_tab(f.gub, tgu, l);
+    a.dn = f.dn + (long)l * words<BITS>(I) * h;
+    a.ds = f.ds + l * td; a.db = layer_tab(f.db, td, l);
+    a.ck = f.ck + (long)l * f.max_len * kvdim;
+    a.cv = f.cv + (long)l * f.max_len * kvdim;
+    a.cks = f.cks + (long)l * f.max_len * f.n_kv_heads;
+    a.cvs = f.cvs + (long)l * f.max_len * f.n_kv_heads;
+    a.krow = f.krow + (long)l * kvdim;
+    a.vrow = f.vrow + (long)l * kvdim;
+    a.ks_out = f.ks + (long)l * f.n_kv_heads;
+    a.vs_out = f.vs + (long)l * f.n_kv_heads;
+    decoder_layer<T, BITS>(a, vec, red);
+    if (l + 1 < L) grid.sync();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// model_decode_mega_batch: B slots, one token each
+// ---------------------------------------------------------------------------
+
+constexpr int KC = 1024;  // activation columns staged in shared memory per chunk
+
+constexpr int MAX_NC = 2;  // weight columns a lane computes from one staging (gate and up)
+
+// Shared memory floats of the batched kernel: the staged chunk (or the
+// attention buffers), the warps' MAX_NC x NB x 32 partial sums, NB row norms.
+__host__ __device__ inline int batch_xs_floats(int nb, int head_dim) {
+  int v = nb * KC;
+  const int att = 3 * head_dim + NW * (head_dim + 2);
+  if (att > v) v = att;
+  return (v + 3) & ~3;
+}
+__host__ __device__ inline int batch_smem_floats(int nb, int head_dim) {
+  return batch_xs_floats(nb, head_dim) + NW * MAX_NC * nb * 33 + nb;
+}
+
+// rstd[m] = 1/sqrt(mean(x[m]^2) + eps) for rows m < B of x [B, h] (f32 scratch).
+__device__ __forceinline__ void row_rstd(float* rstd, const float* x, int B, int h, float eps,
+                                         float* red) {
+  for (int m = 0; m < B; ++m) {
+    float ss = 0.f;
+    for (int i = threadIdx.x; i < h; i += NT) {
+      const float v = __ldcg(x + (long)m * h + i);
+      ss += v * v;
+    }
+    ss = block_sum(ss, red);
+    if (threadIdx.x == 0) rstd[m] = 1.f / sqrtf(ss / (float)h + eps);
+  }
+}
+
+// Sources of the activation rows a batched GEMV stages: row m, columns
+// [k, k+4) as a float4 (every K is a multiple of 4, every row 16-byte aligned).
+// RowsCopy reads f32 rows of scratch; RowsNorm applies the rmsnorm with the
+// model-dtype rounding points of stage_rmsnorm.
+struct RowsCopy {
+  const float* x;
+  long ld;
+  __device__ __forceinline__ float4 load4(int m, int k) const {
+    return __ldcg(reinterpret_cast<const float4*>(x + m * ld + k));
+  }
+};
+
+template <class T>
+struct RowsNorm {
+  const float* x;
+  long ld;
+  const T* w;
+  const float* rstd;
+  __device__ __forceinline__ float4 load4(int m, int k) const {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(x + m * ld + k));
+    const float r = rstd[m];
+    return make_float4(round_t<T>(round_t<T>(v.x * r) * to_f(w[k])),
+                       round_t<T>(round_t<T>(v.y * r) * to_f(w[k + 1])),
+                       round_t<T>(round_t<T>(v.z * r) * to_f(w[k + 2])),
+                       round_t<T>(round_t<T>(v.w * r) * to_f(w[k + 3])));
+  }
+};
+
+static_assert(KC == 4 * NT, "a chunk is one float4 per thread and row");
+
+// out[c][m] (valid in warp 0, lane = column) = sum_k src(m, k) * W[k, col +
+// c * cstride] for the NC columns c and the rows m < NB; rows m >= B are
+// staged as zeros. The activation rows are staged KC columns at a time into
+// xs [NB][KC], one float4 per thread and row with all NB loads in flight, and
+// serve all NC columns; the block's warps split each chunk's words; every
+// word is loaded once and applied to all NB rows. `live` is false on lanes
+// past the matrix's last column: they stage but load nothing.
+template <int BITS, int NB, int NC, class Src>
+__device__ __forceinline__ void tile_dot_b(float* xs, int B, int K, const Src& src,
+                                           const int32_t* __restrict__ W,
+                                           const float* __restrict__ S,
+                                           const float* __restrict__ Bt, float zc, long ldw,
+                                           int g, long col, long cstride, bool live, float* red,
+                                           float (&out)[NC][NB]) {
+  static_assert(NC <= MAX_NC, "the partial sums are sized for MAX_NC columns");
+  constexpr int VPW = 32 / BITS;
+  constexpr uint32_t MASK = (1u << BITS) - 1u;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wpg = g / VPW;
+  float acc[NC][NB];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int m = 0; m < NB; ++m) acc[c][m] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    const int kc = min(KC, K - k0);
+    __syncthreads();
+    const int k4 = 4 * threadIdx.x;
+    if (k4 < kc) {
+      float4 v[NB];
+#pragma unroll
+      for (int m = 0; m < NB; ++m)
+        v[m] = m < B ? src.load4(m, k0 + k4) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int m = 0; m < NB; ++m) *reinterpret_cast<float4*>(xs + m * KC + k4) = v[m];
+    }
+    __syncthreads();
+    if (!live) continue;
+    const int cw = kc / VPW, base = k0 / VPW;
+    int w = base + cw * warp / NW;
+    const int w1 = base + cw * (warp + 1) / NW;
+    while (w < w1) {
+      const int gi = w / wpg;
+      const int we = min(w1, (gi + 1) * wpg);
+      float s[NC], b[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const long at = (long)gi * ldw + col + c * cstride;
+        s[c] = __ldg(S + at);
+        b[c] = Bt ? __ldg(Bt + at) : -zc * s[c];
+      }
+      while (w < we) {
+        const int nw = min(4, we - w);  // up to 4 words a column in flight
+        uint32_t wd[NC][4];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            wd[c][j] =
+                j < nw ? (uint32_t)__ldg(W + (long)(w + j) * ldw + col + c * cstride) : 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j >= nw) break;
+          const float* xw = xs + (w + j - base) * VPW;
+#pragma unroll
+          for (int i = 0; i < VPW; i += 4) {
+            float wv[NC][4];
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                wv[c][e] = fmaf((float)((wd[c][j] >> (BITS * (i + e))) & MASK), s[c], b[c]);
+#pragma unroll
+            for (int m = 0; m < NB; ++m) {
+              const float4 xv = *reinterpret_cast<const float4*>(xw + m * KC + i);
+#pragma unroll
+              for (int c = 0; c < NC; ++c) {
+                acc[c][m] = fmaf(xv.x, wv[c][0], acc[c][m]);
+                acc[c][m] = fmaf(xv.y, wv[c][1], acc[c][m]);
+                acc[c][m] = fmaf(xv.z, wv[c][2], acc[c][m]);
+                acc[c][m] = fmaf(xv.w, wv[c][3], acc[c][m]);
+              }
+            }
+          }
+        }
+        w += nw;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int m = 0; m < NB; ++m) red[((warp * NC + c) * NB + m) * 33 + lane] = acc[c][m];
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int m = 0; m < NB; ++m) {
+        float t = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) t += red[((w * NC + c) * NB + m) * 33 + lane];
+        out[c][m] = t;
+      }
+  }
+}
+
+// epi(m, n, v) for rows m < B and columns n < ncols, v[c] the product with
+// column n + c * cstride of W for the NC columns; 32 columns n per
+// block-wide tile, tiles strided over the grid.
+template <int BITS, int NB, int NC, class Src, class Epi>
+__device__ __forceinline__ void gemv_b(float* xs, int B, int K, const Src& src, const int32_t* W,
+                                       const float* S, const float* Bt, float zc, long ldw,
+                                       int g, int ncols, long cstride, float* red, Epi epi) {
+  const int lane = threadIdx.x & 31;
+  const int ntiles = (ncols + 31) / 32;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int n = t * 32 + lane;
+    float out[NC][NB];
+    tile_dot_b<BITS, NB, NC>(xs, B, K, src, W, S, Bt, zc, ldw, g, n, cstride, n < ncols, red,
+                             out);
+    if (threadIdx.x < 32 && n < ncols) {
+#pragma unroll
+      for (int m = 0; m < NB; ++m) {
+        if (m >= B) continue;
+        float v[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) v[c] = out[c][m];
+        epi(m, n, v);
+      }
+    }
+  }
+}
+
+template <class T, int BITS, int NB>
+__global__ void __launch_bounds__(NT, COOP_PER_SM) batch_kernel(BatchArgs f) {
+  extern __shared__ float smem[];
+  const int D = f.head_dim;
+  float* xs = smem;  // [NB][KC] staged chunk, or the attention buffers
+  float* red = smem + batch_xs_floats(NB, D);
+  float* rstd = red + NW * MAX_NC * NB * 33;
+  cg::grid_group grid = cg::this_grid();
+
+  const int B = f.batch, h = f.hidden, I = f.inter, L = f.n_layers, T_ = f.max_len;
+  const int H = f.n_heads, Hkv = f.n_kv_heads, reps = H / Hkv;
+  const int qdim = H * D, kvdim = Hkv * D, nqkv = qdim + 2 * kvdim;
+  float* xres = f.scratch;                    // [B, h] f32 residual
+  float* qkvb = xres + (long)B * h;           // [B, nqkv]
+  float* attn = qkvb + (long)B * nqkv;        // [B, qdim]
+  float* xmid = attn + (long)B * qdim;        // [B, h]
+  float* act = xmid + (long)B * h;            // [B, I]
+  const T* x = (const T*)f.x;
+  T* x_out = (T*)f.x_out;
+
+  for (long i = (long)blockIdx.x * NT + threadIdx.x; i < (long)B * h; i += (long)gridDim.x * NT)
+    xres[i] = to_f(x[i]);
+  grid.sync();
+
+  const long tq = (long)(h / f.g_qkv) * nqkv, to = (long)(qdim / f.g_o) * h;
+  const long tgu = (long)(h / f.g_gu) * 2 * I, td = (long)(I / f.g_d) * h;
+  for (int l = 0; l < L; ++l) {
+    const T* n1 = (const T*)f.n1 + (long)l * h;
+    const T* n2 = (const T*)f.n2 + (long)l * h;
+
+    // P1: rmsnorm of every row (model-dtype rounding points) -> qkv
+    row_rstd(rstd, xres, B, h, f.eps, red);
+    gemv_b<BITS, NB, 1>(
+        xs, B, h, RowsNorm<T>{xres, h, n1, rstd},
+        f.qkv + (long)l * words<BITS>(h) * nqkv, f.qs + l * tq, layer_tab(f.qb, tq, l),
+        f.zc_qkv, nqkv, f.g_qkv, nqkv, 0, red,
+        [&](int m, int n, const float* v) { qkvb[(long)m * nqkv + n] = v[0]; });
+    grid.sync();
+
+    // P2: one (slot, q head) per block: RoPE, new rows, attention over the
+    // slot's history t < pos[b]
+    for (int it = blockIdx.x; it < B * H; it += gridDim.x) {
+      const int b = it / H, hq = it - b * H, kvh = hq / reps;
+      const long c = ((long)l * B + b) * Hkv + kvh;  // (layer, slot, kv head)
+      const HeadHist hh{f.ck + c * T_ * D, f.cv + c * T_ * D, f.cks + c * T_, f.cvs + c * T_,
+                        (long)D, 1L, min(__ldg(f.pos + b), T_)};
+      attention_item(qkvb + (long)b * nqkv, f.cos + (long)b * D, f.sin + (long)b * D, hq, kvh,
+                     qdim, kvdim, D, hh, hq % reps == 0, f.krow + c * D, f.vrow + c * D,
+                     f.ks + c, f.vs + c, attn + (long)b * qdim + (long)hq * D, xs, red);
+    }
+    grid.sync();
+
+    // P3: o_proj + residual
+    gemv_b<BITS, NB, 1>(
+        xs, B, qdim, RowsCopy{attn, qdim},
+        f.o + (long)l * words<BITS>(qdim) * h, f.os + l * to, layer_tab(f.ob, to, l), f.zc_o,
+        h, f.g_o, h, 0, red,
+        [&](int m, int n, const float* v) {
+          xmid[(long)m * h + n] = __ldcg(xres + (long)m * h + n) + v[0];
+        });
+    grid.sync();
+
+    // P4: rmsnorm, gate and up columns n and I + n from one staging, silu(g) * u
+    row_rstd(rstd, xmid, B, h, f.eps, red);
+    gemv_b<BITS, NB, 2>(
+        xs, B, h, RowsNorm<T>{xmid, h, n2, rstd},
+        f.gu + (long)l * words<BITS>(h) * 2 * I, f.gus + l * tgu, layer_tab(f.gub, tgu, l),
+        f.zc_gu, 2L * I, f.g_gu, I, I, red,
+        [&](int m, int n, const float* v) {
+          act[(long)m * I + n] = v[0] * (1.f / (1.f + expf(-v[0]))) * v[1];
+        });
+    grid.sync();
+
+    // P5: down_proj + residual; the last layer also writes x_out
+    const bool last = l == L - 1;
+    gemv_b<BITS, NB, 1>(
+        xs, B, I, RowsCopy{act, I},
+        f.dn + (long)l * words<BITS>(I) * h, f.ds + l * td, layer_tab(f.db, td, l), f.zc_d, h,
+        f.g_d, h, 0, red,
+        [&](int m, int n, const float* v) {
+          const float r = __ldcg(xmid + (long)m * h + n) + v[0];
+          xres[(long)m * h + n] = r;
+          if (last) x_out[(long)m * h + n] = from_f<T>(r);
+        });
+    if (!last) grid.sync();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+template <class T, int BITS>
+cudaError_t launch_mega(const MegaArgs& f, cudaStream_t stream) {
+  auto kern = mega_kernel<T, BITS>;
+  const size_t smem = sizeof(float) * (size_t)decode_smem_floats(
+      f.hidden, f.n_heads * f.head_dim, f.inter, f.head_dim);
+  int grid = 0;
+  cudaError_t e = coop_grid(kern, smem, 0, &grid);
+  if (e != cudaSuccess) return e;
+  MegaArgs a = f;
+  void* args[] = {&a};
+  return cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(NT), args, smem,
+                                     stream);
+}
+
+template <class T, int BITS, int NB>
+cudaError_t launch_batch(const BatchArgs& f, cudaStream_t stream) {
+  auto kern = batch_kernel<T, BITS, NB>;
+  const size_t smem = sizeof(float) * (size_t)batch_smem_floats(NB, f.head_dim);
+  int grid = 0;
+  cudaError_t e = coop_grid(kern, smem, 0, &grid);
+  if (e != cudaSuccess) return e;
+  BatchArgs a = f;
+  void* args[] = {&a};
+  return cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(NT), args, smem,
+                                     stream);
+}
+
+template <class T, int BITS>
+cudaError_t dispatch_nb(const BatchArgs& f, cudaStream_t s) {
+  if (f.batch < 1) return cudaErrorInvalidValue;
+  if (f.batch <= 2) return launch_batch<T, BITS, 2>(f, s);
+  if (f.batch <= 4) return launch_batch<T, BITS, 4>(f, s);
+  if (f.batch <= 8) return launch_batch<T, BITS, 8>(f, s);
+  return cudaErrorInvalidValue;
+}
+
+template <class T>
+cudaError_t dispatch_mega(const MegaArgs& f, int bits, cudaStream_t s) {
+  switch (bits) {
+    case 2: return launch_mega<T, 2>(f, s);
+    case 4: return launch_mega<T, 4>(f, s);
+    case 8: return launch_mega<T, 8>(f, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <class T>
+cudaError_t dispatch_batch(const BatchArgs& f, int bits, cudaStream_t s) {
+  switch (bits) {
+    case 2: return dispatch_nb<T, 2>(f, s);
+    case 4: return dispatch_nb<T, 4>(f, s);
+    case 8: return dispatch_nb<T, 8>(f, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16. Each returns cudaGetLastError() after the launch.
+extern "C" int mi_model_decode_mega(const MegaArgs* f, int bits, int dtype, void* stream) {
+  cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = dtype == 0   ? dispatch_mega<float>(*f, bits, s)
+                  : dtype == 1 ? dispatch_mega<__nv_bfloat16>(*f, bits, s)
+                               : cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mi_model_decode_mega_batch(const BatchArgs* f, int bits, int dtype,
+                                          void* stream) {
+  cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = dtype == 0   ? dispatch_batch<float>(*f, bits, s)
+                  : dtype == 1 ? dispatch_batch<__nv_bfloat16>(*f, bits, s)
+                               : cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}

@@ -168,13 +168,21 @@ def quantize_kv(x: torch.Tensor):
 
 
 def _upd(buf: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
-    """Write `new` [B,S,...] into `buf` at time index `idx`, in place."""
+    """Write `new` [B,S,...] into `buf` at time index `idx`, in place: a
+    scalar writes every batch row at the same index; a vector [B] writes row
+    b at idx[b] (the per-slot positions of continuous batching).
+
+    As the reference's dynamic_update_slice, a start outside [0, T - S] is
+    clamped into it (so the S rows always land inside the buffer)."""
+    S, T = new.shape[1], buf.shape[1]
+    new = new.to(buf.dtype)
     if isinstance(idx, torch.Tensor) and idx.ndim > 0:
-        raise NotImplementedError(
-            "per-slot cache positions (continuous batching) are not ported yet "
-            "(ROADMAP.md A10)")
-    i = int(idx)
-    buf[:, i:i + new.shape[1]] = new.to(buf.dtype)
+        start = torch.clamp(idx.reshape(-1).to(torch.long), 0, T - S)
+        rows = start[:, None] + torch.arange(S, device=start.device)            # [B, S]
+        buf[torch.arange(buf.shape[0], device=buf.device)[:, None], rows.to(buf.device)] = new
+        return buf
+    i = min(max(int(idx), 0), T - S)
+    buf[:, i:i + S] = new
     return buf
 
 
@@ -197,7 +205,8 @@ def block_apply(
     q_dim = cfg.num_heads * cfg.head_dim
     kv_dim = cfg.num_kv_heads * cfg.head_dim
 
-    # decode megakernel: the whole block in one launch (ops/block_fused.py)
+    # decode megakernel: the whole block in one launch (ops/block_fused.py);
+    # B = 1 with a scalar position only, as in the reference
     if (fused and not capture and "mega" in blk and B == 1 and S == 1
             and isinstance(kv_cache, dict)
             and kv_cache["k"].shape[1] % 128 == 0

@@ -2,8 +2,9 @@
 
 Port of `build_quantized_llama_on_device` in the reference's bench.py: every
 linear is a random normal matrix scaled by in_features**-0.5, fake-quantized
-symmetric per-group, mapped to its integer grid and packed words-major, all
-on `device`. One linear is quantized and packed at a time, so the peak memory
+per-group (symmetric by default, or asymmetric: a zero per group, as GPTQ's
+default 'affine' grid), mapped to its integer grid and packed words-major,
+all on `device`. One linear is quantized and packed at a time, so the peak memory
 stays near the packed model plus one float32 weight matrix.
 """
 from __future__ import annotations
@@ -18,16 +19,21 @@ from .quant_linear import QuantizedLinear, QuantSpec
 
 
 def build_quantized_llama(cfg: LlamaConfig, bits: int = 4, groupsize: int = 128,
-                          dtype=torch.bfloat16, seed: int = 0, device=None):
-    """Params dict of a packed int`bits` per-group Llama with random weights."""
+                          dtype=torch.bfloat16, seed: int = 0, device=None,
+                          symmetric: bool = True):
+    """Params dict of a packed int`bits` per-group Llama with random weights.
+    symmetric=False quantizes every linear on an asymmetric grid, so its
+    zero varies by group."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = qrange(bits, True)
-    spec = QuantSpec(wbit=bits, w_qtype="per_group", w_groupsize=groupsize, w_packed=True)
+    spec = QuantSpec(wbit=bits, w_qtype="per_group", w_groupsize=groupsize,
+                     w_symmetric=symmetric, w_packed=True)
 
     def lin(out_f, in_f):
         w = torch.randn(out_f, in_f, generator=gen, device=dev) * (in_f ** -0.5)
-        fake, scale, zero = qparams.quantize_dequantize(w, bits, "per_group", groupsize)
+        fake, scale, zero = qparams.quantize_dequantize(w, bits, "per_group", groupsize,
+                                                          symmetric)
         del w
         ints = qparams.quantize_to_int(fake, scale, zero, bits, "per_group", groupsize)
         del fake

@@ -102,40 +102,55 @@ def attend_ref(q, kq, ks, vq, vs, k_hist, ks_hist, v_hist, vs_hist, pos, n_kv_he
 
 
 def norm_row(xf, w, eps, dtype):
-    """rms_norm with the model-dtype rounding points of the decode kernels:
-    ((x*rstd).to(dtype) * w.to(dtype)).to(f32)."""
-    rstd = torch.rsqrt(xf.square().mean() + eps)
+    """rms_norm over the last axis with the model-dtype rounding points of the
+    decode kernels: ((x*rstd).to(dtype) * w.to(dtype)).to(f32)."""
+    rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return ((xf * rstd).to(dtype) * w.to(dtype)).to(torch.float32)
 
 
-def layer_ref(x32, dtype, lin, tabs, n1, n2, cos, sin, hist, pos, cfg):
-    """One decoder layer for one token on the plain path. x32: f32 [h]
-    residual. lin: packed words (qkv, o, gu, d); tabs: (scale, bias) per
-    linear; hist: (k, k_scale, v, v_scale) history [T, Hkv(, D)].
-    Returns (x_out f32 [h], krow, ks, vrow, vs)."""
+def layer_rows_ref(x32, dtype, lin, tabs, n1, n2, cos, sin, hists, positions, cfg):
+    """One decoder layer for B tokens, one per slot, on the plain path.
+    x32: f32 [B, h] residual rows. lin: packed words (qkv, o, gu, d); tabs:
+    (scale, bias) per linear; cos/sin: [B, D]; hists[b]: slot b's
+    (k, k_scale, v, v_scale) history [T, Hkv(, D)]; positions[b]: its
+    position. Returns (x_out f32 [B, h], krows [B, Hkv, D] int8, ks [B, Hkv],
+    vrows, vs)."""
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qdim, kvdim, inter = H * D, Hkv * D, cfg.intermediate_size
     bits, groups = lin["bits"], lin["groups"]
+    B = x32.shape[0]
 
-    def dot(vec, name):
+    def dot(rows, name):
         s, b = tabs[name]
-        return qdot_ref(vec[None], lin[name], s, b, bits, groups[name])[0]
+        return qdot_ref(rows, lin[name], s, b, bits, groups[name])
 
     h = norm_row(x32, n1, cfg.rms_eps, dtype)
     qkv = dot(h, "qkv")
-    q = _rope_rows(qkv[:qdim].reshape(H, D), cos, sin)
-    k = _rope_rows(qkv[qdim:qdim + kvdim].reshape(Hkv, D), cos, sin)
-    v = qkv[qdim + kvdim:].reshape(Hkv, D)
-    kq, ks = quantize_kv(k[None, None])
-    vq, vs = quantize_kv(v[None, None])
-    kq, ks, vq, vs = kq[0, 0], ks[0, 0], vq[0, 0], vs[0, 0]
-    attn = attend_ref(q, kq, ks, vq, vs, hist[0], hist[1], hist[2], hist[3], pos, Hkv)
+    k = torch.stack([_rope_rows(qkv[b, qdim:qdim + kvdim].reshape(Hkv, D), cos[b], sin[b])
+                     for b in range(B)])
+    v = qkv[:, qdim + kvdim:].reshape(B, Hkv, D)
+    kq, ks = quantize_kv(k[:, None])
+    vq, vs = quantize_kv(v[:, None])
+    kq, ks, vq, vs = kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]
+    attn = torch.stack([
+        attend_ref(_rope_rows(qkv[b, :qdim].reshape(H, D), cos[b], sin[b]), kq[b], ks[b],
+                   vq[b], vs[b], *hists[b], positions[b], Hkv)
+        for b in range(B)])
     xmid = x32 + dot(attn, "o")
     h2 = norm_row(xmid, n2, cfg.rms_eps, dtype)
     gu = dot(h2, "gu")
-    g, u = gu[:inter], gu[inter:]
+    g, u = gu[:, :inter], gu[:, inter:]
     act = g * (1.0 / (1.0 + torch.exp(-g))) * u
     return xmid + dot(act, "d"), kq, ks, vq, vs
+
+
+def layer_ref(x32, dtype, lin, tabs, n1, n2, cos, sin, hist, pos, cfg):
+    """One decoder layer for one token on the plain path (`layer_rows_ref`
+    at B = 1). x32: f32 [h]; hist: (k, k_scale, v, v_scale) history
+    [T, Hkv(, D)]. Returns (x_out f32 [h], krow, ks, vrow, vs)."""
+    xo, kq, ks, vq, vs = layer_rows_ref(x32[None], dtype, lin, tabs, n1, n2, cos[None],
+                                        sin[None], [hist], [pos], cfg)
+    return xo[0], kq[0], ks[0], vq[0], vs[0]
 
 
 def _block_lin(blk, mega):

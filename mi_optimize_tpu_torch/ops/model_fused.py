@@ -1,0 +1,271 @@
+"""Whole-model decode without the lm_head: every decoder layer in ONE launch,
+for one token (`model_decode_mega`) or for B slots at their own positions
+(`model_decode_mega_batch`, the continuous-batching step).
+
+Kernels: csrc/model_fused.cu (with csrc/decode_common.cuh), which replaces
+the TPU kernels mi_optimize_tpu/ops/model_fused.py::_kernel
+(model_decode_mega) and ::_kernel_b in its batched-decode mode (a)
+(model_decode_mega_batch). The paged (b), chunk (c), terminal-lm (d) and
+tensor-parallel (e) modes of _kernel_b are not ported: the batched wrapper
+raises NotImplementedError for them.
+
+What bounds them on an H100: the stacked packed weights (about 3.4 GB at
+Llama-2-7B, int4 g128) read once per step over the memory rate, plus every
+slot's live KV history. The one-token kernel runs the layers of the
+per-layer decode kernel back to back with the residual in f32 across all of
+them. The batched kernel reads each packed word once per step for all B
+slots (B accumulators per lane, the activations staged a chunk at a time),
+so a step costs about one weight read however many slots it decodes.
+
+Grids: a linear whose zero is one constant across the model computes its
+bias -zc*s in-kernel; otherwise `serving.megadecode.stack_serving` stacks
+its f32 bias table ("qz", "oz", "guz", "dz") and the kernel streams it.
+
+On CPU tensors the wrappers run the plain versions, `model_decode_mega_ref`
+and `model_decode_mega_batch_ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .block_fused import _check_cuda, layer_rows_ref
+
+launches = 0        # model_decode_mega kernel launches; chip_smoke.py resets and reads it
+launches_batch = 0  # model_decode_mega_batch kernel launches
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_BATCH = 8  # the batched kernel keeps one accumulator per slot in registers
+# (stack key of the words, of the scale table, of the bias table, meta index of the group)
+_STACKED = (("qkv", "qs", "qz", 1), ("o", "os", "oz", 2), ("gu", "gus", "guz", 3),
+            ("d", "ds", "dz", 4))
+
+
+def _layer(stack, meta, l):
+    """(lin, tabs) of layer l for `layer_rows_ref`: the packed words and the
+    (scale, bias) tables, the bias from the stacked table where the zero is
+    not constant, else -zc*scale."""
+    bits = meta[0]
+    lin = {"bits": bits, "groups": {}}
+    tabs = {}
+    for (wk, sk, zk, gi), zc in zip(_STACKED, meta[5:]):
+        lin[wk] = stack[wk][l]
+        lin["groups"][wk] = meta[gi]
+        s = stack[sk][l]
+        tabs[wk] = (s, stack[zk][l] if zc is None else s * (-zc))
+    return lin, tabs
+
+
+def model_decode_mega_ref(stack, x, cos, sin, cache, pos: int, cfg, meta):
+    """Plain PyTorch version of the one-token kernel (same signature and
+    outputs as `model_decode_mega`)."""
+    D = cfg.head_dim
+    xo, krows, vrows, ksr, vsr = model_decode_mega_batch_ref(
+        stack, x.reshape(1, 1, -1), cos.reshape(1, D), sin.reshape(1, D),
+        {f: cache[f][:, None].transpose(2, 3) for f in ("k", "v", "k_scale", "v_scale")},
+        [pos], cfg, meta)
+    return xo.reshape(x.shape), krows[:, 0], vrows[:, 0], ksr[:, 0], vsr[:, 0]
+
+
+def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta):
+    """Plain PyTorch version of the batched kernel (same signature and
+    outputs as `model_decode_mega_batch`, mode (a))."""
+    B, h, D, L = x.shape[0], cfg.hidden_size, cfg.head_dim, cfg.num_layers
+    pos = [int(p) for p in torch.as_tensor(positions).reshape(-1).tolist()]
+    cos = cos.reshape(B, D).to(torch.float32)
+    sin = sin.reshape(B, D).to(torch.float32)
+    xr = x.reshape(B, h).to(torch.float32)
+    rows = []
+    for l in range(L):
+        lin, tabs = _layer(stack, meta, l)
+        # slot b's history, [T, Hkv(, D)] views of the head-transposed cache
+        hists = [tuple(cache[f][l, b].transpose(0, 1) for f in ("k", "k_scale", "v", "v_scale"))
+                 for b in range(B)]
+        xr, kq, ks, vq, vs = layer_rows_ref(xr, x.dtype, lin, tabs, stack["n1"][l],
+                                            stack["n2"][l], cos, sin, hists, pos, cfg)
+        rows.append((kq, vq, ks, vs))
+    krows, vrows, ksr, vsr = (torch.stack(r) for r in zip(*rows))
+    return xr.to(x.dtype).reshape(B, 1, h), krows, vrows, ksr, vsr
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_WEIGHTS = ["x", "n1", "n2", "qkv", "qs", "qb", "o", "os", "ob", "gu", "gus", "gub",
+            "dn", "ds", "db", "cos", "sin"]
+_OUTS = ["ck", "cv", "cks", "cvs", "x_out", "krow", "vrow", "ks", "vs", "scratch"]
+_GROUPS = ["g_qkv", "g_o", "g_gu", "g_d"]
+_ZCS = [(n, ctypes.c_float) for n in ("zc_qkv", "zc_o", "zc_gu", "zc_d", "eps")]
+
+
+class _MegaArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in _WEIGHTS + _OUTS] + [
+        (n, ctypes.c_int) for n in ["n_layers", "hidden", "n_heads", "n_kv_heads", "head_dim",
+                                    "inter", "max_len", "pos"] + _GROUPS] + _ZCS
+
+
+class _BatchArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in _WEIGHTS + ["pos"] + _OUTS] + [
+        (n, ctypes.c_int) for n in ["batch", "n_layers", "hidden", "n_heads", "n_kv_heads",
+                                    "head_dim", "inter", "max_len"] + _GROUPS] + _ZCS
+
+
+def _check_stack(stack, cfg, meta, dev, dt):
+    """Validate the stacked weights; returns (n1, n2, pointers of the words,
+    scale and bias tables per linear, ints, floats) for the argument block."""
+    bits = meta[0]
+    if bits not in (2, 4, 8):
+        raise ValueError(f"the decode kernels take 2/4/8-bit words, not {bits}")
+    h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L, inter = cfg.num_layers, cfg.intermediate_size
+    if D % 32 or D > 256:
+        raise ValueError(f"head_dim {D} outside the decode kernel's contract")
+    qdim, kvdim, vpw = H * D, Hkv * D, 32 // bits
+    n1 = stack["n1"].to(dt).contiguous()
+    n2 = stack["n2"].to(dt).contiguous()
+    _check_cuda("stack[n1]", n1, dev, shape=(L, h))
+    _check_cuda("stack[n2]", n2, dev, shape=(L, h))
+    ptrs = []
+    for (wk, sk, zk, gi), zc, k_in, n_out in zip(
+            _STACKED, meta[5:], (h, qdim, h, inter), (qdim + 2 * kvdim, h, 2 * inter, h)):
+        g = meta[gi]
+        if k_in % g or g % vpw:
+            raise ValueError(f"group {g} does not fit stack[{wk}]'s {k_in} inputs")
+        _check_cuda(f"stack[{wk}]", stack[wk], dev, torch.int32, (L, k_in // vpw, n_out))
+        _check_cuda(f"stack[{sk}]", stack[sk], dev, torch.float32, (L, k_in // g, n_out))
+        if zc is None:
+            _check_cuda(f"stack[{zk}]", stack[zk], dev, torch.float32, (L, k_in // g, n_out))
+        ptrs += [stack[wk].data_ptr(), stack[sk].data_ptr(),
+                 None if zc is not None else stack[zk].data_ptr()]
+    zcs = [0.0 if zc is None else float(zc) for zc in meta[5:]]
+    return n1, n2, ptrs, list(meta[1:5]), zcs + [cfg.rms_eps]
+
+
+def _call(name, args, argtype, bits, dt, dev):
+    from . import _build
+
+    fn = getattr(_build.load("model_fused"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(argtype), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    _build.check(fn(ctypes.byref(args), bits, _DTYPES[dt], _build.stream_ptr(dev)), name)
+
+
+def _model_decode_mega_cuda(stack, x, cos, sin, cache, pos: int, cfg, meta):
+    global launches
+    dev, dt = x.device, x.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"model_decode_mega kernel takes float32 or bfloat16, not {dt}")
+    h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L, inter = cfg.num_layers, cfg.intermediate_size
+    n1, n2, ptrs, groups, floats = _check_stack(stack, cfg, meta, dev, dt)
+    T = cache["k"].shape[1]
+    if not 0 <= pos < T:
+        raise ValueError(f"position {pos} outside the cache of {T} rows")
+    for f, want, shape in (("k", torch.int8, (L, T, Hkv, D)), ("v", torch.int8, (L, T, Hkv, D)),
+                           ("k_scale", torch.float32, (L, T, Hkv)),
+                           ("v_scale", torch.float32, (L, T, Hkv))):
+        _check_cuda(f"cache[{f}]", cache[f], dev, want, shape)
+    xr = x.reshape(h).contiguous()
+    cos = cos.reshape(-1).to(torch.float32).contiguous()
+    sin = sin.reshape(-1).to(torch.float32).contiguous()
+    _check_cuda("cos", cos, dev, shape=(D,))
+    _check_cuda("sin", sin, dev, shape=(D,))
+
+    x_out = torch.empty(h, dtype=dt, device=dev)
+    krows = torch.empty(L, Hkv, D, dtype=torch.int8, device=dev)
+    vrows = torch.empty_like(krows)
+    ksr = torch.empty(L, Hkv, dtype=torch.float32, device=dev)
+    vsr = torch.empty_like(ksr)
+    scratch = torch.empty(2 * h + 2 * H * D + 2 * Hkv * D + inter, dtype=torch.float32,
+                          device=dev)
+    p = lambda t: t.data_ptr()
+    args = _MegaArgs(p(xr), p(n1), p(n2), *ptrs, p(cos), p(sin),
+                     p(cache["k"]), p(cache["v"]), p(cache["k_scale"]), p(cache["v_scale"]),
+                     p(x_out), p(krows), p(vrows), p(ksr), p(vsr), p(scratch),
+                     L, h, H, Hkv, D, inter, T, pos, *groups, *floats)
+    _call("mi_model_decode_mega", args, _MegaArgs, meta[0], dt, dev)
+    launches += 1
+    return x_out.reshape(x.shape), krows, vrows, ksr, vsr
+
+
+def model_decode_mega(stack, x, cos, sin, cache, pos: int, cfg, meta):
+    """All decoder layers for one token, one launch. x [1,1,h] -> (x_out
+    [1,1,h] in x's dtype, krows [L,Hkv,D] int8, vrows, ksr [L,Hkv] f32, vsr).
+    The kernel on GPU tensors, the plain version on CPU tensors.
+
+    cos/sin: [D] for the token's position. cache: stacked
+    {"k"/"v": [L,T,Hkv,D] int8, "k_scale"/"v_scale": [L,T,Hkv] f32}; the
+    caller scatters the rows into it at `pos`. meta: (bits, g_qkv, g_o, g_gu,
+    g_d, zc_qkv, zc_o, zc_gu, zc_d) from `serving.megadecode.stack_serving`."""
+    if x.is_cuda:
+        return _model_decode_mega_cuda(stack, x, cos, sin, cache, int(pos), cfg, meta)
+    return model_decode_mega_ref(stack, x, cos, sin, cache, int(pos), cfg, meta)
+
+
+def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta):
+    global launches_batch
+    dev, dt = x.device, x.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"model_decode_mega_batch kernel takes float32 or bfloat16, not {dt}")
+    h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L, inter = cfg.num_layers, cfg.intermediate_size
+    B = x.shape[0]
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"the batched kernel takes 1 to {MAX_BATCH} slots, not {B}")
+    n1, n2, ptrs, groups, floats = _check_stack(stack, cfg, meta, dev, dt)
+    T = cache["k"].shape[3]
+    for f, want, shape in (("k", torch.int8, (L, B, Hkv, T, D)),
+                           ("v", torch.int8, (L, B, Hkv, T, D)),
+                           ("k_scale", torch.float32, (L, B, Hkv, T)),
+                           ("v_scale", torch.float32, (L, B, Hkv, T))):
+        _check_cuda(f"cache[{f}]", cache[f], dev, want, shape)
+    pos = torch.as_tensor(positions).reshape(-1).to("cpu", torch.int64)
+    if pos.numel() != B or bool(((pos < 0) | (pos >= T)).any()):
+        raise ValueError(f"positions {pos.tolist()} must be {B} rows inside the cache of {T}")
+    pos = pos.to(dev, torch.int32)
+    xr = x.reshape(B, h).contiguous()
+    cos = cos.reshape(B, -1).to(torch.float32).contiguous()
+    sin = sin.reshape(B, -1).to(torch.float32).contiguous()
+    _check_cuda("cos", cos, dev, shape=(B, D))
+    _check_cuda("sin", sin, dev, shape=(B, D))
+
+    x_out = torch.empty(B, h, dtype=dt, device=dev)
+    krows = torch.empty(L, B, Hkv, D, dtype=torch.int8, device=dev)
+    vrows = torch.empty_like(krows)
+    ksr = torch.empty(L, B, Hkv, dtype=torch.float32, device=dev)
+    vsr = torch.empty_like(ksr)
+    scratch = torch.empty(B * (2 * h + 2 * H * D + 2 * Hkv * D + inter), dtype=torch.float32,
+                          device=dev)
+    p = lambda t: t.data_ptr()
+    args = _BatchArgs(p(xr), p(n1), p(n2), *ptrs, p(cos), p(sin), p(pos),
+                      p(cache["k"]), p(cache["v"]), p(cache["k_scale"]), p(cache["v_scale"]),
+                      p(x_out), p(krows), p(vrows), p(ksr), p(vsr), p(scratch),
+                      B, L, h, H, Hkv, D, inter, T, *groups, *floats)
+    _call("mi_model_decode_mega_batch", args, _BatchArgs, meta[0], dt, dev)
+    launches_batch += 1
+    return x_out.reshape(B, 1, h), krows, vrows, ksr, vsr
+
+
+def model_decode_mega_batch(stack, x, cos, sin, cache, positions, cfg, meta, *, table=None,
+                            chunk: int = 1, tp: int = 1, lm=None):
+    """B-slot whole-model decode, one launch: x [B,1,h], positions [B] (one
+    per slot, each < T) -> (x_out [B,1,h] in x's dtype, krows [L,B,Hkv,D]
+    int8, vrows, ksr [L,B,Hkv] f32, vsr). The kernel on GPU tensors, the
+    plain version on CPU tensors.
+
+    cos/sin: [B, D], one row per slot's position. cache: the head-transposed
+    stacked cache of `serving.megadecode.stack_cache_batched`
+    {"k"/"v": [L,B,Hkv,T,D] int8, "k_scale"/"v_scale": [L,B,Hkv,T] f32};
+    the caller scatters each slot's rows at its own position. Only mode (a)
+    is ported: a page `table`, `chunk` > 1, `tp` > 1 and fused `lm` rows
+    raise NotImplementedError."""
+    for given, mode in ((table is not None, "(b) paged"), (chunk != 1, "(c) chunk"),
+                        (lm is not None, "(d) terminal lm rows"), (tp != 1, "(e) tp>1")):
+        if given:
+            raise NotImplementedError(
+                f"model_decode_mega_batch mode {mode} is not ported yet (ROADMAP.md B5)")
+    if x.is_cuda:
+        return _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta)
+    return model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta)

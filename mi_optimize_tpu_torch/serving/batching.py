@@ -1,0 +1,220 @@
+"""Continuous batching: a slot scheduler over a shared KV cache.
+
+Port of the ContinuousBatcher part of mi_optimize_tpu/serving/batching.py
+(`decode_step_multi`, `_prefill_into_slot`, `_prefill_into_slot_mega`,
+`Request`, `ContinuousBatcher`); the speculative batcher waits for
+ROADMAP.md A10.
+
+  * the cache holds `n_slots` independent sequences; each slot has its own
+    position, so sequences of different lengths decode together;
+  * one decode step for all slots: tokens [B,1] + positions [B]. On the fast
+    path that is ONE whole-model launch (`megadecode.model_step_batch`,
+    kernel ops/model_fused.py::model_decode_mega_batch) that reads every
+    weight once for all slots; otherwise the per-layer path with per-slot
+    masks and per-slot cache writes (`decode_step_multi`);
+  * prefill runs per request (batch 1) and its KV slab is written into the
+    slot, so a request joins between decode steps without disturbing the
+    running slots, and a slot is freed as soon as its request is done.
+
+Routing: the reference turns the megakernel on by default only on a TPU
+backend; the port turns it on by default when the model's tensors are on
+CUDA. `use_megakernel=True` on a CPU model runs the kernels' plain versions.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..models import llama
+from ..models.model import Model
+from .engine import _cache_len, init_cache, prefill
+
+
+@torch.no_grad()
+def decode_step_multi(params, cfg, tokens, cache, positions, fused=True):
+    """tokens [B,1], positions [B] (per slot) -> (logits [B,V], cache)."""
+    max_len = _cache_len(cache)
+    x = llama.embed(params, tokens)
+    dev = x.device
+    pos = torch.as_tensor(positions).reshape(-1).to(dev, torch.long)
+    cos, sin = llama.rope_tables(cfg, pos[:, None])                 # [B, 1, rd]
+    mask = (torch.arange(max_len, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+    new_cache = []
+    for blk, kv in zip(params["layers"], cache):
+        x, kv, _ = llama.block_apply(blk, x, cos, sin, mask, cfg, kv_cache=kv,
+                                     cache_index=pos, fused=fused)
+        new_cache.append(kv)
+    x = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return llama.unembed(params, cfg, x, fused=fused)[:, 0], new_cache
+
+
+@torch.no_grad()
+def _prefill_into_slot(params, cfg, input_ids, cache, slot: int, fused=True):
+    """Prefill a batch-1 request and write its KV slab into `slot` of the
+    shared multi-slot per-layer cache (same dtype and structure: float
+    (k, v) tuples or int8 dicts with scales)."""
+    dev = input_ids.device
+    quant = isinstance(cache[0], dict)
+    one = init_cache(cfg, 1, _cache_len(cache), torch.int8 if quant else cache[0][0].dtype,
+                     device=dev)
+    logits, one = prefill(params, cfg, input_ids, one, fused)
+    for c, p in zip(cache, one):
+        for f in (c if quant else range(2)):
+            c[f][slot] = p[f][0]
+    return logits, cache
+
+
+@torch.no_grad()
+def _prefill_into_slot_mega(params, cfg, input_ids, cache, slot: int, max_len: int):
+    """Prefill a request and write its KV slab into `slot` of the BATCHED
+    STACKED (head-transposed) cache [L, B, Hkv, T, D] of the batched kernel."""
+    one = init_cache(cfg, 1, max_len, torch.int8, device=input_ids.device)
+    logits, one = prefill(params, cfg, input_ids, one, True)
+    for f in ("k", "v", "k_scale", "v_scale"):
+        cache[f][:, slot] = torch.stack([c[f][0] for c in one]).transpose(1, 2)
+    return logits, cache
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray           # [S] token ids
+    max_new_tokens: int = 32
+    eos_token_id: Optional[int] = None
+    tokens: List[int] = field(default_factory=list)
+    done: bool = False
+
+
+class ContinuousBatcher:
+    """Static-shape slot scheduler; requests join and leave between decode
+    steps.
+
+    The cache lives on the device of the model's tensors. The one-launch
+    batched kernel needs an int8 cache whose length is a multiple of 128
+    (otherwise the batcher decodes per layer, as the reference does) and
+    takes at most ops.model_fused.MAX_BATCH slots: more slots with the
+    kernel on raise ValueError; pass use_megakernel=False to decode them per
+    layer."""
+
+    def __init__(self, model: Model, n_slots: int = 4, max_len: int = 512,
+                 fused: bool = True, cache_dtype=torch.float32,
+                 use_megakernel: Optional[bool] = None):
+        from ..ops.model_fused import MAX_BATCH
+
+        self.model = model
+        self.cfg = model.config
+        self.n_slots = n_slots
+        self.max_len = min(max_len, self.cfg.max_seq_len)
+        self.fused = fused
+        self.device = resolve_device(model.params["embed"].device)
+        # batched whole-model kernel fast path: ONE launch decodes all slots,
+        # reading each weight once for the whole batch
+        if use_megakernel is None:
+            use_megakernel = fused and self.device.type == "cuda"
+        mega = use_megakernel and fused and cache_dtype == torch.int8 and self.max_len % 128 == 0
+        if mega and n_slots > MAX_BATCH:
+            raise ValueError(
+                f"the batched whole-model kernel takes at most {MAX_BATCH} slots, not {n_slots}; "
+                "pass use_megakernel=False to decode more slots per layer")
+        self.cache = init_cache(self.cfg, n_slots, self.max_len, cache_dtype, device=self.device)
+        self._mega = None
+        self._lm = (None, None)
+        if mega:
+            from .megadecode import default_lm, stack_cache_batched, stack_serving
+
+            st = stack_serving(model)
+            if st is not None:
+                self._mega = st
+                self.cache = stack_cache_batched(self.cache)
+                self._lm = default_lm(model, st[1])
+        self.positions = np.zeros(n_slots, np.int64)  # next write index per slot
+        self.last_token = np.zeros(n_slots, np.int64)
+        self.slot_req: List[Optional[Request]] = [None] * n_slots
+        self._next_rid = 0
+
+    def add_request(self, prompt, max_new_tokens=32, eos_token_id=None) -> Optional[int]:
+        """Prefill into a free slot; returns the request id, or None if full."""
+        try:
+            slot = self.slot_req.index(None)
+        except ValueError:
+            return None
+        # one cache row past the emitted tokens stays free; max(..., 1): a
+        # max_new_tokens >= max_len must still trim from the tail, not keep
+        # the whole prompt ([-0:] is the full array)
+        keep = max(self.max_len - max_new_tokens - 1, 1)
+        prompt = np.asarray(prompt).reshape(-1)[-keep:]
+        req = Request(self._next_rid, prompt, max_new_tokens, eos_token_id)
+        self._next_rid += 1
+
+        ids = torch.as_tensor(prompt[None, :], device=self.device)
+        if self._mega is not None:
+            logits, self.cache = _prefill_into_slot_mega(
+                self.model.params, self.cfg, ids, self.cache, slot, self.max_len)
+        else:
+            logits, self.cache = _prefill_into_slot(
+                self.model.params, self.cfg, ids, self.cache, slot, self.fused)
+        tok = int(torch.argmax(logits[0]))
+        req.tokens.append(tok)
+        self.positions[slot] = len(prompt)
+        self.last_token[slot] = tok
+        self.slot_req[slot] = req
+        return req.rid
+
+    def step(self) -> Dict[int, int]:
+        """One decode step for all slots; returns {rid: new_token} of the
+        active ones."""
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return {}
+        tokens = torch.as_tensor(self.last_token[:, None], device=self.device)
+        if self._mega is not None:
+            from .megadecode import model_step_batch
+
+            stack, meta = self._mega
+            logits, self.cache = model_step_batch(
+                self.model.params, stack, meta, self.cfg, tokens, self.cache,
+                self.positions, lm=self._lm[0])
+        else:
+            logits, self.cache = decode_step_multi(
+                self.model.params, self.cfg, tokens, self.cache,
+                torch.as_tensor(self.positions, device=self.device), self.fused)
+        # argmax on the device: bring back [B] ids, not [B, V] logits
+        toks = torch.argmax(logits, -1).cpu().numpy()
+        out = {}
+        for i in active:
+            req = self.slot_req[i]
+            tok = int(toks[i])
+            req.tokens.append(tok)
+            out[req.rid] = tok
+            self.positions[i] += 1
+            self.last_token[i] = tok
+            hit_eos = req.eos_token_id is not None and tok == req.eos_token_id
+            if len(req.tokens) >= req.max_new_tokens or hit_eos \
+                    or self.positions[i] >= self.max_len - 1:
+                req.done = True
+                self.slot_req[i] = None  # slot freed; a new request can join
+        return out
+
+    def run_all(self, prompts, max_new_tokens=16) -> Dict[int, List[int]]:
+        """Feed prompts through the scheduler to completion."""
+        pending = list(prompts)
+        results: Dict[int, List[int]] = {}
+        reqs: List[Request] = []
+        while pending or any(r is not None for r in self.slot_req):
+            while pending:
+                rid = self.add_request(pending[0], max_new_tokens)
+                if rid is None:
+                    break
+                reqs.append([r for r in self.slot_req if r and r.rid == rid][0])
+                pending.pop(0)
+            self.step()
+            for r in reqs:
+                if r.done:
+                    results[r.rid] = r.tokens
+        for r in reqs:
+            results[r.rid] = r.tokens
+        return results

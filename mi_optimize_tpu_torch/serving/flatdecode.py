@@ -9,10 +9,11 @@ Port of mi_optimize_tpu/serving/flatdecode.py (without the multi-token
     logits, cache = prefill(...)              # per-layer int8 cache
     decode_loop_flat(..., stack_cache_flat(cache), ...)   # one launch per token
 
-Where `stack_flat` returns None (asymmetric grids, an unpacked lm_head, a
-block outside the decode kernel's contract) callers decode through
-`engine.decode_loop`, i.e. the per-layer block_fused kernel: the reference's
-`model_fused` fallback is not ported yet.
+Where `stack_flat` returns None (asymmetric grids, an unpacked lm_head)
+callers decode as the reference's bench does: through
+`megadecode.decode_loop_model` (one model_fused launch per token, the
+lm_head outside it) when `megadecode.stack_serving` takes the model, else
+through `engine.decode_loop` (the per-layer block_fused kernel).
 """
 from __future__ import annotations
 

@@ -1,27 +1,45 @@
-"""Stacked [L, ...] serving weights for the whole-model decode kernel.
+"""Model-level decode: the whole decoder stack as ONE kernel per step.
 
-Port of the part of mi_optimize_tpu/serving/megadecode.py that the flat
-decode path needs: `_grp`, `_zconst` and `stack_serving`. The stacked layout
-is the port's own: the natural words-major per-layer packed arrays [L, KW, N]
-and their f32 scale tables [L, K/g, N], with no TPU tiling of the
-intermediate axis. Bias tables are not stacked: the flat kernel takes
-symmetric grids only and computes the bias from `meta`'s constant zeros.
-The blocks then read their words and scales through views of the stack.
+Port of mi_optimize_tpu/serving/megadecode.py: `_grp`, `_zconst`,
+`stack_serving`, the single-stream loop (`init_cache_stacked`,
+`stack_cache`, `_model_step`, `decode_loop_model`) and the batched step of
+continuous batching (`default_lm`, `stack_cache_batched`,
+`unstack_cache_batched`, `_scatter_rows_batched`, `model_step_batch`). The
+paged, chunk and tensor-parallel steps are not ported yet (ROADMAP.md A10,
+A12).
+
+    model = fuse_for_serving(model)
+    stack, meta = stack_serving(model)          # None -> engine.decode_loop
+    logits, cache = prefill(...)                # per-layer int8 cache
+    decode_loop_model(..., stack_cache(cache), ...)   # one launch per token
+
+The stacked layout is the port's own: the natural words-major per-layer
+packed arrays [L, KW, N] and their f32 scale tables [L, K/g, N], plus the f32
+bias tables [L, K/g, N] of every linear whose zero is not one constant
+across the model. The TPU kernel's zero padding of the intermediate axis is
+a VMEM tiling detail and is not copied. The blocks then read their words and
+tables through views of the stack.
+
+Caches are updated in place (the reference returns fresh functional arrays);
+the functions still return the cache they wrote.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.device import resolve_device
 from ..core.qparams import qrange
+from ..models import llama
 from ..models.model import Model
 from ..models.quant_linear import group_size as _grp
 from ..ops.block_fused import prepare_block
 from ..ops.dequant_matmul import kernel_tables
 
 _LINEARS = ("qkv_proj", "o_proj", "gateup_proj", "down_proj")
-# (linear, stack key of its words, stack key of its scale table)
-_STACKED = (("qkv_proj", "qkv", "qs"), ("o_proj", "o", "os"), ("gateup_proj", "gu", "gus"),
-            ("down_proj", "d", "ds"))
+# (linear, stack key of its words, of its scale table, of its bias table)
+_STACKED = (("qkv_proj", "qkv", "qs", "qz"), ("o_proj", "o", "os", "oz"),
+            ("gateup_proj", "gu", "gus", "guz"), ("down_proj", "d", "ds", "dz"))
+_FIELDS = ("k", "v", "k_scale", "v_scale")
 
 
 def _zconst(layers, name):
@@ -34,11 +52,14 @@ def _zconst(layers, name):
 
 
 def stack_serving(model: Model):
-    """(stack dict, meta tuple) for the whole-model kernel, or None.
+    """(stack dict, meta tuple) for the whole-model kernels, or None.
 
     meta = (bits, g_qkv, g_o, g_gu, g_d, zc_qkv, zc_o, zc_gu, zc_d); a zc is
-    None where that linear's zero is not one constant across the model.
-    The model's blocks are rebound to views of the stack (same values)."""
+    None where that linear's zero is not one constant across the model, and
+    then its bias tables are stacked too ("qz", "oz", "guz", "dz"). A
+    symmetric model stacks no bias table. The model's blocks are rebound to
+    views of the stack (same values); a second call returns the same words
+    and tables, not a copy."""
     layers = model.params["layers"]
     if not layers or any("mega" not in b for b in layers):
         return None
@@ -52,24 +73,141 @@ def stack_serving(model: Model):
         return None
 
     def stk(fn):
-        return torch.stack([fn(b) for b in layers])
+        ts = [fn(b) for b in layers]
+        base = ts[0]._base
+        # a model stacked before already reads these through views of one
+        # stack: reuse it, so that stacking twice keeps one copy on the card
+        if (base is not None and base.shape == (len(ts),) + ts[0].shape
+                and all(t._base is base and t.data_ptr() == base[l].data_ptr()
+                        for l, t in enumerate(ts))):
+            return base
+        return torch.stack(ts)
 
+    zcs = tuple(_zconst(layers, n) for n in _LINEARS)
     stack = {"n1": stk(lambda b: b["input_norm"].reshape(-1)),
              "n2": stk(lambda b: b["post_norm"].reshape(-1))}
-    for name, wk, sk in _STACKED:
+    for (name, wk, sk, zk), zc in zip(_STACKED, zcs):
         stack[wk] = stk(lambda b: b[name].packed)
         stack[sk] = stk(lambda b: kernel_tables(b[name])[0])
-    meta = (k0[0],) + k0[2:] + tuple(_zconst(layers, n) for n in _LINEARS)
+        if zc is None:
+            stack[zk] = stk(lambda b: kernel_tables(b[name])[1])
     _share(model, stack)
-    return stack, meta
+    return stack, (k0[0],) + k0[2:] + zcs
 
 
 def _share(model: Model, stack) -> None:
-    """Rebind every block's packed words and scale tables to views of the
+    """Rebind every block's packed words and kernel tables to views of the
     stack, so the card keeps one copy of them, not two."""
     for l, b in enumerate(model.params["layers"]):
-        for name, wk, sk in _STACKED:
+        for name, wk, sk, zk in _STACKED:
             lin = b[name]
             lin.packed = stack[wk][l]
-            lin.tables = (stack[sk][l], lin.tables[1])
+            lin.tables = (stack[sk][l], stack[zk][l] if zk in stack else lin.tables[1])
         b["mega"] = prepare_block(b, model.config)
+
+
+# ---------------------------------------------------------------------------
+# single stream: one model_decode_mega launch per token
+# ---------------------------------------------------------------------------
+
+def init_cache_stacked(cfg, max_len: int, device=None):
+    """Stacked int8 KV cache: [L, T, Hkv, D] values + [L, T, Hkv] scales."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=dev),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=dev)}
+
+
+def stack_cache(cache_list):
+    """Per-layer cache list (engine.init_cache dtype=int8, batch=1) -> stacked."""
+    return {f: torch.stack([c[f][0] for c in cache_list]) for f in _FIELDS}
+
+
+def _model_step(params, stack, meta, cfg, tok, cache, pos: int):
+    """One token: (logits [1, V], cache). The new rows are written into the
+    cache in place at `pos`; the lm_head runs outside the kernel."""
+    from ..ops.model_fused import model_decode_mega
+
+    x = llama.embed(params, tok)                                   # [1, 1, h]
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=x.device))
+    x, krows, vrows, ksr, vsr = model_decode_mega(
+        stack, x, cos.reshape(-1)[-cfg.head_dim:], sin.reshape(-1)[-cfg.head_dim:],
+        cache, pos, cfg, meta)
+    for f, new in zip(_FIELDS, (krows, vrows, ksr, vsr)):
+        cache[f][:, pos] = new
+    h = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return llama.unembed(params, cfg, h)[:, 0], cache
+
+
+@torch.no_grad()
+def decode_loop_model(params, stack, meta, cfg, token, cache, pos0: int, n: int):
+    """Greedy-decode n tokens, ONE whole-model launch per token.
+    token [1,1] -> (tokens [1,n], cache)."""
+    toks = []
+    tok = token
+    for i in range(n):
+        logits, cache = _model_step(params, stack, meta, cfg, tok, cache, int(pos0) + i)
+        tok = torch.argmax(logits, -1).to(token.dtype)[:, None]
+        toks.append(tok[:, 0])
+    return torch.stack(toks, dim=1), cache
+
+
+# ---------------------------------------------------------------------------
+# batched (B-slot) decode: the continuous-batching fast path
+# ---------------------------------------------------------------------------
+
+def default_lm(model: Model, meta):
+    """The batched kernel's fused terminal lm rows (mode (d)) are not ported;
+    the lm_head runs after the kernel through dequant_matmul with M = B.
+    The reference keeps the fused rows opt-in and off by default too.
+    Returns (lm, lm_meta)."""
+    return None, None
+
+
+def stack_cache_batched(cache_list):
+    """Per-layer multi-slot cache (engine.init_cache dtype=int8, batch=B) ->
+    HEAD-TRANSPOSED stacked dict for the batched kernel:
+    k/v [L, B, Hkv, T, D], scales [L, B, Hkv, T]."""
+    return {f: torch.stack([c[f] for c in cache_list]).transpose(2, 3).contiguous()
+            for f in _FIELDS}
+
+
+def unstack_cache_batched(cache, n_layers):
+    """Inverse of stack_cache_batched (back to the per-layer engine layout)."""
+    return [{f: cache[f][l].transpose(1, 2).contiguous() for f in _FIELDS}
+            for l in range(n_layers)]
+
+
+def _scatter_rows_batched(cache, krows, vrows, ksr, vsr, positions):
+    """Write each slot's new rows at its own position, in place (one indexed
+    write per field). Positions must lie inside the cache: unlike the
+    reference's dynamic_update_slice, an out-of-range position raises
+    instead of being clamped to the last row."""
+    dev = krows.device
+    b = torch.arange(krows.shape[1], device=dev)
+    p = torch.as_tensor(positions).reshape(-1).to(dev, torch.long)
+    for f, new in zip(_FIELDS, (krows, vrows, ksr, vsr)):
+        # advanced indices on axes 1 and 3 put the slot axis first
+        cache[f][:, b, :, p] = new.transpose(0, 1)
+    return cache
+
+
+@torch.no_grad()
+def model_step_batch(params, stack, meta, cfg, tokens, cache, positions, lm=None):
+    """One B-slot decode step: tokens [B,1], positions [B] (host ints, one
+    per slot) -> (logits [B,V], cache). ONE launch for the whole decoder
+    stack: the weights stream once for all B slots."""
+    from ..ops.model_fused import model_decode_mega_batch
+
+    B = tokens.shape[0]
+    x = llama.embed(params, tokens)                                # [B, 1, h]
+    pos = torch.as_tensor(positions).reshape(-1).to("cpu", torch.int64)
+    cos, sin = llama.rope_tables(cfg, pos.to(x.device)[:, None])
+    x, krows, vrows, ksr, vsr = model_decode_mega_batch(
+        stack, x, cos.reshape(B, -1)[:, -cfg.head_dim:], sin.reshape(B, -1)[:, -cfg.head_dim:],
+        cache, pos, cfg, meta, lm=lm)
+    cache = _scatter_rows_batched(cache, krows, vrows, ksr, vsr, pos)
+    h = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return llama.unembed(params, cfg, h)[:, 0], cache

@@ -1,10 +1,11 @@
 """Boundaries of the PyTorch port: it never imports JAX or the JAX package,
 its entry points never fall back to the CPU on their own, and on CPU tensors
-the three kernel wrappers run their plain versions without counting a
+the five kernel wrappers run their plain versions without counting a
 launch."""
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -13,8 +14,9 @@ import torch
 from mi_optimize_tpu_torch.models.llama import LlamaConfig, init_params
 from mi_optimize_tpu_torch.models.model import Model
 from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
-from mi_optimize_tpu_torch.ops import block_fused, dequant_matmul, model_flat
-from mi_optimize_tpu_torch.serving import engine
+from mi_optimize_tpu_torch.ops import block_fused, dequant_matmul, model_flat, model_fused
+from mi_optimize_tpu_torch.serving import engine, megadecode
+from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
 from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat, stack_flat
 from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
 
@@ -38,7 +40,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 15  # every module of the slice was imported
+    assert int(n) >= 22  # every module of the two slices was imported
     assert bad.strip() == "[]"
 
 
@@ -57,6 +59,37 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, call):
         call(LlamaConfig.tiny(hidden_size=128, intermediate_size=256, head_dim=32))
 
 
+def test_batcher_cache_on_cuda_raises_without_gpu(monkeypatch):
+    """A model built with the default device has its tensors on CUDA; the
+    batcher puts its cache beside them and, without a GPU, raises instead of
+    moving to the CPU. No tensor can be made on CUDA here, so the model's
+    embedding is a stand-in that reports the CUDA device."""
+    cfg = LlamaConfig.tiny(hidden_size=128, intermediate_size=256, head_dim=32)
+    model = Model(config=cfg, params={"embed": types.SimpleNamespace(device=torch.device("cuda"))})
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatcher(model, n_slots=2, max_len=128, cache_dtype=torch.int8)
+
+
+def test_batcher_refuses_more_slots_than_the_batched_kernel_takes():
+    """With the batched kernel on, more than MAX_BATCH slots raise (no quiet
+    switch to the per-layer path); with it off they decode per layer."""
+    cfg = LlamaConfig.tiny(hidden_size=128, intermediate_size=256, head_dim=32)
+    model = Model(config=cfg, params=init_params(cfg, device="cpu"))
+    n = model_fused.MAX_BATCH + 1
+    with pytest.raises(ValueError, match=f"at most {model_fused.MAX_BATCH} slots"):
+        ContinuousBatcher(model, n_slots=n, max_len=128, cache_dtype=torch.int8,
+                          use_megakernel=True)
+    b = ContinuousBatcher(model, n_slots=n, max_len=128, cache_dtype=torch.int8,
+                          use_megakernel=False)
+    assert b._mega is None and b.cache[0]["k"].shape[0] == n
+
+
+def _counts():
+    return (dequant_matmul.launches, block_fused.launches, model_flat.launches,
+            model_fused.launches, model_fused.launches_batch)
+
+
 def test_wrappers_take_plain_versions_on_cpu_and_count_nothing():
     cfg = LlamaConfig(vocab_size=64, hidden_size=256, intermediate_size=512, num_layers=2,
                       num_heads=2, num_kv_heads=1, head_dim=128, max_seq_len=256)
@@ -64,16 +97,25 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_nothing():
         config=cfg, params=build_quantized_llama(cfg, dtype=torch.float32, device="cpu")))
     assert all("mega" in b for b in model.params["layers"])
     fstack, fmeta = stack_flat(model)
-    for m in (dequant_matmul, block_fused, model_flat):
+    for m in (dequant_matmul, block_fused, model_flat, model_fused):
         m.launches = 0
+    model_fused.launches_batch = 0
     prompt = np.arange(5)[None] % cfg.vocab_size
     out = engine.generate(model, prompt, max_new_tokens=3, cache_dtype=torch.int8)
     logits, cache = engine.prefill(model.params, cfg, torch.from_numpy(prompt),
                                    engine.init_cache(cfg, 1, 128, torch.int8, device="cpu"))
-    toks, _ = decode_loop_flat(model.params, fstack, fmeta, cfg,
-                               torch.argmax(logits, -1)[:, None], stack_cache_flat(cache), 5, 3)
-    assert out.shape == (1, 8) and toks.shape == (1, 3)
-    assert (dequant_matmul.launches, block_fused.launches, model_flat.launches) == (0, 0, 0)
+    tok = torch.argmax(logits, -1)[:, None]
+    toks, _ = decode_loop_flat(model.params, fstack, fmeta, cfg, tok, stack_cache_flat(cache), 5,
+                               3)
+    mtoks, _ = megadecode.decode_loop_model(model.params, fstack, fmeta[:9], cfg, tok,
+                                            megadecode.stack_cache(cache), 5, 3)
+    b = ContinuousBatcher(model, n_slots=2, max_len=128, cache_dtype=torch.int8,
+                          use_megakernel=True)
+    assert b._mega is not None
+    res = b.run_all([prompt[0], prompt[0, :3]], max_new_tokens=3)
+    assert out.shape == (1, 8) and toks.shape == mtoks.shape == (1, 3)
+    assert torch.equal(toks, mtoks) and res[0] == [int(tok)] + toks[0, :2].tolist()
+    assert _counts() == (0, 0, 0, 0, 0)
 
 
 def test_kernel_launchers_validate_inputs_before_building():
@@ -104,3 +146,51 @@ def test_kernel_launchers_validate_inputs_before_building():
     bad = dict(fstack, ue=fstack["ue"][:, :32].contiguous())
     with pytest.raises(ValueError, match=r"stack\[ue\]"):
         model_flat._model_decode_flat_cuda(bad, x[None], torch.zeros(256), fcache, 3, cfg, fmeta)
+
+
+def test_whole_model_launchers_validate_inputs_before_building():
+    """model_decode_mega's and model_decode_mega_batch's launchers check
+    dtype, shape and the positions in Python before any pointer reaches
+    native code (here on CPU tensors, so a pass would reach the build and
+    fail differently); the batched wrapper refuses the modes not ported."""
+    cfg = LlamaConfig(vocab_size=64, hidden_size=256, intermediate_size=512, num_layers=2,
+                      num_heads=2, num_kv_heads=1, head_dim=128, max_seq_len=256)
+    model = fuse_for_serving(Model(config=cfg, params=build_quantized_llama(
+        cfg, dtype=torch.float32, device="cpu", symmetric=False)))
+    stack, meta = megadecode.stack_serving(model)
+    assert meta[5:] == (None,) * 4 and "qz" in stack
+    T, L, Hkv, D = 128, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    x, cs = torch.zeros(1, 1, 256), torch.zeros(D)
+    cache = megadecode.init_cache_stacked(cfg, T, device="cpu")
+    mega = model_fused._model_decode_mega_cuda
+    with pytest.raises(ValueError, match=r"stack\[qz\]"):
+        mega(dict(stack, qz=stack["qz"][:, :1].contiguous()), x, cs, cs, cache, 3, cfg, meta)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mega(stack, x.to(torch.float64), cs, cs, cache, 3, cfg, meta)
+    with pytest.raises(ValueError, match="position"):
+        mega(stack, x, cs, cs, cache, T, cfg, meta)
+    with pytest.raises(ValueError, match=r"cache\[k\]"):
+        mega(stack, x, cs, cs, dict(cache, k=cache["k"][:, :, :, :64].contiguous()), 3, cfg, meta)
+
+    B = 3
+    bcache = megadecode.stack_cache_batched(engine.init_cache(cfg, B, T, torch.int8,
+                                                              device="cpu"))
+    xb, cb = torch.zeros(B, 1, 256), torch.zeros(B, D)
+    batch = model_fused._model_decode_mega_batch_cuda
+    with pytest.raises(ValueError, match="positions"):
+        batch(stack, xb, cb, cb, bcache, [0, 5, T], cfg, meta)
+    with pytest.raises(ValueError, match="positions"):
+        batch(stack, xb, cb, cb, bcache, [0, 5], cfg, meta)
+    with pytest.raises(ValueError, match="slots"):
+        batch(stack, torch.zeros(9, 1, 256), cb, cb, bcache, [0] * 9, cfg, meta)
+    with pytest.raises(ValueError, match=r"cache\[v_scale\]"):
+        batch(stack, xb, cb, cb, dict(bcache, v_scale=bcache["v_scale"][:, :2].contiguous()),
+              [0, 5, 7], cfg, meta)
+    with pytest.raises(ValueError, match=r"stack\[gu\]"):
+        batch(dict(stack, gu=stack["gu"][:, :, :8].contiguous()), xb, cb, cb, bcache,
+              [0, 5, 7], cfg, meta)
+    for kw, mode in ((dict(table=torch.zeros(B, 1)), "paged"), (dict(chunk=2), "chunk"),
+                     (dict(lm={}), "lm rows"), (dict(tp=2), "tp")):
+        with pytest.raises(NotImplementedError, match=mode):
+            model_fused.model_decode_mega_batch(stack, xb, cb, cb, bcache, [0, 5, 7], cfg, meta,
+                                                **kw)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at small
 shapes and in float32, over the options the main path does not reach:
-int2/int8 and per-channel weights, ragged M and N, head_dim 64, positions on
-and off the 128-row boundary.
+int2/int8 and per-channel weights, asymmetric grids (streamed bias tables),
+ragged M and N, an intermediate size that is not a multiple of 32, head_dim
+64, 1 to 8 slots, positions on and off the 128-row boundary.
 
 Needs an NVIDIA GPU and nvcc; every test skips without one. On the card:
 
@@ -26,8 +27,9 @@ from mi_optimize_tpu_torch.models.llama import LlamaConfig
 from mi_optimize_tpu_torch.models.model import Model
 from mi_optimize_tpu_torch.models.quant_linear import QuantizedLinear, QuantSpec, group_size
 from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
-from mi_optimize_tpu_torch.ops import block_fused, dequant_matmul, model_flat
-from mi_optimize_tpu_torch.serving import engine
+from mi_optimize_tpu_torch.ops import block_fused, dequant_matmul, model_flat, model_fused
+from mi_optimize_tpu_torch.serving import engine, megadecode
+from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
 from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat, stack_flat
 from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
 
@@ -97,13 +99,14 @@ def test_dequant_matmul(dev, dtype, bits, qtype, groupsize, symmetric, M):
     _close(y, ref, RTOL if dtype == torch.float32 else 2e-2)
 
 
-def _small(device, bits=4, groupsize=128, head_dim=128, layers=2, seed=0):
+def _small(device, bits=4, groupsize=128, head_dim=128, layers=2, seed=0, symmetric=True,
+           inter=1024):
     heads = 512 // head_dim
-    cfg = LlamaConfig(vocab_size=160, hidden_size=512, intermediate_size=1024, num_layers=layers,
+    cfg = LlamaConfig(vocab_size=160, hidden_size=512, intermediate_size=inter, num_layers=layers,
                       num_heads=heads, num_kv_heads=heads // 2, head_dim=head_dim,
                       max_seq_len=512)
     p = build_quantized_llama(cfg, bits=bits, groupsize=groupsize, dtype=torch.float32,
-                              seed=seed, device="cpu")
+                              seed=seed, device="cpu", symmetric=symmetric)
     gen = torch.Generator().manual_seed(seed)
     for blk in p["layers"]:
         for k in ("input_norm", "post_norm"):
@@ -179,3 +182,100 @@ def test_generate_and_flat_decode_match_the_cpu(dev):
     assert torch.equal(outs["cuda"][2], outs["cpu"][2])
     after = [m.launches for m in (dequant_matmul, block_fused, model_flat)]
     assert all(a > b for a, b in zip(after, counts))
+
+
+# (bits, symmetric, head_dim, intermediate, group): int4/int8, both grids,
+# head_dim 64 and 128, and I = 1000 (not a multiple of 32; group 8 divides it)
+WHOLE_MODEL = [(4, True, 128, 1024, 128), (4, False, 128, 1024, 128), (8, False, 64, 1024, 128),
+               (8, True, 64, 1024, 128), (4, False, 128, 1000, 8)]
+T_MEGA = 256
+POSITIONS = [0, 127, 128, T_MEGA - 1]
+
+
+def _stacked(dev, bits, symmetric, head_dim, inter, group, seed):
+    cfg, _, gpu = _small(dev, bits=bits, groupsize=group, head_dim=head_dim, seed=seed,
+                         symmetric=symmetric, inter=inter)
+    stack, meta = megadecode.stack_serving(gpu)
+    assert (meta[5] is None) == (not symmetric)
+    return cfg, gpu, stack, meta
+
+
+@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", WHOLE_MODEL)
+@pytest.mark.parametrize("pos", POSITIONS)
+def test_model_decode_mega(dev, bits, symmetric, head_dim, inter, group, pos):
+    cfg, _, stack, meta = _stacked(dev, bits, symmetric, head_dim, inter, group, pos + bits)
+    cache = _to(_cache(cfg, T_MEGA, pos, layers=cfg.num_layers, seed=pos), dev)
+    x = torch.randn(1, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(pos)).to(dev)
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+    args = (stack, x, cos.reshape(-1), sin.reshape(-1), cache, pos, cfg, meta)
+    before = model_fused.launches
+    got = model_fused.model_decode_mega(*args)
+    assert model_fused.launches == before + 1
+    ref = model_fused.model_decode_mega_ref(*args)
+    _close(got[0], ref[0])
+    _rows_match(got[1], ref[1])
+    _rows_match(got[2], ref[2])
+    _close(got[3], ref[3], 1e-5)
+    _close(got[4], ref[4], 1e-5)
+
+
+@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", WHOLE_MODEL)
+@pytest.mark.parametrize("B", [1, 2, 5, 8])
+def test_model_decode_mega_batch(dev, bits, symmetric, head_dim, inter, group, B):
+    cfg, _, stack, meta = _stacked(dev, bits, symmetric, head_dim, inter, group, B + bits)
+    positions = [POSITIONS[b % len(POSITIONS)] for b in range(B)]
+    slots = [_cache(cfg, T_MEGA, p, layers=cfg.num_layers, seed=b)
+             for b, p in enumerate(positions)]
+    cache = {f: torch.stack([c[f].transpose(1, 2) for c in slots], dim=1).contiguous().to(dev)
+             for f in slots[0]}                                     # [L, B, Hkv, T(, D)]
+    x = torch.randn(B, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(B)).to(dev)
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    args = (stack, x, cos.reshape(B, -1), sin.reshape(B, -1), cache, positions, cfg, meta)
+    before = model_fused.launches_batch
+    got = model_fused.model_decode_mega_batch(*args)
+    assert model_fused.launches_batch == before + 1
+    ref = model_fused.model_decode_mega_batch_ref(*args)
+    _close(got[0], ref[0])
+    _rows_match(got[1], ref[1])
+    _rows_match(got[2], ref[2])
+    _close(got[3], ref[3], 1e-5)
+    _close(got[4], ref[4], 1e-5)
+
+
+def test_batcher_and_model_loop_match_the_cpu(dev):
+    """ContinuousBatcher on the one-launch batched step (a request joins
+    mid-flight) and decode_loop_model on an asymmetric grid, on the card
+    against the plain versions on the CPU: greedy tokens equal."""
+    outs = {}
+    counts = (model_fused.launches, model_fused.launches_batch)
+    for symmetric in (True, False):
+        cfg, cpu, gpu = _small(dev, seed=13, symmetric=symmetric)
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (11, 30, 7)]
+        for name, m in (("cpu", cpu), ("cuda", gpu)):
+            b = ContinuousBatcher(m, n_slots=2, max_len=256, cache_dtype=torch.int8,
+                                  use_megakernel=True)
+            assert b._mega is not None
+            toks = {}
+            r0 = b.add_request(prompts[0], max_new_tokens=3)
+            r1 = b.add_request(prompts[1], max_new_tokens=7)
+            reqs = {r0: b.slot_req[0], r1: b.slot_req[1]}
+            while any(r is not None for r in b.slot_req):
+                b.step()
+                if len(reqs) == 2 and None in b.slot_req:
+                    r2 = b.add_request(prompts[2], max_new_tokens=5)
+                    reqs[r2] = [r for r in b.slot_req if r and r.rid == r2][0]
+            toks["batcher"] = [reqs[r].tokens for r in sorted(reqs)]
+            if not symmetric:
+                d = m.params["embed"].device
+                ids = torch.as_tensor(prompts[1][None], device=d)
+                log, cache = engine.prefill(m.params, cfg, ids,
+                                            engine.init_cache(cfg, 1, 256, torch.int8, device=d))
+                stack, meta = b._mega
+                mt, _ = megadecode.decode_loop_model(m.params, stack, meta, cfg,
+                                                     torch.argmax(log, -1)[:, None],
+                                                     megadecode.stack_cache(cache), 30, 6)
+                toks["model_loop"] = mt.cpu().tolist()
+            outs[(symmetric, name)] = toks
+        assert outs[(symmetric, "cuda")] == outs[(symmetric, "cpu")], symmetric
+    assert model_fused.launches > counts[0] and model_fused.launches_batch > counts[1]
