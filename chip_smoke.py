@@ -9,9 +9,13 @@ Phases:
   2. hold each kernel against its plain PyTorch version on the card at the
      Llama-2-7B shapes of the paths below in bf16, and time both: the
      dequant matmul, the per-layer and flat decode kernels, the whole-model
-     kernel on an asymmetric grid (bias tables streamed) and the batched
-     whole-model kernel at B = 8 (and B = 2 on the asymmetric grid);
-  3. serve three paths at Llama-2-7B width and depth (int4 g128 packed
+     kernel on an asymmetric grid (bias tables streamed), the batched
+     whole-model kernel at B = 8 (and B = 2 on the asymmetric grid), in its
+     paged mode on a pool that mirrors the B = 8 state (bitwise equal to the
+     dense mode), in its chunk mode (8 tokens after a 256-row paged prefix;
+     two slots of 4 tokens at prefixes 0 and 300), and the paged flash
+     decode of one layer (4 slots, pages of 16);
+  3. serve the paths at Llama-2-7B width and depth (int4 g128 packed
      weights made on the card from seed 0, int8 KV cache), each with the
      launch counters set to 0 just before it and read just after:
      a. three requests through `generate` (per-layer decode kernel), then
@@ -23,18 +27,28 @@ Phases:
         whole-model kernel;
      c. a 128-token prefill plus 128 tokens of `decode_loop_model` on an
         asymmetric-grid model (the whole-model kernel with bias tables);
+     d. the same 24 requests through `PagedMegaBatcher` (8 slots over a
+        25-page pool, then 12 slots in waves of 8): the paged mode, tokens
+        equal to the ContinuousBatcher's;
+     e. 16 requests sharing a 256-token prefix plus one sampled twice,
+        through `PagedMegaBatcher(prefix_cache=True)`: the hits' suffixes in
+        the paged chunk mode;
+     f. 8 requests through `PagedBatcher` (4 slots, f32 pool of 64 pages of
+        16): the paged flash decode;
      every kernel must have launched on its path;
   4. check the outputs: tokens in range, logits finite, and on a small f32
      model the card's prefill logits and greedy tokens (generate, the flat
      loop, the batcher with a mid-flight join, decode_loop_model on an
-     asymmetric grid) agree with the plain versions run on the CPU;
+     asymmetric grid, both paged batchers with waves and prefix caching)
+     agree with the plain versions run on the CPU;
   5. where the time goes: torch.profiler device time by kernel and the
-     device busy share over a prefill, flat decode, per-layer decode and 8
-     batcher steps with 8 active slots.
+     device busy share over a prefill, flat decode, per-layer decode, 8
+     batcher steps and 8 paged batcher steps with 8 active slots.
 
 Earlier lines report each phase; the line before the last is a JSON object
 with every kernel's launches, error, time, plain time, library time (torch's
-own int4 product for the 4-bit dequant_matmul rows; none for the decode
+own int4 product for the 4-bit dequant_matmul rows, scaled_dot_product_attention
+over the pre-gathered pages for the paged flash decode; none for the decode
 kernels, since no single PyTorch call computes a decoder stack) and bound;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 2 and prints no result. `--report PATH` also writes
@@ -312,7 +326,8 @@ def code_diff(what, got, ref):
     return st
 
 
-def check_whole_model(name, kernel, plain, stack, cache, x, cfg, positions, cut=2):
+def check_whole_model(name, kernel, plain, stack, cache, x, cfg, positions, cut=2,
+                      depth_gate=True):
     """A whole-model kernel (x_out, krows, vrows, kscales, vscales) against
     its plain version on the same inputs; kernel/plain(stack, cache, x, cfg).
 
@@ -326,7 +341,8 @@ def check_whole_model(name, kernel, plain, stack, cache, x, cfg, positions, cut=
     full width: x_out within F32_TOL, codes one-code on at most 0.1%. At full
     depth in float32, x_out of each slot at a position of DEPTH_GATE_POS or
     more is held within F32_TOL of max|plain|; the slots below are reported
-    (check_mega_batch gives them a second witness). Returns (bf16 x_out
+    (check_mega_batch gives them a second witness); with depth_gate=False
+    every row's full-depth drift is reported only. Returns (bf16 x_out
     max|diff|, stats, (kernel, plain) outputs in float32 at full depth)."""
     import dataclasses
 
@@ -354,11 +370,12 @@ def check_whole_model(name, kernel, plain, stack, cache, x, cfg, positions, cut=
     by_slot = ((got[0].float() - ref[0].float()).reshape(len(positions), -1).abs().amax(dim=1)
                / scale).tolist()
     stats["f32_full_depth_x_out_rel_by_slot"] = by_slot
-    held = [b for b, p in enumerate(positions) if p >= DEPTH_GATE_POS]
+    held = [b for b, p in enumerate(positions) if p >= DEPTH_GATE_POS and depth_gate]
     ok = all(by_slot[b] <= F32_TOL for b in held)
     log(f"  {name} x_out (f32, all layers) by slot at positions {list(positions)}: "
-        f"{', '.join(f'{v:.1e}' for v in by_slot)} of max|plain|; held within {F32_TOL:.0e} "
-        f"at positions >= {DEPTH_GATE_POS} -> {'ok' if ok else 'FAIL'}")
+        f"{', '.join(f'{v:.1e}' for v in by_slot)} of max|plain|; "
+        + (f"held within {F32_TOL:.0e} at positions >= {DEPTH_GATE_POS} -> "
+           f"{'ok' if ok else 'FAIL'}" if depth_gate else "reported"))
     if not ok:
         raise AssertionError(f"{name}: float32 x_out at full depth disagrees with the plain "
                              "version")
@@ -425,6 +442,64 @@ def check_mega(model, stack, meta, cfg, dev, flush, reps, T=384, pos=200):
                  bytes=nb, flops=fl, codes=stats)]
 
 
+def random_slot_cache(cfg, positions, T, dev, gen):
+    """A head-transposed slot cache [L, S, Hkv, T(, D)] whose slot s holds
+    int8 codes and absmax-like scales in its rows t < positions[s] (the rest
+    stay zero, as in a live cache)."""
+    import torch
+
+    L, S = cfg.num_layers, len(positions)
+    cache = {}
+    for f in ("k", "v"):
+        q = torch.randint(-127, 128, (L, S, cfg.num_kv_heads, T, cfg.head_dim), generator=gen,
+                          device=dev, dtype=torch.int32)
+        s = torch.rand((L, S, cfg.num_kv_heads, T), generator=gen, device=dev) * 0.02 + 1e-3
+        for b, p in enumerate(positions):
+            q[:, b, :, p:] = 0
+            s[:, b, :, p:] = 0
+        cache[f], cache[f + "_scale"] = q.to(torch.int8), s
+        del q
+    return cache
+
+
+def mirror_pool(cache, gen, n_pages=None, P=128):
+    """The slot cache's P-row blocks on the pages of a pool ([L, n_pages, Hkv,
+    P(, D)], page 0 scratch), in a random order from `gen`; the table [S,
+    T/P]. Returns (pool, table)."""
+    import torch
+
+    L, S, Hkv, T = cache["k"].shape[:4]
+    nt = T // P
+    n_pages = n_pages or 1 + S * nt
+    dev = cache["k"].device
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    table = perm[:S * nt].reshape(S, nt).to(torch.int32)
+    pool = {f: torch.zeros((L, n_pages, Hkv, P) + c.shape[4:], dtype=c.dtype, device=dev)
+            for f, c in cache.items()}
+    for f, c in cache.items():
+        blocks = c.reshape(L, S, Hkv, nt, P, *c.shape[4:]).transpose(2, 3)  # [L,S,nt,Hkv,P..]
+        pool[f][:, table.reshape(-1).long()] = blocks.reshape(L, S * nt, Hkv, P, *c.shape[4:])
+    return pool, table.cpu()
+
+
+def batch_row(name, shape, kernel, plain, stack, cache, x, cfg, flush, reps, history,
+              positions, **extra):
+    """Time a batched whole-model launch and its plain version and give its
+    bound: the layers' stack, the live history (`history`: rows a slot
+    reads from its cache) and each row's activations and new k/v rows."""
+    L, h, B = cfg.num_layers, cfg.hidden_size, len(positions)
+    ms = time_ms(lambda: kernel(stack, cache, x, cfg), reps, flush)
+    plain_ms = time_ms(lambda: plain(stack, cache, x, cfg), 2, flush)
+    nb = (stacked_bytes(stack) + kv_history_bytes(cfg, history)
+          + B * (2 * h * 2 + L * 2 * cfg.num_kv_heads * (cfg.head_dim + 4)))
+    fl = L * sum(decode_block_flops(cfg, p) for p in positions)
+    b_ms, b_by = bound(nb, fl)
+    log(f"    kernel {ms:.4f} ms ({ms / B:.4f} ms a row)  plain {plain_ms:.4f} ms  "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return [dict(name=name, shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, bytes=nb, flops=fl, **extra)]
+
+
 def check_mega_batch(model, stack, meta, cfg, dev, flush, reps, positions, T=512, label=""):
     """The batched whole-model kernel: B slots at their own positions over
     the head-transposed cache. `stack` holds the decoder layers only (no
@@ -440,18 +515,9 @@ def check_mega_batch(model, stack, meta, cfg, dev, flush, reps, positions, T=512
     from mi_optimize_tpu_torch.models import llama
     from mi_optimize_tpu_torch.ops import model_fused as mf
 
-    L, h, B = cfg.num_layers, cfg.hidden_size, len(positions)
+    L, B = cfg.num_layers, len(positions)
     gen = torch.Generator(device=dev).manual_seed(8 + B)
-    cache = {}
-    for f in ("k", "v"):
-        q = torch.randint(-127, 128, (L, B, cfg.num_kv_heads, T, cfg.head_dim), generator=gen,
-                          device=dev, dtype=torch.int32)
-        s = torch.rand((L, B, cfg.num_kv_heads, T), generator=gen, device=dev) * 0.02 + 1e-3
-        for b, p in enumerate(positions):  # rows past a slot's position stay zero
-            q[:, b, :, p:] = 0
-            s[:, b, :, p:] = 0
-        cache[f], cache[f + "_scale"] = q.to(torch.int8), s
-        del q
+    cache = random_slot_cache(cfg, positions, T, dev, gen)
     toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
     x = llama.embed(model.params, toks)
     cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
@@ -488,17 +554,151 @@ def check_mega_batch(model, stack, meta, cfg, dev, flush, reps, positions, T=512
         if not ok:
             raise AssertionError(f"model_decode_mega_batch: slot {b} drifts more than the "
                                  "one-token kernel on the same inputs")
-    ms = time_ms(lambda: kernel(stack, cache, x, cfg), reps, flush)
-    plain_ms = time_ms(lambda: plain(stack, cache, x, cfg), 2, flush)
-    nb = (stacked_bytes(stack) + kv_history_bytes(cfg, positions)
-          + B * (2 * h * 2 + L * 2 * cfg.num_kv_heads * (cfg.head_dim + 4)))
-    fl = L * sum(decode_block_flops(cfg, p) for p in positions)
+    return batch_row("model_decode_mega_batch", f"{label}B={B} {L} layers T={T} positions "
+                     f"{positions}", kernel, plain, stack, cache, x, cfg, flush, reps, positions,
+                     positions, max_abs_err=err, codes=stats)
+
+
+def check_mega_batch_paged(model, stack, meta, cfg, dev, flush, reps, positions, T=512):
+    """The batched kernel's paged mode (b): the dense row's state mirrored
+    into a pool of 1 + B*T/128 pages in a random order. Its outputs must be
+    bitwise equal to the dense kernel's on the same state (only the history
+    addresses differ), and it is held to its plain version as the dense row
+    is (the dense row's second witness then covers its low slots too)."""
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.ops import model_fused as mf
+
+    L, B = cfg.num_layers, len(positions)
+    gen = torch.Generator(device=dev).manual_seed(8 + B)   # the dense row's state
+    cache = random_slot_cache(cfg, positions, T, dev, gen)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    pool, table = mirror_pool(cache, torch.Generator(device=dev).manual_seed(12))
+    x = llama.embed(model.params, toks)
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    cos, sin = cos.reshape(B, -1), sin.reshape(B, -1)
+    log(f"  model_decode_mega_batch paged: B={B}, {L} layers, {T // 128} pages of 128 a slot "
+        f"in a pool of {pool['k'].shape[1]}, positions {positions}")
+    dense = mf.model_decode_mega_batch(stack, x, cos, sin, cache, positions, cfg, meta)
+    paged = mf.model_decode_mega_batch(stack, x, cos, sin, pool, positions, cfg, meta,
+                                       table=table)
+    torch.cuda.synchronize()
+    same = all(torch.equal(d, p) for d, p in zip(dense, paged))
+    log(f"  paged vs dense kernel on the mirrored state: x_out, rows and scales "
+        f"{'bitwise equal -> ok' if same else 'DIFFER -> FAIL'}")
+    if not same:
+        raise AssertionError("model_decode_mega_batch: the paged mode differs from the dense one")
+    del cache, dense, paged
+    kernel = lambda st, ca, xx, c: mf.model_decode_mega_batch(st, xx, cos, sin, ca, positions, c,
+                                                               meta, table=table)
+    plain = lambda st, ca, xx, c: mf.model_decode_mega_batch_ref(st, xx, cos, sin, ca,
+                                                                  positions, c, meta, table)
+    err, stats, _ = check_whole_model("model_decode_mega_batch paged", kernel, plain, stack,
+                                      pool, x, cfg, positions)
+    return batch_row("model_decode_mega_batch_paged", f"B={B} {L} layers pages of 128 "
+                     f"positions {positions}", kernel, plain, stack, pool, x, cfg, flush, reps,
+                     positions, positions, max_abs_err=err, codes=stats,
+                     bitwise_equal_dense=same)
+
+
+def check_mega_batch_chunk(model, stack, meta, cfg, dev, flush, reps, prefixes, C, paged,
+                           T=512):
+    """The batched kernel's chunk mode (c), over a dense slot cache or (with
+    the paged mode) a pool: C consecutive tokens a slot after its prefix,
+    held to the plain version with the dense row's rules (bf16 within TOL,
+    float32 over the first 2 layers within F32_TOL); the full-depth float32
+    drift of every row is reported."""
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.ops import model_fused as mf
+
+    L, S = cfg.num_layers, len(prefixes)
+    B = S * C
+    gen = torch.Generator(device=dev).manual_seed(20 + B)
+    cache = random_slot_cache(cfg, prefixes, T, dev, gen)
+    table = None
+    if paged:
+        cache, table = mirror_pool(cache, gen)
+    positions = [p + i for p in prefixes for i in range(C)]
+    x = llama.embed(model.params, torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                                                device=dev))
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    cos, sin = cos.reshape(B, -1), sin.reshape(B, -1)
+    what = f"{'paged' if paged else 'dense'} C={C}, {S} slot(s) at prefixes {prefixes}"
+    log(f"  model_decode_mega_batch chunk: {what}, {L} layers, T={T}")
+    kernel = lambda st, ca, xx, c: mf.model_decode_mega_batch(
+        st, xx, cos, sin, ca, positions, c, meta, table=table, chunk=C)
+    plain = lambda st, ca, xx, c: mf.model_decode_mega_batch_ref(
+        st, xx, cos, sin, ca, positions, c, meta, table, C)
+    err, stats, _ = check_whole_model("model_decode_mega_batch chunk", kernel, plain, stack,
+                                      cache, x, cfg, positions, depth_gate=False)
+    return batch_row("model_decode_mega_batch_chunk", f"{what} {L} layers", kernel, plain,
+                     stack, cache, x, cfg, flush, reps, prefixes, positions, max_abs_err=err,
+                     codes=stats)
+
+
+def check_paged_attention(cfg, dev, flush, reps, positions=(37, 200, 333, 511), P=16, pps=32):
+    """The paged flash decode (B8) at one layer of the 7B model as
+    PagedBatcher calls it: q in bf16 over an f32 pool, and in float32 (held
+    within 1e-4 of max|plain|). The library yardstick is
+    F.scaled_dot_product_attention with a boolean mask over the pool already
+    gathered into [B, H, T, D] (the gather is not timed); the port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from mi_optimize_tpu_torch.ops import paged_attention as pa
+
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, T = len(positions), P * pps
+    n_pages = 1 + B * pps
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q32 = torch.randn(B, H * D, generator=gen, device=dev)
+    pk = torch.randn(n_pages, P, Hkv, D, generator=gen, device=dev)
+    pv = torch.randn(n_pages, P, Hkv, D, generator=gen, device=dev)
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:B * pps] + 1).reshape(
+        B, pps).int().cpu()
+    kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=D, page_size=P)
+    log(f"  paged_flash_attention: B={B}, H={H}, Hkv={Hkv}, D={D}, pages of {P}, {pps} a slot, "
+        f"positions {list(positions)}, f32 pool")
+    check_close("paged_flash_attention (f32 q)",
+                pa.paged_flash_attention(q32, pk, pv, table, positions, **kw),
+                pa.paged_flash_attention_ref(q32, pk, pv, table, positions, **kw), 1e-4)
+    q = q32.to(torch.bfloat16)
+    # as paged_decode_step calls it: table and positions checked and copied once a step
+    tdev, pdev = (t.to(dev) for t in pa.check_table(table, positions, B, n_pages, P))
+    run = lambda: pa.paged_flash_attention(q, pk, pv, tdev, pdev, **kw)
+    plain = lambda: pa.paged_flash_attention_ref(q, pk, pv, table, positions, **kw)
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = check_close("paged_flash_attention (bf16 q)", got, ref)
+    # the library yardstick on the pre-gathered view
+    reps_h = H // Hkv
+    pages = table.to(dev).long()
+    kv_view = [pp[pages].reshape(B, T, Hkv, D).repeat_interleave(reps_h, 2).transpose(1, 2)
+               .contiguous() for pp in (pk, pv)]
+    mask = (torch.arange(T, device=dev)[None, :] <= torch.tensor(positions, device=dev)[:, None])
+    mask = mask[:, None, None, :]
+    qv = q32.reshape(B, H, 1, D)
+    lib = lambda: F.scaled_dot_product_attention(qv, *kv_view, attn_mask=mask)
+    lib_err = check_close("  F.scaled_dot_product_attention (pre-gathered, f32)",
+                          lib().reshape(B, H * D),
+                          pa.paged_flash_attention_ref(q32, pk, pv, table, positions, **kw), 1e-4)
+    ms = time_ms(run, reps, flush)
+    plain_ms = time_ms(plain, max(2, reps // 10), flush)
+    lib_ms = time_ms(lib, reps, flush)
+    live = sum(p + 1 for p in positions)
+    nb = live * Hkv * D * 4 * 2 + 2 * B * H * D * 2 + table.numel() * 4
+    fl = 4.0 * live * H * D
     b_ms, b_by = bound(nb, fl)
-    log(f"    kernel {ms:.4f} ms ({ms / B:.4f} ms a slot)  plain {plain_ms:.4f} ms  "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    return [dict(name="model_decode_mega_batch", shape=f"{label}B={B} {L} layers T={T} "
-                 f"positions {positions}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=fl, codes=stats)]
+    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms "
+        f"(pre-gathered SDPA)  bound {b_ms:.4f} ms ({b_by})")
+    return [dict(name="paged_flash_attention", shape=f"B={B} H={H} P={P} pps={pps} positions "
+                 f"{list(positions)} bf16 q, f32 pool", max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                 library_max_abs_err=lib_err, bytes=nb, flops=fl)]
 
 
 # ---------------------------------------------------------------------------
@@ -570,12 +770,14 @@ def serve_main_path(model, fstack, fmeta, cfg, dev, n_flat=128):
     return res
 
 
-def serve_batcher(model, cfg, n_req=24, n_slots=8, max_len=512, n_compare=2):
+def serve_batcher(model, cfg, n_req=24, n_slots=8, max_len=512, n_compare=2, make=None,
+                  name="ContinuousBatcher"):
     """n_req requests arrive at once; prompt lengths uniform in 16-256 (seed
     9), 32 or 64 new tokens in turn, so slots free at different steps and
     the queue's requests join between steps while others decode. Latency of
     a request = its last token's time since the burst arrived. Steps are
-    host-timed; each ends in the device-to-host copy of the new tokens."""
+    host-timed; each ends in the device-to-host copy of the new tokens.
+    `make` builds the batcher (default: the dense ContinuousBatcher)."""
     import numpy as np
     import torch
 
@@ -584,19 +786,25 @@ def serve_batcher(model, cfg, n_req=24, n_slots=8, max_len=512, n_compare=2):
     rng = np.random.default_rng(9)
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in rng.integers(16, 257, n_req)]
     new = [32 if i % 2 == 0 else 64 for i in range(n_req)]
-    b = ContinuousBatcher(model, n_slots=n_slots, max_len=max_len, cache_dtype=torch.int8)
-    if b._mega is None:
-        raise AssertionError("the batcher did not take the batched whole-model kernel")
+    if make is None:
+        b = ContinuousBatcher(model, n_slots=n_slots, max_len=max_len, cache_dtype=torch.int8)
+        if b._mega is None:
+            raise AssertionError("the batcher did not take the batched whole-model kernel")
+    else:
+        b = make()
     pending, reqs, admitted, finished = list(range(n_req)), {}, {}, {}
     full_ms, n_steps, joins_mid_flight = [], 0, 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while pending or any(r is not None for r in b.slot_req):
         while pending and None in b.slot_req:
-            i = pending.pop(0)
-            joins_mid_flight += n_steps > 0 and any(r is not None for r in b.slot_req)
+            i = pending[0]
             admitted[i] = time.perf_counter() - t0
             rid = b.add_request(prompts[i], max_new_tokens=new[i])
+            if rid is None:  # the page pool cannot take it yet
+                break
+            pending.pop(0)
+            joins_mid_flight += n_steps > 0 and sum(r is not None for r in b.slot_req) > 1
             reqs[i] = next(r for r in b.slot_req if r is not None and r.rid == rid)
         full = all(r is not None for r in b.slot_req)
         ts = time.perf_counter()
@@ -621,13 +829,143 @@ def serve_batcher(model, cfg, n_req=24, n_slots=8, max_len=512, n_compare=2):
                joins_mid_flight=int(joins_mid_flight),
                prompt_lens=[len(p) for p in prompts], new_tokens=new,
                admitted_ms=[admitted[i] * 1e3 for i in range(n_req)], latency_ms=lat,
+               request_tokens=[reqs[i].tokens for i in range(n_req)],
                compare=[(prompts[i], reqs[i].tokens) for i in range(n_compare)])
-    log(f"  ContinuousBatcher: {n_req} requests, {n_tok} tokens in {wall:.3f} s -> "
+    log(f"  {name}: {n_req} requests, {n_tok} tokens in {wall:.3f} s -> "
         f"{n_tok / wall:.1f} tokens/s; {n_steps} steps, {len(full_ms)} at {n_slots} active "
         f"slots: {res['ms_per_step_full']:.3f} ms a step (median "
         f"{res['ms_per_step_full_median']:.3f}); {joins_mid_flight} mid-flight joins")
     log(f"  request latency ms (since the burst arrived): "
         f"{', '.join(f'{x:.0f}' for x in lat)}")
+    return res
+
+
+def same_tokens(what, got, ref):
+    """Gate: every request's greedy tokens equal the dense batcher's."""
+    bad = [i for i, (g, r) in enumerate(zip(got, ref)) if g != r]
+    log(f"  {what}: tokens of {len(ref) - len(bad)} of {len(ref)} requests equal the "
+        f"ContinuousBatcher's -> {'ok' if not bad else 'FAIL'}")
+    if bad or len(got) != len(ref):
+        raise AssertionError(f"{what}: requests {bad} differ from the ContinuousBatcher's")
+
+
+def serve_prefix_cache(model, cfg, n_req=16, n_slots=8, max_len=512, shared=256, new=32):
+    """n_req requests that share a 256-token prefix (two full pages, seed 15)
+    plus a suffix of 1-40 tokens, 32 new tokens each, then one request
+    sampled twice in parallel (n=2, temperature 0.8, seed 0), through a
+    PagedMegaBatcher with prefix caching and, for the greedy agreement,
+    without. The first request prefills; later ones map the cached pages and
+    run their suffix through the paged chunk kernel. add_request wall time
+    (time to the first token) is kept apart for hits and misses."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.serving.paged import PagedMegaBatcher
+
+    rng = np.random.default_rng(15)
+    pre = rng.integers(0, cfg.vocab_size, (shared,))
+    prompts = [np.concatenate([pre, rng.integers(0, cfg.vocab_size, (int(n),))])
+               for n in rng.integers(1, 41, n_req + 1)]
+
+    def run(cache):
+        b = PagedMegaBatcher(model, n_slots=n_slots, max_len=max_len, prefix_cache=cache)
+        pending, reqs, ttft = list(range(n_req + 1)), {}, {"hit": [], "miss": []}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while pending or any(r is not None for r in b.slot_req):
+            while pending and None in b.slot_req:
+                i = pending[0]
+                hits = b.pc_hit_tokens
+                ta = time.perf_counter()
+                if i < n_req:
+                    rid = b.add_request(prompts[i], max_new_tokens=new)
+                else:
+                    rid = b.add_request(prompts[i], max_new_tokens=new, n=2, temperature=0.8,
+                                        seed=0)
+                if rid is None:
+                    break
+                ttft["hit" if b.pc_hit_tokens > hits else "miss"].append(
+                    (time.perf_counter() - ta) * 1e3)
+                pending.pop(0)
+                for r in rid if isinstance(rid, list) else [rid]:
+                    reqs[(i, r)] = next(q for q in b.slot_req if q is not None and q.rid == r)
+            b.step()
+        wall = time.perf_counter() - t0
+        toks = {k: r.tokens for k, r in reqs.items()}
+        if any(len(t) != new or not all(0 <= x < cfg.vocab_size for x in t)
+               for t in toks.values()):
+            raise AssertionError("prefix cache: a request returned wrong or out-of-range tokens")
+        n_tok = sum(len(t) for t in toks.values())
+        return dict(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                    stats=b.prefix_cache_stats(), ttft_ms=ttft,
+                    request_tokens={f"{i}/{r}": t for (i, r), t in toks.items()})
+
+    on, off = run(True), run(False)
+    if on["stats"]["hit_tokens"] < (n_req - 1) * shared:
+        raise AssertionError("prefix cache: the shared pages were not hit")
+    greedy = [f"{i}/{i}" for i in range(n_req)]
+    agree = [int(np.cumprod(np.asarray(on["request_tokens"][k]) ==
+                            np.asarray(off["request_tokens"][k])).sum()) for k in greedy]
+    sampled = [t for k, t in on["request_tokens"].items() if k.startswith(f"{n_req}/")]
+    ttft = {k: (float(np.mean(v)) if v else None) for k, v in on["ttft_ms"].items()}
+    log(f"  prefix cache: stats {on['stats']}; {on['tokens']} tokens in {on['wall_s']:.3f} s -> "
+        f"{on['tokens_per_s']:.1f} tokens/s (no cache: {off['tokens_per_s']:.1f}); time to the "
+        f"first token: hits {ttft['hit']:.1f} ms ({len(on['ttft_ms']['hit'])}), misses "
+        f"{ttft['miss']:.1f} ms ({len(on['ttft_ms']['miss'])}); no cache: misses "
+        f"{np.mean(off['ttft_ms']['miss']):.1f} ms")
+    log(f"  greedy tokens with the cache equal to those without on the first: "
+        f"{', '.join(str(a) for a in agree)} of {new} (reported); the n=2 request's two "
+        f"samples share their first {int(np.cumprod(np.equal(*sampled)).sum())} tokens")
+    return dict(cache=on, no_cache=off, greedy_agreement=agree, ttft_mean_ms=ttft)
+
+
+def serve_paged_batcher(model, cfg, n_req=8, n_slots=4, new=32, n_compare=2):
+    """n_req requests (prompts uniform in 16-200 tokens, seed 16, 32 new
+    tokens) through a PagedBatcher of n_slots slots over an f32 pool of 64
+    pages of 16 tokens, 32 a slot: one launch chain a layer a step, the
+    attention through the paged flash decode. Steps are host-timed."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.paged import PagedBatcher
+
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in rng.integers(16, 201, n_req)]
+    b = PagedBatcher(model, n_slots=n_slots, page_size=16, n_pages=64, pages_per_slot=32)
+    pool_gb = sum(nbytes(k, v) for k, v in b.layers) / 1e9
+    pending, reqs, full_ms = list(range(n_req)), {}, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pending or any(r is not None for r in b.slot_req):
+        while pending and None in b.slot_req:
+            rid = b.add_request(prompts[pending[0]], max_new_tokens=new)
+            if rid is None:
+                break
+            reqs[pending.pop(0)] = next(r for r in b.slot_req if r is not None and r.rid == rid)
+        full = all(r is not None for r in b.slot_req)
+        ts = time.perf_counter()
+        b.step()
+        if full:
+            full_ms.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    toks = [reqs[i].tokens for i in range(n_req)]
+    if any(len(t) != new or not all(0 <= x < cfg.vocab_size for x in t) for t in toks):
+        raise AssertionError("PagedBatcher returned wrong or out-of-range tokens")
+    agree = []
+    for i in range(n_compare):
+        out = engine.generate(model, prompts[i][None], max_new_tokens=new,
+                              cache_dtype=torch.float32)[0, len(prompts[i]):]
+        agree.append(int(np.cumprod(np.asarray(toks[i]) == out).sum()))
+    n_tok = sum(len(t) for t in toks)
+    res = dict(requests=n_req, slots=n_slots, pool_gb=pool_gb, tokens=n_tok, wall_s=wall,
+               tokens_per_s=n_tok / wall, steps_at_full=len(full_ms),
+               ms_per_step_full=float(np.mean(full_ms)), generate_agreement=agree,
+               prompt_lens=[len(p) for p in prompts])
+    log(f"  PagedBatcher: {n_req} requests, {n_tok} tokens in {wall:.3f} s -> "
+        f"{n_tok / wall:.1f} tokens/s; {len(full_ms)} steps at {n_slots} active slots: "
+        f"{res['ms_per_step_full']:.3f} ms a step; f32 pool {pool_gb:.2f} GB; greedy tokens "
+        f"equal to engine.generate's (f32 cache) on the first {agree} of {new} (reported)")
     return res
 
 
@@ -685,7 +1023,8 @@ def serve_model_loop(model, stack, meta, cfg, dev, S=128, n=128):
 
 def profile_windows(model, fstack, fmeta, cfg, dev):
     """For a 128-token prefill, 16 tokens of decode_loop_flat, 8 tokens of
-    engine.decode_loop and 8 ContinuousBatcher steps with 8 active slots:
+    engine.decode_loop, 8 ContinuousBatcher steps and 8 PagedMegaBatcher steps
+    with 8 active slots:
     the host wall time of the window (unprofiled, best of 3, ending in a
     synchronize), the device time of every kernel and copy from
     torch.profiler summed by name, and the busy share = summed device time /
@@ -697,6 +1036,7 @@ def profile_windows(model, fstack, fmeta, cfg, dev):
     from mi_optimize_tpu_torch.serving import engine
     from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
     from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat
+    from mi_optimize_tpu_torch.serving.paged import PagedMegaBatcher
 
     S, T = 128, 512
     prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(6))
@@ -722,6 +1062,11 @@ def profile_windows(model, fstack, fmeta, cfg, dev):
     for n in rng.integers(16, 257, 8):
         batcher.add_request(rng.integers(0, cfg.vocab_size, (int(n),)), max_new_tokens=64)
     windows["batcher_step_8"] = (lambda: [batcher.step() for _ in range(8)], 8)
+    # the same for the paged batcher (8 slots over the page pool)
+    paged = PagedMegaBatcher(model, n_slots=8, max_len=T)
+    for n in rng.integers(16, 257, 8):
+        paged.add_request(rng.integers(0, cfg.vocab_size, (int(n),)), max_new_tokens=64)
+    windows["paged_step_8"] = (lambda: [paged.step() for _ in range(8)], 8)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     out = {}
     for name, (fn, n_tok) in windows.items():
@@ -744,13 +1089,14 @@ def profile_windows(model, fstack, fmeta, cfg, dev):
                 by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
         dev_ms = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        if name == "batcher_step_8" and not all(r is not None for r in batcher.slot_req):
+        if not (all(r is not None for r in batcher.slot_req)
+                and all(r is not None for r in paged.slot_req)):
             raise AssertionError("a batcher slot freed during the profile window")
         out[name] = {"wall_ms": wall, "wall_ms_per_token": wall / n_tok,
                      "device_ms": dev_ms or None, "busy_share": dev_ms / wall if dev_ms else None,
                      "top_kernels_ms": [[k, v] for k, v in top]}
         busy = f"{dev_ms / wall:.3f}" if dev_ms else "not measured"
-        unit = "step" if name.startswith("batcher") else "token"
+        unit = "step" if name.endswith("step_8") else "token"
         log(f"  {name}: wall {wall:.3f} ms ({wall / n_tok:.3f} ms/{unit}), device "
             f"{dev_ms:.3f} ms, busy share {busy}")
         for k, v in top:
@@ -866,6 +1212,48 @@ def small_serving_check(dev):
                                  "differ from the CPU")
 
 
+def small_paged_check(dev):
+    """PagedMegaBatcher (3 slots in waves of 2, prefix caching on prompts that
+    share a page) and PagedBatcher (pages of 16: the paged flash decode) on
+    the card and with the plain versions on the CPU: greedy tokens equal."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+    from mi_optimize_tpu_torch.serving.paged import PagedBatcher, PagedMegaBatcher
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    cpu = build_quantized_llama(cfg, dtype=torch.float32, seed=7, device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    for blk in cpu["layers"]:
+        for k in ("input_norm", "post_norm"):
+            blk[k] = 1.0 + 0.1 * torch.randn(cfg.hidden_size, generator=gen)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, cfg.vocab_size, (128,))
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, (n,))]) for n in (6, 19)]
+    prompts.append(rng.integers(0, cfg.vocab_size, (33,)))
+    got = {}
+    for d in ("cpu", dev):
+        m = fuse_for_serving(Model(config=cfg, params=cpu if d == "cpu" else _to(cpu, dev)))
+        pm = PagedMegaBatcher(m, n_slots=3, max_len=256, wave_slots=2, prefix_cache=True)
+        mega = pm.run_all(list(prompts), max_new_tokens=7)
+        pb = PagedBatcher(m, n_slots=2, page_size=16, n_pages=32, pages_per_slot=8)
+        rids = [pb.add_request(prompts[2], max_new_tokens=6),
+                pb.add_request(prompts[0][-50:], max_new_tokens=4)]
+        reqs = [next(s for s in pb.slot_req if s.rid == r) for r in rids]
+        while any(s is not None for s in pb.slot_req):
+            pb.step()
+        got[d] = (mega, [r.tokens for r in reqs], pm.prefix_cache_stats())
+    log(f"  small f32 model: PagedMegaBatcher {got[dev][0]} vs CPU {got['cpu'][0]} "
+        f"(prefix cache {got[dev][2]}); PagedBatcher {got[dev][1]} vs CPU {got['cpu'][1]}")
+    if got[dev] != got["cpu"] or got[dev][2]["hit_tokens"] != 128:
+        raise AssertionError("small model: paged batcher tokens on the card differ from the CPU")
+
+
 def _to(tree, dev):
     import dataclasses
 
@@ -895,18 +1283,28 @@ KERNELS = {
                           "mi_optimize_tpu/ops/model_fused.py:99"),
     "model_decode_mega_batch": ("mi_optimize_tpu_torch/csrc/model_fused.cu",
                                 "mi_optimize_tpu/ops/model_fused.py:594"),
+    "model_decode_mega_batch_paged": ("mi_optimize_tpu_torch/csrc/model_fused.cu",
+                                      "mi_optimize_tpu/ops/model_fused.py:594"),
+    "model_decode_mega_batch_chunk": ("mi_optimize_tpu_torch/csrc/model_fused.cu",
+                                      "mi_optimize_tpu/ops/model_fused.py:594"),
+    "paged_flash_attention": ("mi_optimize_tpu_torch/csrc/paged_attention.cu",
+                              "mi_optimize_tpu/ops/paged_attention.py:35"),
 }
 
 
 def counters():
     """(module, attribute) of each kernel's launch counter."""
-    from mi_optimize_tpu_torch.ops import block_fused, dequant_matmul, model_flat, model_fused
+    from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_fused,
+                                           paged_attention)
 
     return {"dequant_matmul": (dequant_matmul, "launches"),
             "block_decode_mega": (block_fused, "launches"),
             "model_decode_flat": (model_flat, "launches"),
             "model_decode_mega": (model_fused, "launches"),
-            "model_decode_mega_batch": (model_fused, "launches_batch")}
+            "model_decode_mega_batch": (model_fused, "launches_batch"),
+            "model_decode_mega_batch_paged": (model_fused, "launches_paged"),
+            "model_decode_mega_batch_chunk": (model_fused, "launches_chunk"),
+            "paged_flash_attention": (paged_attention, "launches")}
 
 
 def run_path(name, needs, fn):
@@ -1004,8 +1402,12 @@ def main() -> int:
     rows += check_block(model, cfg, dev, flush, reps=20)
     rows += check_flat(model, fstack, fmeta, cfg, dev, flush, reps=5)
     sstack, smeta = stack_serving(model)  # the layers' stack the flat one extends, not a copy
-    rows += check_mega_batch(model, sstack, smeta, cfg, dev, flush, 5,
-                             [0, 17, 64, 127, 128, 200, 383, 510])
+    dense_positions = [0, 17, 64, 127, 128, 200, 383, 510]
+    rows += check_mega_batch(model, sstack, smeta, cfg, dev, flush, 5, dense_positions)
+    rows += check_mega_batch_paged(model, sstack, smeta, cfg, dev, flush, 5, dense_positions)
+    rows += check_mega_batch_chunk(model, sstack, smeta, cfg, dev, flush, 5, [256], 8, True)
+    rows += check_mega_batch_chunk(model, sstack, smeta, cfg, dev, flush, 5, [0, 300], 4, False)
+    rows += check_paged_attention(cfg, dev, flush, reps=20)
     del sstack, smeta
     amodel, astack, ameta = asymmetric()
     rows += check_mega(amodel, astack, ameta, cfg, dev, flush, reps=5)
@@ -1038,6 +1440,33 @@ def main() -> int:
     tally(c)
     report["batcher"]["generate_agreement"] = compare_with_generate(
         model, report["batcher"].pop("compare"))
+    log(" d. PagedMegaBatcher, the same 24 requests: 8 slots over 25 pages, then 12 slots in "
+        "waves of 8")
+    from mi_optimize_tpu_torch.serving.paged import PagedMegaBatcher
+
+    for key, slots, pages in (("paged", 8, 25), ("paged_12", 12, None)):
+        name = f"PagedMegaBatcher ({slots} slots)"
+        make = lambda: PagedMegaBatcher(model, n_slots=slots, max_len=512, n_pages=pages)
+        report[key], c = run_path(
+            name, ("dequant_matmul", "model_decode_mega_batch_paged"),
+            lambda: serve_batcher(model, cfg, n_slots=slots, name=name, make=make))
+        tally(c)
+        report[key].pop("compare")
+        same_tokens(name, report[key]["request_tokens"], report["batcher"]["request_tokens"])
+    log(f"  peak memory: PagedMegaBatcher {report['paged']['peak_mem_gib']:.2f} GiB (8 slots, 25 "
+        f"pages), {report['paged_12']['peak_mem_gib']:.2f} GiB (12 slots, 49 pages) against the "
+        f"ContinuousBatcher's {report['batcher']['peak_mem_gib']:.2f} GiB")
+    log(" e. prefix caching: 16 requests sharing a 256-token prefix, and one sampled twice")
+    report["prefix_cache"], c = run_path(
+        "PagedMegaBatcher prefix cache", ("dequant_matmul", "model_decode_mega_batch_paged",
+                                          "model_decode_mega_batch_chunk"),
+        lambda: serve_prefix_cache(model, cfg))
+    tally(c)
+    log(" f. PagedBatcher: 8 requests over 4 slots, f32 pool of 64 pages of 16")
+    report["paged_batcher"], c = run_path(
+        "PagedBatcher", ("dequant_matmul", "paged_flash_attention"),
+        lambda: serve_paged_batcher(model, cfg))
+    tally(c)
     log(" c. decode_loop_model on the asymmetric grid")
     amodel, astack, ameta = asymmetric()
     report["model_loop"], c = run_path(
@@ -1046,11 +1475,12 @@ def main() -> int:
     tally(c)
     del amodel, astack, ameta
     torch.cuda.empty_cache()
-    log(f"  launches over the three paths: {counts}")
+    log(f"  launches over the served paths: {counts}")
 
     log("phase 4: small f32 model on the card vs the plain versions on the CPU")
     small_reference_check(dev)
     small_serving_check(dev)
+    small_paged_check(dev)
 
     log("phase 5: where the time goes (torch.profiler, Llama-2-7B, T=512)")
     report["profile"] = profile_windows(model, fstack, fmeta, cfg, dev)

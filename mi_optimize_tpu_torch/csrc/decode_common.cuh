@@ -223,13 +223,61 @@ struct HeadHist {
   const int8_t* k; const int8_t* v; const float* ks; const float* vs;
   long stride, sstride;
   int pos;
+  __device__ __forceinline__ void row(int t, const int8_t*& kr, const int8_t*& vr, float& ksc,
+                                      float& vsc) const {
+    kr = k + (long)t * stride;
+    vr = v + (long)t * stride;
+    ksc = ks[(long)t * sstride];
+    vsc = vs[(long)t * sstride];
+  }
+  static __device__ __forceinline__ int8_t ld(const int8_t* p) { return *p; }
 };
 
-// Attention for one query head over the int8 cache, seeded with the new
-// (dequantized) row: warps stream history rows t < pos with an online softmax
-// each, then merge. Writes out[0:D]. smem holds q[D], kd[D], vd[D] and
-// NW*(D+2) merge floats.
-__device__ __forceinline__ void attend_head(const HeadHist& hh, int D, float* out, float* sm,
+// The history of one kv head in the batched kernel's paged and chunk modes
+// (model_fused.cu, mode (b) and/or (c)). Rows t < prefix come from the
+// slot's cache: dense, the head-transposed [T, D] slot rows at k + t*D; or,
+// with a page table, row t % P of page table[t / P], i.e. pool row
+// table[t / P] * page_rows + t % P of the [n_pages, Hkv, P] layout (k
+// points at the layer's kv head). Rows prefix <= t < pos are the chunk's
+// own new rows of this launch (t - prefix before the current one), at ck +
+// (t - prefix)*cstride; they were written earlier in the same launch, so
+// every load goes through L2 (__ldcg).
+struct PagedChunkHist {
+  const int8_t* k; const int8_t* v; const float* ks; const float* vs;
+  const int* table;  // the slot's page-table row, or null: dense
+  long page_rows;    // Hkv * P
+  int P, D, prefix, pos;
+  const int8_t* ck; const int8_t* cv; const float* cks; const float* cvs;
+  long cstride, csstride;
+  __device__ __forceinline__ void row(int t, const int8_t*& kr, const int8_t*& vr, float& ksc,
+                                      float& vsc) const {
+    if (t < prefix) {
+      long r = t;
+      if (table) {
+        const int j = t / P;
+        r = (long)__ldg(table + j) * page_rows + (t - j * P);
+      }
+      kr = k + r * D;
+      vr = v + r * D;
+      ksc = __ldcg(ks + r);
+      vsc = __ldcg(vs + r);
+    } else {
+      const long j = t - prefix;
+      kr = ck + j * cstride;
+      vr = cv + j * cstride;
+      ksc = __ldcg(cks + j * csstride);
+      vsc = __ldcg(cvs + j * csstride);
+    }
+  }
+  static __device__ __forceinline__ int8_t ld(const int8_t* p) { return __ldcg(p); }
+};
+
+// Attention for one query head over the int8 history `hh` (HeadHist or
+// PagedChunkHist), seeded with the new (dequantized) row: warps stream
+// history rows t < hh.pos with an online softmax each, then merge. Writes
+// out[0:D]. smem holds q[D], kd[D], vd[D] and NW*(D+2) merge floats.
+template <class Hist>
+__device__ __forceinline__ void attend_head(const Hist& hh, int D, float* out, float* sm,
                                             float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* q = sm;
@@ -255,14 +303,14 @@ __device__ __forceinline__ void attend_head(const HeadHist& hh, int D, float* ou
     for (int j = 0; j < MAXJ; ++j) acc[j] = 0.f;
   }
   for (int t = warp; t < hh.pos; t += NW) {
-    const int8_t* kr = hh.k + (long)t * hh.stride;
-    const int8_t* vr = hh.v + (long)t * hh.stride;
-    const float ksc = hh.ks[(long)t * hh.sstride];
-    const float vsc = hh.vs[(long)t * hh.sstride];
+    const int8_t* kr;
+    const int8_t* vr;
+    float ksc, vsc;
+    hh.row(t, kr, vr, ksc, vsc);
     float p = 0.f;
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j)
-      if (j < nj) p += q[lane + 32 * j] * ((float)kr[lane + 32 * j] * ksc);
+      if (j < nj) p += q[lane + 32 * j] * ((float)Hist::ld(kr + lane + 32 * j) * ksc);
     const float s = warp_sum(p) * scale;
     const float mn = fmaxf(m, s);
     const float corr = expf(m - mn);
@@ -270,7 +318,7 @@ __device__ __forceinline__ void attend_head(const HeadHist& hh, int D, float* ou
     l = l * corr + e;
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j)
-      if (j < nj) acc[j] = acc[j] * corr + e * ((float)vr[lane + 32 * j] * vsc);
+      if (j < nj) acc[j] = acc[j] * corr + e * ((float)Hist::ld(vr + lane + 32 * j) * vsc);
     m = mn;
   }
   float* mine = mrg + warp * (D + 2);
@@ -293,13 +341,22 @@ __device__ __forceinline__ void attend_head(const HeadHist& hh, int D, float* ou
   __syncthreads();
 }
 
+// RoPE on the f32 head vector x[0:D] (global scratch) for thread d < D:
+// x[d]*cos[d] + rotate_half(x)[d]*sin[d].
+__device__ __forceinline__ float rope_at(const float* x, const float* cos, const float* sin,
+                                         int d, int half) {
+  const float rot = d < half ? -__ldcg(x + d + half) : __ldcg(x + d - half);
+  return __ldcg(x + d) * cos[d] + rot * sin[d];
+}
+
 // One (token, q head) work item of P2: RoPE on q head hq and kv head kvh of
 // the token's f32 qkv vector (global scratch), the int8 k/v row of kv head
 // kvh and its scales (stored when `store_row`: the first q head of the
 // group), then attention over `hh` seeded with the new row, into out[0:D].
+template <class Hist>
 __device__ __forceinline__ void attention_item(const float* qkv, const float* cos,
                                                const float* sin, int hq, int kvh, int qdim,
-                                               int kvdim, int D, const HeadHist& hh,
+                                               int kvdim, int D, const Hist& hh,
                                                bool store_row, int8_t* krow, int8_t* vrow,
                                                float* ks_out, float* vs_out, float* out,
                                                float* sm, float* red) {
@@ -330,6 +387,50 @@ __device__ __forceinline__ void attention_item(const float* qkv, const float* co
       vrow[d] = (int8_t)vq;
       if (d == 0) { *ks_out = ksc; *vs_out = vsc; }
     }
+  }
+  __syncthreads();
+  attend_head(hh, D, out, sm, red);
+}
+
+// Chunk mode, first half of P2: RoPE on kv head kvh of one row's f32 qkv
+// vector and its int8 k/v row and scales, stored for every row's attention
+// after the grid barrier (the same arithmetic as attention_item's row).
+__device__ __forceinline__ void chunk_kv_row(const float* qkv, const float* cos,
+                                             const float* sin, int kvh, int qdim, int kvdim,
+                                             int D, int8_t* krow, int8_t* vrow, float* ks_out,
+                                             float* vs_out, float* red) {
+  const float* ks = qkv + qdim + (long)kvh * D;
+  const float* vs = qkv + qdim + kvdim + (long)kvh * D;
+  float kr = 0.f, vr = 0.f;
+  const int d = threadIdx.x;
+  if (d < D) {
+    kr = rope_at(ks, cos, sin, d, D / 2);
+    vr = __ldcg(vs + d);
+  }
+  const float kam = fmaxf(block_max(d < D ? fabsf(kr) : 0.f, red), 1e-8f);
+  const float vam = fmaxf(block_max(d < D ? fabsf(vr) : 0.f, red), 1e-8f);
+  const float ksc = kam / 127.f, vsc = vam / 127.f;
+  if (d < D) {
+    krow[d] = (int8_t)fminf(fmaxf(rintf(kr / ksc), -127.f), 127.f);
+    vrow[d] = (int8_t)fminf(fmaxf(rintf(vr / vsc), -127.f), 127.f);
+    if (d == 0) { *ks_out = ksc; *vs_out = vsc; }
+  }
+}
+
+// Chunk mode, second half of P2: RoPE on q head hq of one row, its own int8
+// row (stored by chunk_kv_row before the barrier) dequantized as the seed,
+// then attention over the slot's history and the chunk's earlier rows.
+__device__ __forceinline__ void chunk_attend(const float* qkv, const float* cos,
+                                             const float* sin, int hq, int D,
+                                             const PagedChunkHist& hh, const int8_t* krow,
+                                             const int8_t* vrow, const float* ks,
+                                             const float* vs, float* out, float* sm,
+                                             float* red) {
+  const int d = threadIdx.x;
+  if (d < D) {
+    sm[d] = rope_at(qkv + (long)hq * D, cos, sin, d, D / 2);
+    sm[D + d] = (float)__ldcg(krow + d) * __ldcg(ks);
+    sm[2 * D + d] = (float)__ldcg(vrow + d) * __ldcg(vs);
   }
   __syncthreads();
   attend_head(hh, D, out, sm, red);

@@ -1,10 +1,11 @@
 // Every decoder layer in ONE cooperative launch, without the lm_head: for one
-// token (model_decode_mega) and for B slots at their own positions
-// (model_decode_mega_batch).
+// token (model_decode_mega) and for B rows at their own positions
+// (model_decode_mega_batch: slots of one token, or of a chunk of C tokens,
+// over a dense cache or a page pool).
 //
 // Replaces the TPU kernels mi_optimize_tpu/ops/model_fused.py::_kernel
-// (model_decode_mega) and ::_kernel_b in its batched-decode mode (a)
-// (model_decode_mega_batch).
+// (model_decode_mega) and ::_kernel_b in its modes (a) batched decode, (b)
+// paged and (c) chunk (model_decode_mega_batch).
 //
 // What bounds them on an H100: the stacked packed weights of the whole model
 // (about 3.4 GB at Llama-2-7B, int4 g128, plus 0.2 GB of f32 bias tables on
@@ -25,6 +26,19 @@
 // block, over the slot's head-transposed cache [L, B, Hkv, T, D] up to its
 // own position (a free slot at position 0 has no history). New int8 rows and
 // scales go out for the caller to scatter.
+//
+// Paged mode (b): the history of slot s is a page pool [L, n_pages, Hkv, P,
+// D] read through the slot's page-table row: row t is row t % P of page
+// table[s][t / P]. Only the addresses change, so the step moves the dense
+// step's bytes. Chunk mode (c): rows s*C .. s*C + C-1 are C consecutive
+// tokens of slot s; each attends to the slot's history t < positions[s*C]
+// and to the chunk's rows before it, which other blocks write in the same
+// layer. So P2 splits in two with a grid barrier between: (2a) RoPE and the
+// int8 k/v rows of every (row, kv head), (2b) attention of every (row, q
+// head) reading the chunk's rows back through L2. One-token decode keeps
+// the single P2 and its barrier count. Paged and chunk launches take a
+// second instance of the kernel (GEN = true, NB = 8 only, to bound the
+// build), so the dense instances compile as before.
 #include "decode_common.cuh"
 
 // Host-side argument blocks, mirrored field by field by the ctypes
@@ -65,6 +79,11 @@ struct BatchArgs {
   int batch, n_layers, hidden, n_heads, n_kv_heads, head_dim, inter, max_len;
   int g_qkv, g_o, g_gu, g_d;
   float zc_qkv, zc_o, zc_gu, zc_d, eps;
+  // paged and chunk modes: with a table, ck/cv/cks/cvs are the page pool
+  // [L, n_pages, Hkv, P(, D)] and max_len is unused; the dense cache has
+  // batch / chunk slots
+  const int* table;                                       // [batch / chunk, pps], or null
+  int chunk, page_size, pps, n_pages;
 };
 
 namespace {
@@ -334,7 +353,30 @@ __device__ __forceinline__ void gemv_b(float* xs, int B, int K, const Src& src, 
   }
 }
 
-template <class T, int BITS, int NB>
+// The history of kv head kvh of slot s in layer l for the paged and chunk
+// modes: `prefix` cache rows, then the chunk rows from its first row c0
+// (index into the [L, B, Hkv] rows) up to `pos`.
+__device__ __forceinline__ PagedChunkHist chunk_hist(const BatchArgs& f, int l, int s, int kvh,
+                                                     int prefix, int pos, long c0) {
+  const int D = f.head_dim, Hkv = f.n_kv_heads;
+  PagedChunkHist h;
+  long base;  // first cache row of (layer, slot or pool, kv head)
+  if (f.table) {
+    base = ((long)l * f.n_pages * Hkv + kvh) * f.page_size;
+    h.table = f.table + (long)s * f.pps;
+  } else {
+    base = (((long)l * (f.batch / f.chunk) + s) * Hkv + kvh) * f.max_len;
+    h.table = nullptr;
+  }
+  h.k = f.ck + base * D; h.v = f.cv + base * D; h.ks = f.cks + base; h.vs = f.cvs + base;
+  h.page_rows = (long)Hkv * f.page_size;
+  h.P = f.page_size; h.D = D; h.prefix = prefix; h.pos = pos;
+  h.ck = f.krow + c0 * D; h.cv = f.vrow + c0 * D; h.cks = f.ks + c0; h.cvs = f.vs + c0;
+  h.cstride = (long)Hkv * D; h.csstride = Hkv;
+  return h;
+}
+
+template <class T, int BITS, int NB, bool GEN>
 __global__ void __launch_bounds__(NT, COOP_PER_SM) batch_kernel(BatchArgs f) {
   extern __shared__ float smem[];
   const int D = f.head_dim;
@@ -375,14 +417,51 @@ __global__ void __launch_bounds__(NT, COOP_PER_SM) batch_kernel(BatchArgs f) {
 
     // P2: one (slot, q head) per block: RoPE, new rows, attention over the
     // slot's history t < pos[b]
-    for (int it = blockIdx.x; it < B * H; it += gridDim.x) {
-      const int b = it / H, hq = it - b * H, kvh = hq / reps;
-      const long c = ((long)l * B + b) * Hkv + kvh;  // (layer, slot, kv head)
-      const HeadHist hh{f.ck + c * T_ * D, f.cv + c * T_ * D, f.cks + c * T_, f.cvs + c * T_,
-                        (long)D, 1L, min(__ldg(f.pos + b), T_)};
-      attention_item(qkvb + (long)b * nqkv, f.cos + (long)b * D, f.sin + (long)b * D, hq, kvh,
-                     qdim, kvdim, D, hh, hq % reps == 0, f.krow + c * D, f.vrow + c * D,
-                     f.ks + c, f.vs + c, attn + (long)b * qdim + (long)hq * D, xs, red);
+    if constexpr (!GEN) {
+      for (int it = blockIdx.x; it < B * H; it += gridDim.x) {
+        const int b = it / H, hq = it - b * H, kvh = hq / reps;
+        const long c = ((long)l * B + b) * Hkv + kvh;  // (layer, slot, kv head)
+        const HeadHist hh{f.ck + c * T_ * D, f.cv + c * T_ * D, f.cks + c * T_, f.cvs + c * T_,
+                          (long)D, 1L, min(__ldg(f.pos + b), T_)};
+        attention_item(qkvb + (long)b * nqkv, f.cos + (long)b * D, f.sin + (long)b * D, hq, kvh,
+                       qdim, kvdim, D, hh, hq % reps == 0, f.krow + c * D, f.vrow + c * D,
+                       f.ks + c, f.vs + c, attn + (long)b * qdim + (long)hq * D, xs, red);
+      }
+    } else if (f.chunk == 1) {
+      // paged decode: the dense item with the history read through the table
+      const int cap = f.pps * f.page_size;
+      for (int it = blockIdx.x; it < B * H; it += gridDim.x) {
+        const int b = it / H, hq = it - b * H, kvh = hq / reps;
+        const long c = ((long)l * B + b) * Hkv + kvh;
+        const int p = min(__ldg(f.pos + b), cap);
+        const PagedChunkHist hh = chunk_hist(f, l, b, kvh, p, p, c);
+        attention_item(qkvb + (long)b * nqkv, f.cos + (long)b * D, f.sin + (long)b * D, hq, kvh,
+                       qdim, kvdim, D, hh, hq % reps == 0, f.krow + c * D, f.vrow + c * D,
+                       f.ks + c, f.vs + c, attn + (long)b * qdim + (long)hq * D, xs, red);
+      }
+    } else {
+      const int C = f.chunk;
+      const int cap = f.table ? f.pps * f.page_size : T_;  // rows a slot holds
+      // (2a) every row's int8 k/v rows, for the chunk's later rows to read
+      for (int it = blockIdx.x; it < B * Hkv; it += gridDim.x) {
+        const int r = it / Hkv, kvh = it - r * Hkv;
+        const long c = ((long)l * B + r) * Hkv + kvh;
+        chunk_kv_row(qkvb + (long)r * nqkv, f.cos + (long)r * D, f.sin + (long)r * D, kvh, qdim,
+                     kvdim, D, f.krow + c * D, f.vrow + c * D, f.ks + c, f.vs + c, red);
+      }
+      grid.sync();
+      // (2b) row s*C + i: history t < prefix, then the chunk's rows 0..i-1
+      for (int it = blockIdx.x; it < B * H; it += gridDim.x) {
+        const int r = it / H, hq = it - r * H, kvh = hq / reps;
+        const int s = r / C, i = r - s * C;
+        const long c0 = ((long)l * B + s * C) * Hkv + kvh;
+        const long c = c0 + (long)i * Hkv;
+        const int prefix = min(__ldg(f.pos + s * C), cap);
+        const PagedChunkHist hh = chunk_hist(f, l, s, kvh, prefix, prefix + i, c0);
+        chunk_attend(qkvb + (long)r * nqkv, f.cos + (long)r * D, f.sin + (long)r * D, hq, D, hh,
+                     f.krow + c * D, f.vrow + c * D, f.ks + c, f.vs + c,
+                     attn + (long)r * qdim + (long)hq * D, xs, red);
+      }
     }
     grid.sync();
 
@@ -440,9 +519,9 @@ cudaError_t launch_mega(const MegaArgs& f, cudaStream_t stream) {
                                      stream);
 }
 
-template <class T, int BITS, int NB>
+template <class T, int BITS, int NB, bool GEN>
 cudaError_t launch_batch(const BatchArgs& f, cudaStream_t stream) {
-  auto kern = batch_kernel<T, BITS, NB>;
+  auto kern = batch_kernel<T, BITS, NB, GEN>;
   const size_t smem = sizeof(float) * (size_t)batch_smem_floats(NB, f.head_dim);
   int grid = 0;
   cudaError_t e = coop_grid(kern, smem, 0, &grid);
@@ -455,11 +534,12 @@ cudaError_t launch_batch(const BatchArgs& f, cudaStream_t stream) {
 
 template <class T, int BITS>
 cudaError_t dispatch_nb(const BatchArgs& f, cudaStream_t s) {
-  if (f.batch < 1) return cudaErrorInvalidValue;
-  if (f.batch <= 2) return launch_batch<T, BITS, 2>(f, s);
-  if (f.batch <= 4) return launch_batch<T, BITS, 4>(f, s);
-  if (f.batch <= 8) return launch_batch<T, BITS, 8>(f, s);
-  return cudaErrorInvalidValue;
+  if (f.batch < 1 || f.batch > 8 || f.chunk < 1 || f.batch % f.chunk)
+    return cudaErrorInvalidValue;
+  if (f.table || f.chunk > 1) return launch_batch<T, BITS, 8, true>(f, s);
+  if (f.batch <= 2) return launch_batch<T, BITS, 2, false>(f, s);
+  if (f.batch <= 4) return launch_batch<T, BITS, 4, false>(f, s);
+  return launch_batch<T, BITS, 8, false>(f, s);
 }
 
 template <class T>

@@ -112,7 +112,9 @@ def layer_rows_ref(x32, dtype, lin, tabs, n1, n2, cos, sin, hists, positions, cf
     """One decoder layer for B tokens, one per slot, on the plain path.
     x32: f32 [B, h] residual rows. lin: packed words (qkv, o, gu, d); tabs:
     (scale, bias) per linear; cos/sin: [B, D]; hists[b]: slot b's
-    (k, k_scale, v, v_scale) history [T, Hkv(, D)]; positions[b]: its
+    (k, k_scale, v, v_scale) history [T, Hkv(, D)], or a function of this
+    layer's new rows (kq, ks, vq, vs) that returns that list (a chunk's rows
+    also attend to the rows before them); positions[b]: its
     position. Returns (x_out f32 [B, h], krows [B, Hkv, D] int8, ks [B, Hkv],
     vrows, vs)."""
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -132,6 +134,8 @@ def layer_rows_ref(x32, dtype, lin, tabs, n1, n2, cos, sin, hists, positions, cf
     kq, ks = quantize_kv(k[:, None])
     vq, vs = quantize_kv(v[:, None])
     kq, ks, vq, vs = kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]
+    if callable(hists):
+        hists = hists(kq, ks, vq, vs)
     attn = torch.stack([
         attend_ref(_rope_rows(qkv[b, :qdim].reshape(H, D), cos[b], sin[b]), kq[b], ks[b],
                    vq[b], vs[b], *hists[b], positions[b], Hkv)

@@ -1,11 +1,14 @@
 """Whole-model decode without the lm_head: every decoder layer in ONE launch,
-for one token (`model_decode_mega`) or for B slots at their own positions
-(`model_decode_mega_batch`, the continuous-batching step).
+for one token (`model_decode_mega`) or for B rows at their own positions
+(`model_decode_mega_batch`: the continuous-batching step, its paged and
+chunk modes).
 
 Kernels: csrc/model_fused.cu (with csrc/decode_common.cuh), which replaces
 the TPU kernels mi_optimize_tpu/ops/model_fused.py::_kernel
-(model_decode_mega) and ::_kernel_b in its batched-decode mode (a)
-(model_decode_mega_batch). The paged (b), chunk (c), terminal-lm (d) and
+(model_decode_mega) and ::_kernel_b in its modes (a) batched decode, (b)
+paged (a page table picks each history row's pool page) and (c) chunk (C
+consecutive tokens a slot with an intra-chunk causal pass), alone or
+combined (model_decode_mega_batch). The terminal-lm (d) and
 tensor-parallel (e) modes of _kernel_b are not ported: the batched wrapper
 raises NotImplementedError for them.
 
@@ -14,8 +17,10 @@ Llama-2-7B, int4 g128) read once per step over the memory rate, plus every
 slot's live KV history. The one-token kernel runs the layers of the
 per-layer decode kernel back to back with the residual in f32 across all of
 them. The batched kernel reads each packed word once per step for all B
-slots (B accumulators per lane, the activations staged a chunk at a time),
-so a step costs about one weight read however many slots it decodes.
+rows (B accumulators per lane, the activations staged a chunk at a time),
+so a step costs about one weight read however many rows it decodes. Paging
+changes only the history rows' addresses, so the paged step moves the
+dense step's bytes.
 
 Grids: a linear whose zero is one constant across the model computes its
 bias -zc*s in-kernel; otherwise `serving.megadecode.stack_serving` stacks
@@ -33,10 +38,12 @@ import torch
 from .block_fused import _check_cuda, layer_rows_ref
 
 launches = 0        # model_decode_mega kernel launches; chip_smoke.py resets and reads it
-launches_batch = 0  # model_decode_mega_batch kernel launches
+launches_batch = 0  # model_decode_mega_batch launches in mode (a), dense one-token rows
+launches_paged = 0  # ... in mode (b) with one token a slot (paged decode)
+launches_chunk = 0  # ... in mode (c), dense or paged (C > 1 tokens a slot)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_BATCH = 8  # the batched kernel keeps one accumulator per slot in registers
+MAX_BATCH = 8  # rows (slots x chunk tokens): the batched kernel keeps one accumulator a row
 # (stack key of the words, of the scale table, of the bias table, meta index of the group)
 _STACKED = (("qkv", "qs", "qz", 1), ("o", "os", "oz", 2), ("gu", "gus", "guz", 3),
             ("d", "ds", "dz", 4))
@@ -68,22 +75,57 @@ def model_decode_mega_ref(stack, x, cos, sin, cache, pos: int, cfg, meta):
     return xo.reshape(x.shape), krows[:, 0], vrows[:, 0], ksr[:, 0], vsr[:, 0]
 
 
-def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta):
+def _history(cache, l, s, table, n):
+    """The first n history rows of slot s in layer l as (k, k_scale, v,
+    v_scale) [n, Hkv(, D)]: from the head-transposed cache [L, S, Hkv, T(, D)],
+    or with a page table from the pool [L, n_pages, Hkv, P(, D)], row t on
+    page table[s, t // P] at offset t % P (only the pages the rows use are
+    gathered)."""
+    out = []
+    for f in ("k", "k_scale", "v", "v_scale"):
+        c = cache[f][l]
+        if table is None:
+            out.append(c[s].transpose(0, 1)[:n])
+        else:
+            pages = table[s, :-(-n // c.shape[2])].to(device=c.device, dtype=torch.long)
+            out.append(c[pages].transpose(1, 2).flatten(0, 1)[:n])
+    return tuple(out)
+
+
+def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta, table=None,
+                                chunk: int = 1):
     """Plain PyTorch version of the batched kernel (same signature and
-    outputs as `model_decode_mega_batch`, mode (a))."""
+    outputs as `model_decode_mega_batch`, modes (a)-(c)).
+
+    Row r = s*C + i is token i of slot s's chunk (C = chunk; C = 1: one token
+    a slot). It attends to its slot's history rows t < prefix = positions[s*C]
+    (gathered through `table` when paged), then to the quantized new rows
+    0..i-1 of its own chunk, then to its own row: position prefix + i."""
     B, h, D, L = x.shape[0], cfg.hidden_size, cfg.head_dim, cfg.num_layers
+    C = chunk
     pos = [int(p) for p in torch.as_tensor(positions).reshape(-1).tolist()]
+    prefix = [pos[s * C] for s in range(B // C)]
     cos = cos.reshape(B, D).to(torch.float32)
     sin = sin.reshape(B, D).to(torch.float32)
     xr = x.reshape(B, h).to(torch.float32)
+    tbl = None if table is None else torch.as_tensor(table)
     rows = []
     for l in range(L):
         lin, tabs = _layer(stack, meta, l)
-        # slot b's history, [T, Hkv(, D)] views of the head-transposed cache
-        hists = [tuple(cache[f][l, b].transpose(0, 1) for f in ("k", "k_scale", "v", "v_scale"))
-                 for b in range(B)]
+        base = [_history(cache, l, s, tbl, p) for s, p in enumerate(prefix)]
+
+        def hists(kq, ks, vq, vs, base=base):
+            # row r's history: its slot's cache rows, then the chunk rows before r
+            out = []
+            for r in range(B):
+                c0 = r - r % C
+                out.append(tuple(torch.cat([hist, new[c0:r]]) for hist, new in
+                                 zip(base[r // C], (kq, ks, vq, vs))))
+            return out
+
         xr, kq, ks, vq, vs = layer_rows_ref(xr, x.dtype, lin, tabs, stack["n1"][l],
-                                            stack["n2"][l], cos, sin, hists, pos, cfg)
+                                            stack["n2"][l], cos, sin, hists,
+                                            [prefix[r // C] + r % C for r in range(B)], cfg)
         rows.append((kq, vq, ks, vs))
     krows, vrows, ksr, vsr = (torch.stack(r) for r in zip(*rows))
     return xr.to(x.dtype).reshape(B, 1, h), krows, vrows, ksr, vsr
@@ -109,7 +151,9 @@ class _MegaArgs(ctypes.Structure):
 class _BatchArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _WEIGHTS + ["pos"] + _OUTS] + [
         (n, ctypes.c_int) for n in ["batch", "n_layers", "hidden", "n_heads", "n_kv_heads",
-                                    "head_dim", "inter", "max_len"] + _GROUPS] + _ZCS
+                                    "head_dim", "inter", "max_len"] + _GROUPS] + _ZCS + [
+        ("table", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("chunk", "page_size", "pps", "n_pages")]
 
 
 def _check_stack(stack, cfg, meta, dev, dt):
@@ -204,8 +248,9 @@ def model_decode_mega(stack, x, cos, sin, cache, pos: int, cfg, meta):
     return model_decode_mega_ref(stack, x, cos, sin, cache, int(pos), cfg, meta)
 
 
-def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta):
-    global launches_batch
+def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta, table=None,
+                                  chunk: int = 1):
+    global launches_batch, launches_paged, launches_chunk
     dev, dt = x.device, x.dtype
     if dt not in _DTYPES:
         raise TypeError(f"model_decode_mega_batch kernel takes float32 or bfloat16, not {dt}")
@@ -213,17 +258,32 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
     L, inter = cfg.num_layers, cfg.intermediate_size
     B = x.shape[0]
     if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"the batched kernel takes 1 to {MAX_BATCH} slots, not {B}")
+        raise ValueError(f"the batched kernel takes 1 to {MAX_BATCH} rows (slots x chunk "
+                         f"tokens), not {B}")
     n1, n2, ptrs, groups, floats = _check_stack(stack, cfg, meta, dev, dt)
-    T = cache["k"].shape[3]
-    for f, want, shape in (("k", torch.int8, (L, B, Hkv, T, D)),
-                           ("v", torch.int8, (L, B, Hkv, T, D)),
-                           ("k_scale", torch.float32, (L, B, Hkv, T)),
-                           ("v_scale", torch.float32, (L, B, Hkv, T))):
+    n_slots = B // chunk
+    if table is None:
+        T = cap = cache["k"].shape[3]
+        kv_shape, tbl, P, pps, n_pages = (L, n_slots, Hkv, T, D), None, 0, 0, 0
+    else:
+        n_pages, P = cache["k"].shape[1], cache["k"].shape[3]
+        if P % 128:
+            raise ValueError(f"pages of {P} rows: the paged mode takes a multiple of 128")
+        tbl = torch.as_tensor(table).to("cpu", torch.int64)
+        pps = tbl.shape[-1]
+        if tuple(tbl.shape) != (n_slots, pps) or bool(((tbl < 0) | (tbl >= n_pages)).any()):
+            raise ValueError(f"table must be [{n_slots}, pages a slot] of pages inside the pool "
+                             f"of {n_pages}, not {tbl.tolist()}")
+        tbl = tbl.to(dev, torch.int32)
+        T, cap, kv_shape = P, pps * P, (L, n_pages, Hkv, P, D)
+    for f, want, shape in (("k", torch.int8, kv_shape), ("v", torch.int8, kv_shape),
+                           ("k_scale", torch.float32, kv_shape[:4]),
+                           ("v_scale", torch.float32, kv_shape[:4])):
         _check_cuda(f"cache[{f}]", cache[f], dev, want, shape)
     pos = torch.as_tensor(positions).reshape(-1).to("cpu", torch.int64)
-    if pos.numel() != B or bool(((pos < 0) | (pos >= T)).any()):
-        raise ValueError(f"positions {pos.tolist()} must be {B} rows inside the cache of {T}")
+    if pos.numel() != B or bool(((pos < 0) | (pos >= cap)).any()):
+        raise ValueError(f"positions {pos.tolist()} must be {B} rows inside the slots' "
+                         f"{cap} rows")
     pos = pos.to(dev, torch.int32)
     xr = x.reshape(B, h).contiguous()
     cos = cos.reshape(B, -1).to(torch.float32).contiguous()
@@ -242,30 +302,59 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
     args = _BatchArgs(p(xr), p(n1), p(n2), *ptrs, p(cos), p(sin), p(pos),
                       p(cache["k"]), p(cache["v"]), p(cache["k_scale"]), p(cache["v_scale"]),
                       p(x_out), p(krows), p(vrows), p(ksr), p(vsr), p(scratch),
-                      B, L, h, H, Hkv, D, inter, T, *groups, *floats)
+                      B, L, h, H, Hkv, D, inter, T, *groups, *floats,
+                      None if tbl is None else p(tbl), chunk, P, pps, n_pages)
     _call("mi_model_decode_mega_batch", args, _BatchArgs, meta[0], dt, dev)
-    launches_batch += 1
+    if chunk > 1:
+        launches_chunk += 1
+    elif tbl is not None:
+        launches_paged += 1
+    else:
+        launches_batch += 1
     return x_out.reshape(B, 1, h), krows, vrows, ksr, vsr
 
 
 def model_decode_mega_batch(stack, x, cos, sin, cache, positions, cfg, meta, *, table=None,
                             chunk: int = 1, tp: int = 1, lm=None):
-    """B-slot whole-model decode, one launch: x [B,1,h], positions [B] (one
-    per slot, each < T) -> (x_out [B,1,h] in x's dtype, krows [L,B,Hkv,D]
-    int8, vrows, ksr [L,B,Hkv] f32, vsr). The kernel on GPU tensors, the
-    plain version on CPU tensors.
+    """Whole-model decode of B rows, one launch: x [B,1,h], positions [B] ->
+    (x_out [B,1,h] in x's dtype, krows [L,B,Hkv,D] int8, vrows, ksr [L,B,Hkv]
+    f32, vsr). The kernel on GPU tensors, the plain version on CPU tensors.
+    At most MAX_BATCH rows (the reference takes any B; its callers stay at 8
+    rows or fewer).
 
-    cos/sin: [B, D], one row per slot's position. cache: the head-transposed
+    cos/sin: [B, D], one row per row's position. cache: the head-transposed
     stacked cache of `serving.megadecode.stack_cache_batched`
-    {"k"/"v": [L,B,Hkv,T,D] int8, "k_scale"/"v_scale": [L,B,Hkv,T] f32};
-    the caller scatters each slot's rows at its own position. Only mode (a)
-    is ported: a page `table`, `chunk` > 1, `tp` > 1 and fused `lm` rows
-    raise NotImplementedError."""
-    for given, mode in ((table is not None, "(b) paged"), (chunk != 1, "(c) chunk"),
-                        (lm is not None, "(d) terminal lm rows"), (tp != 1, "(e) tp>1")):
+    {"k"/"v": [L,S,Hkv,T,D] int8, "k_scale"/"v_scale": [L,S,Hkv,T] f32}, one
+    slot s per row (S = B) or per chunk (S = B / chunk). The caller scatters
+    each row's new k/v row at its position.
+
+    chunk=C > 1, mode (c): the rows are S slots of C consecutive tokens,
+    positions[s*C + i] = positions[s*C] + i; row s*C + i attends to its
+    slot's history t < positions[s*C] and to the chunk's rows before it.
+    table [S, pps] int32, mode (b): `cache` is the shared page pool of
+    `serving.megadecode.init_pool_batched` {"k"/"v": [L,n_pages,Hkv,P,D]
+    int8, "k_scale"/"v_scale": [L,n_pages,Hkv,P] f32}, P a multiple of 128;
+    slot s's history row t lives on page table[s, t // P] at offset t % P.
+    Fused `lm` rows (mode d) and `tp` > 1 (mode e) raise NotImplementedError."""
+    for given, mode in ((lm is not None, "(d) terminal lm rows"), (tp != 1, "(e) tp>1")):
         if given:
             raise NotImplementedError(
                 f"model_decode_mega_batch mode {mode} is not ported yet (ROADMAP.md B5)")
+    B = x.shape[0]
+    if B > MAX_BATCH:
+        raise ValueError(f"the batched kernel takes at most MAX_BATCH = {MAX_BATCH} rows "
+                         f"(slots x chunk tokens), not {B}")
+    if chunk < 1 or B % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the {B} rows")
+    if table is not None and len(table) != B // chunk:
+        raise ValueError(f"the page table needs one row per slot ({B // chunk}), not "
+                         f"{len(table)}")
+    if chunk > 1:
+        pos = torch.as_tensor(positions).reshape(-1, chunk).to("cpu", torch.int64)
+        if bool((pos != pos[:, :1] + torch.arange(chunk)).any()):
+            raise ValueError(f"a chunk's positions must be consecutive: {pos.tolist()}")
     if x.is_cuda:
-        return _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta)
-    return model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta)
+        return _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta,
+                                             table, chunk)
+    return model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta, table,
+                                       chunk)

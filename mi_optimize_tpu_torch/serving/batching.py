@@ -1,9 +1,9 @@
 """Continuous batching: a slot scheduler over a shared KV cache.
 
 Port of the ContinuousBatcher part of mi_optimize_tpu/serving/batching.py
-(`decode_step_multi`, `_prefill_into_slot`, `_prefill_into_slot_mega`,
-`Request`, `ContinuousBatcher`); the speculative batcher waits for
-ROADMAP.md A10.
+(`decode_step_multi`, `_prefill_kv`, `_prefill_into_slot`,
+`_prefill_into_slot_mega`, `Request`, `ContinuousBatcher`); the speculative
+batcher waits for ROADMAP.md A10. The paged batchers are in paged.py.
 
   * the cache holds `n_slots` independent sequences; each slot has its own
     position, so sequences of different lengths decode together;
@@ -50,6 +50,16 @@ def decode_step_multi(params, cfg, tokens, cache, positions, fused=True):
         new_cache.append(kv)
     x = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return llama.unembed(params, cfg, x, fused=fused)[:, 0], new_cache
+
+
+@torch.no_grad()
+def _prefill_kv(params, cfg, input_ids, fused=True):
+    """Prompt -> (last logits, per-layer f32 (k, v) slabs of exactly the
+    prompt's length), on the device of input_ids. The paged batcher writes
+    the slabs into its pages."""
+    B, S = input_ids.shape
+    cache = init_cache(cfg, B, S, torch.float32, device=input_ids.device)
+    return prefill(params, cfg, input_ids, cache, fused)
 
 
 @torch.no_grad()

@@ -2,11 +2,15 @@
 
 Port of mi_optimize_tpu/serving/megadecode.py: `_grp`, `_zconst`,
 `stack_serving`, the single-stream loop (`init_cache_stacked`,
-`stack_cache`, `_model_step`, `decode_loop_model`) and the batched step of
+`stack_cache`, `_model_step`, `decode_loop_model`), the batched step of
 continuous batching (`default_lm`, `stack_cache_batched`,
-`unstack_cache_batched`, `_scatter_rows_batched`, `model_step_batch`). The
-paged, chunk and tensor-parallel steps are not ported yet (ROADMAP.md A10,
-A12).
+`unstack_cache_batched`, `_scatter_rows_batched`, `model_step_batch`), the
+paged steps over a shared page pool (`init_pool_batched`,
+`_scatter_rows_paged`, `scatter_prefill_pages`, `model_step_batch_paged`)
+and the chunk steps (`_scatter_chunk_rows_batched`, `model_step_chunk`,
+`model_step_chunk_batch`, `model_step_chunk_batch_paged`; the reference's
+one-slot `_scatter_chunk_rows` is the batched scatter with one prefix). The
+tensor-parallel steps are not ported yet (ROADMAP.md A12).
 
     model = fuse_for_serving(model)
     stack, meta = stack_serving(model)          # None -> engine.decode_loop
@@ -180,6 +184,19 @@ def unstack_cache_batched(cache, n_layers):
             for l in range(n_layers)]
 
 
+def _scatter(cache, rows, at1, at3):
+    """Row r of each new field (krows, vrows, ksr, vsr: [L, R, Hkv(, D)])
+    into cache[f][:, at1[r], :, at3[r]], in place: one indexed write a field.
+    Advanced indices on axes 1 and 3 put the row axis first."""
+    for f, new in zip(_FIELDS, rows):
+        cache[f][:, at1, :, at3] = new.transpose(0, 1)
+    return cache
+
+
+def _host(a):
+    return torch.as_tensor(a).to("cpu", torch.int64)
+
+
 def _scatter_rows_batched(cache, krows, vrows, ksr, vsr, positions):
     """Write each slot's new rows at its own position, in place (one indexed
     write per field). Positions must lie inside the cache: unlike the
@@ -187,11 +204,7 @@ def _scatter_rows_batched(cache, krows, vrows, ksr, vsr, positions):
     instead of being clamped to the last row."""
     dev = krows.device
     b = torch.arange(krows.shape[1], device=dev)
-    p = torch.as_tensor(positions).reshape(-1).to(dev, torch.long)
-    for f, new in zip(_FIELDS, (krows, vrows, ksr, vsr)):
-        # advanced indices on axes 1 and 3 put the slot axis first
-        cache[f][:, b, :, p] = new.transpose(0, 1)
-    return cache
+    return _scatter(cache, (krows, vrows, ksr, vsr), b, _host(positions).reshape(-1).to(dev))
 
 
 @torch.no_grad()
@@ -199,15 +212,149 @@ def model_step_batch(params, stack, meta, cfg, tokens, cache, positions, lm=None
     """One B-slot decode step: tokens [B,1], positions [B] (host ints, one
     per slot) -> (logits [B,V], cache). ONE launch for the whole decoder
     stack: the weights stream once for all B slots."""
+    logits, cache = _step_rows(params, stack, meta, cfg, tokens, cache, positions, lm=lm)
+    return logits[:, 0], cache
+
+
+def _step_rows(params, stack, meta, cfg, tokens, cache, positions, chunk=1, table=None,
+               lm=None, scatter=None):
+    """The whole-model launch for tokens [S, C] at positions [S*C] (C = chunk
+    tokens a slot), the new rows scattered in place (`scatter`, default the
+    dense one-row-a-slot scatter), then the lm_head: (logits [S, C, V], cache)."""
     from ..ops.model_fused import model_decode_mega_batch
 
-    B = tokens.shape[0]
-    x = llama.embed(params, tokens)                                # [B, 1, h]
-    pos = torch.as_tensor(positions).reshape(-1).to("cpu", torch.int64)
+    S, C = tokens.shape
+    h = cfg.hidden_size
+    x = llama.embed(params, tokens).reshape(S * C, 1, h)
+    pos = _host(positions).reshape(-1)
     cos, sin = llama.rope_tables(cfg, pos.to(x.device)[:, None])
     x, krows, vrows, ksr, vsr = model_decode_mega_batch(
-        stack, x, cos.reshape(B, -1)[:, -cfg.head_dim:], sin.reshape(B, -1)[:, -cfg.head_dim:],
-        cache, pos, cfg, meta, lm=lm)
-    cache = _scatter_rows_batched(cache, krows, vrows, ksr, vsr, pos)
-    h = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return llama.unembed(params, cfg, h)[:, 0], cache
+        stack, x, cos.reshape(S * C, -1)[:, -cfg.head_dim:],
+        sin.reshape(S * C, -1)[:, -cfg.head_dim:], cache, pos, cfg, meta, table=table,
+        chunk=C, lm=lm)
+    scatter = scatter or _scatter_rows_batched
+    cache = scatter(cache, krows, vrows, ksr, vsr, pos)
+    hh = llama.rms_norm(x.reshape(S, C, h), params["final_norm"], cfg.rms_eps)
+    return llama.unembed(params, cfg, hh), cache
+
+
+# ---------------------------------------------------------------------------
+# paged: one KV page pool shared by every slot through a page table
+# ---------------------------------------------------------------------------
+
+def init_pool_batched(cfg, n_pages: int, page_size: int, device=None):
+    """Shared KV page POOL for the paged batched kernel: `n_pages` pages of
+    `page_size` tokens, shared by every layer of every slot through a
+    per-slot page table. Page 0 is the scratch page: never allocated, it
+    absorbs dead slots' reads and writes. Layout: stack_cache_batched's with
+    the page axis in place of the (slot, block) axes: k/v [L, n_pages, Hkv,
+    P, D] int8 (zeros), scales [L, n_pages, Hkv, P] f32 (ones)."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, n_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_scale": torch.ones(shape[:4], dtype=torch.float32, device=dev),
+            "v_scale": torch.ones(shape[:4], dtype=torch.float32, device=dev)}
+
+
+def _scatter_rows_paged(pool, krows, vrows, ksr, vsr, table, positions):
+    """Write each row's new k/v row into its (page, offset) in place: page =
+    table[b, pos // P], offset = pos % P. A retired slot (position 0, zero
+    table row) and a chunk's pad rows past the allocated pages (table entry
+    0) write into the scratch page 0, as in the reference."""
+    P = pool["k"].shape[3]
+    pos = _host(positions).reshape(-1)
+    pg = _host(table)[torch.arange(pos.numel()), pos // P]
+    dev = krows.device
+    return _scatter(pool, (krows, vrows, ksr, vsr), pg.to(dev), (pos % P).to(dev))
+
+
+@torch.no_grad()
+def model_step_batch_paged(params, stack, meta, cfg, tokens, pool, table, positions, lm=None):
+    """model_step_batch over a shared KV page pool: tokens [B,1], table
+    [B, pps], positions [B] -> (logits [B,V], pool). The same one-launch
+    weight stream; the kernel reads history through the page table and the
+    new rows scatter into (page, offset)."""
+    logits, pool = _step_rows(
+        params, stack, meta, cfg, tokens, pool, positions, table=table, lm=lm,
+        scatter=lambda c, *r: _scatter_rows_paged(c, *r[:4], table, r[4]))
+    return logits[:, 0], pool
+
+
+@torch.no_grad()
+def scatter_prefill_pages(pool, kvs, pages, valid, cfg):
+    """Scatter one prefilled request's per-layer int8 KV slabs into its pages,
+    in place. kvs: engine.init_cache/prefill output (batch 1, int8, T a
+    multiple of the page size); pages [npg] pool pages; valid [npg] bool
+    (invalid entries are redirected to the scratch page 0). Returns the
+    pool."""
+    P = pool["k"].shape[3]
+    dev = pool["k"].device
+    pg = torch.where(torch.as_tensor(valid, device=dev),
+                     torch.as_tensor(pages, device=dev).to(torch.long), 0)
+    for f in _FIELDS:
+        a = torch.stack([c[f][0] for c in kvs]).transpose(1, 2)      # [L, Hkv, T(, D)]
+        L, Hkv, T = a.shape[:3]
+        # [L, Hkv, T(, D)] -> [L, npg, Hkv, P(, D)]
+        pool[f][:, pg] = a.reshape(L, Hkv, T // P, P, *a.shape[3:]).transpose(1, 2)
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# chunk: C consecutive tokens a slot in one launch (spec-dec verify, suffix
+# prefill)
+# ---------------------------------------------------------------------------
+
+def _scatter_chunk_rows_batched(cache, krows, vrows, ksr, vsr, prefixes, C):
+    """Write each slot's C consecutive rows at its own prefix, in place.
+    krows/vrows [L, B*C, Hkv, D] (slot-major rows), prefixes [B]. The rows
+    must lie inside the cache (the reference's dynamic_update_slice would
+    clamp them)."""
+    pre = _host(prefixes).reshape(-1)
+    at = (pre[:, None] + torch.arange(C)).reshape(-1)
+    T = cache["k"].shape[3]
+    if bool((at >= T).any()):
+        raise ValueError(f"chunk rows {at.tolist()} outside the cache of {T}")
+    dev = krows.device
+    return _scatter(cache, (krows, vrows, ksr, vsr),
+                    torch.arange(pre.numel()).repeat_interleave(C).to(dev), at.to(dev))
+
+
+@torch.no_grad()
+def model_step_chunk(params, stack, meta, cfg, tokens, cache, prefix, lm=None):
+    """Whole-model CHUNK step: score C consecutive tokens of ONE sequence
+    (positions prefix..prefix+C-1) in one launch, with the intra-chunk causal
+    attention inside the kernel. tokens [1, C]; cache: the 1-slot batched
+    stacked layout [L,1,Hkv,T,D]. Returns (logits [C, V], cache with the C
+    rows written). The fused terminal lm rows (mode d) are not ported."""
+    if lm is not None:
+        raise NotImplementedError("model_step_chunk with fused lm rows: mode (d) is not ported "
+                                  "yet (ROADMAP.md B5)")
+    logits, cache = model_step_chunk_batch(params, stack, meta, cfg, tokens, cache, [int(prefix)])
+    return logits[0], cache
+
+
+@torch.no_grad()
+def model_step_chunk_batch(params, stack, meta, cfg, tokens, cache, prefixes):
+    """B-slot chunk step in ONE whole-model launch: tokens [B, C], slot b's
+    chunk at positions prefixes[b]..prefixes[b]+C-1 against its own cache
+    slot. Returns (logits [B, C, V], cache with all B*C rows written)."""
+    C = tokens.shape[1]
+    pre = _host(prefixes).reshape(-1)
+    return _step_rows(params, stack, meta, cfg, tokens, cache,
+                      pre[:, None] + torch.arange(C), chunk=C,
+                      scatter=lambda c, *r: _scatter_chunk_rows_batched(c, *r[:4], pre, C))
+
+
+@torch.no_grad()
+def model_step_chunk_batch_paged(params, stack, meta, cfg, tokens, pool, table, prefixes):
+    """model_step_chunk_batch over the shared page pool: tokens [B, C], table
+    [B, pps]; each slot's C rows scatter into (page, offset) through its table
+    row (the scheduler must have pages through position prefix+C-1; rows
+    past them land in the scratch page 0). Returns (logits [B, C, V], pool)."""
+    C = tokens.shape[1]
+    rows_table = _host(table).repeat_interleave(C, 0)
+    return _step_rows(params, stack, meta, cfg, tokens, pool,
+                      _host(prefixes).reshape(-1)[:, None] + torch.arange(C), chunk=C,
+                      table=table,
+                      scatter=lambda c, *r: _scatter_rows_paged(c, *r[:4], rows_table, r[4]))

@@ -1,7 +1,6 @@
 """Boundaries of the PyTorch port: it never imports JAX or the JAX package,
 its entry points never fall back to the CPU on their own, and on CPU tensors
-the five kernel wrappers run their plain versions without counting a
-launch."""
+the kernel wrappers run their plain versions without counting a launch."""
 import os
 import subprocess
 import sys
@@ -14,9 +13,11 @@ import torch
 from mi_optimize_tpu_torch.models.llama import LlamaConfig, init_params
 from mi_optimize_tpu_torch.models.model import Model
 from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
-from mi_optimize_tpu_torch.ops import block_fused, dequant_matmul, model_flat, model_fused
+from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_fused,
+                                       paged_attention)
 from mi_optimize_tpu_torch.serving import engine, megadecode
 from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
+from mi_optimize_tpu_torch.serving.paged import PagedBatcher, PagedMegaBatcher
 from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat, stack_flat
 from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
 
@@ -40,7 +41,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 22  # every module of the two slices was imported
+    assert int(n) >= 24  # every module of the three slices was imported
     assert bad.strip() == "[]"
 
 
@@ -59,16 +60,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, call):
         call(LlamaConfig.tiny(hidden_size=128, intermediate_size=256, head_dim=32))
 
 
-def test_batcher_cache_on_cuda_raises_without_gpu(monkeypatch):
-    """A model built with the default device has its tensors on CUDA; the
-    batcher puts its cache beside them and, without a GPU, raises instead of
-    moving to the CPU. No tensor can be made on CUDA here, so the model's
-    embedding is a stand-in that reports the CUDA device."""
+@pytest.mark.parametrize("make", [
+    lambda m: ContinuousBatcher(m, n_slots=2, max_len=128, cache_dtype=torch.int8),
+    lambda m: PagedMegaBatcher(m, n_slots=2, max_len=128),
+    lambda m: PagedBatcher(m, n_slots=2),
+])
+def test_batcher_cache_on_cuda_raises_without_gpu(monkeypatch, make):
+    """A model built with the default device has its tensors on CUDA; each
+    batcher puts its cache or page pool beside them and, without a GPU,
+    raises instead of moving to the CPU. No tensor can be made on CUDA here,
+    so the model's embedding is a stand-in that reports the CUDA device."""
     cfg = LlamaConfig.tiny(hidden_size=128, intermediate_size=256, head_dim=32)
     model = Model(config=cfg, params={"embed": types.SimpleNamespace(device=torch.device("cuda"))})
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
-        ContinuousBatcher(model, n_slots=2, max_len=128, cache_dtype=torch.int8)
+        make(model)
 
 
 def test_batcher_refuses_more_slots_than_the_batched_kernel_takes():
@@ -85,9 +91,14 @@ def test_batcher_refuses_more_slots_than_the_batched_kernel_takes():
     assert b._mega is None and b.cache[0]["k"].shape[0] == n
 
 
+_COUNTERS = ((dequant_matmul, "launches"), (block_fused, "launches"), (model_flat, "launches"),
+             (model_fused, "launches"), (model_fused, "launches_batch"),
+             (model_fused, "launches_paged"), (model_fused, "launches_chunk"),
+             (paged_attention, "launches"))
+
+
 def _counts():
-    return (dequant_matmul.launches, block_fused.launches, model_flat.launches,
-            model_fused.launches, model_fused.launches_batch)
+    return tuple(getattr(m, a) for m, a in _COUNTERS)
 
 
 def test_wrappers_take_plain_versions_on_cpu_and_count_nothing():
@@ -97,9 +108,8 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_nothing():
         config=cfg, params=build_quantized_llama(cfg, dtype=torch.float32, device="cpu")))
     assert all("mega" in b for b in model.params["layers"])
     fstack, fmeta = stack_flat(model)
-    for m in (dequant_matmul, block_fused, model_flat, model_fused):
-        m.launches = 0
-    model_fused.launches_batch = 0
+    for m, a in _COUNTERS:
+        setattr(m, a, 0)
     prompt = np.arange(5)[None] % cfg.vocab_size
     out = engine.generate(model, prompt, max_new_tokens=3, cache_dtype=torch.int8)
     logits, cache = engine.prefill(model.params, cfg, torch.from_numpy(prompt),
@@ -115,7 +125,24 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_nothing():
     res = b.run_all([prompt[0], prompt[0, :3]], max_new_tokens=3)
     assert out.shape == (1, 8) and toks.shape == mtoks.shape == (1, 3)
     assert torch.equal(toks, mtoks) and res[0] == [int(tok)] + toks[0, :2].tolist()
-    assert _counts() == (0, 0, 0, 0, 0)
+    # the paged batchers: paged decode, prefix-cache chunks, paged flash decode
+    pm = PagedMegaBatcher(model, n_slots=2, max_len=256, prefix_cache=True)
+    long = np.arange(140) % cfg.vocab_size
+    want = _dense_tokens(model, long)
+    assert pm.run_all([long, long], max_new_tokens=3) == {0: want, 1: want}
+    assert pm.prefix_cache_stats()["hit_tokens"] == 128
+    pb = PagedBatcher(model, n_slots=2, page_size=16, n_pages=8, pages_per_slot=2)
+    pb.add_request(prompt[0], max_new_tokens=3)
+    while any(pb.slot_req):
+        pb.step()
+    assert _counts() == (0,) * len(_COUNTERS)
+
+
+def _dense_tokens(model, prompt):
+    """Three greedy tokens of `prompt` through the dense batcher."""
+    b = ContinuousBatcher(model, n_slots=1, max_len=256, cache_dtype=torch.int8,
+                          use_megakernel=True)
+    return b.run_all([prompt], max_new_tokens=3)[0]
 
 
 def test_kernel_launchers_validate_inputs_before_building():
@@ -189,8 +216,64 @@ def test_whole_model_launchers_validate_inputs_before_building():
     with pytest.raises(ValueError, match=r"stack\[gu\]"):
         batch(dict(stack, gu=stack["gu"][:, :, :8].contiguous()), xb, cb, cb, bcache,
               [0, 5, 7], cfg, meta)
-    for kw, mode in ((dict(table=torch.zeros(B, 1)), "paged"), (dict(chunk=2), "chunk"),
-                     (dict(lm={}), "lm rows"), (dict(tp=2), "tp")):
+    # the paged (b) and chunk (c) modes: the page table, the pool and the
+    # chunk's positions are checked before the build
+    pool = megadecode.init_pool_batched(cfg, 5, 128, device="cpu")
+    table = torch.tensor([[1, 2], [3, 4], [0, 0]])
+    with pytest.raises(ValueError, match="table"):
+        batch(stack, xb, cb, cb, pool, [0, 5, 7], cfg, meta, table=table.clone().fill_(5))
+    with pytest.raises(ValueError, match="positions"):
+        batch(stack, xb, cb, cb, pool, [0, 5, 256], cfg, meta, table=table)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        batch(stack, xb, cb, cb, {f: v[:, :, :, :64].contiguous() for f, v in pool.items()},
+              [0, 5, 7], cfg, meta, table=table)
+    with pytest.raises(ValueError, match=r"cache\[k\]"):
+        batch(stack, xb[:2], cb[:2], cb[:2], bcache, [3, 4], cfg, meta, chunk=2)
+    mega_batch = model_fused.model_decode_mega_batch
+    with pytest.raises(ValueError, match="consecutive"):
+        mega_batch(stack, xb[:2], cb[:2], cb[:2], bcache, [3, 5], cfg, meta, chunk=2)
+    with pytest.raises(ValueError, match="one row per slot"):
+        mega_batch(stack, xb, cb, cb, pool, [0, 5, 7], cfg, meta, table=table[:2])
+    for kw, mode in ((dict(lm={}), "lm rows"), (dict(tp=2), "tp")):
         with pytest.raises(NotImplementedError, match=mode):
-            model_fused.model_decode_mega_batch(stack, xb, cb, cb, bcache, [0, 5, 7], cfg, meta,
-                                                **kw)
+            mega_batch(stack, xb, cb, cb, bcache, [0, 5, 7], cfg, meta, **kw)
+
+
+@pytest.mark.parametrize("B,chunk", [(9, 1), (10, 5), (16, 8)])
+def test_batched_kernel_refuses_more_than_8_rows(B, chunk):
+    """model_decode_mega_batch takes at most MAX_BATCH = 8 rows (slots x
+    chunk tokens), on the CPU as on the card, where the reference takes any
+    number; it names the limit."""
+    cfg = LlamaConfig(vocab_size=64, hidden_size=256, intermediate_size=512, num_layers=1,
+                      num_heads=2, num_kv_heads=1, head_dim=128, max_seq_len=256)
+    model = fuse_for_serving(Model(config=cfg, params=build_quantized_llama(
+        cfg, dtype=torch.float32, device="cpu")))
+    stack, meta = megadecode.stack_serving(model)
+    cache = megadecode.stack_cache_batched(engine.init_cache(cfg, B // chunk, 128, torch.int8,
+                                                             device="cpu"))
+    cs = torch.zeros(B, cfg.head_dim)
+    with pytest.raises(ValueError, match="MAX_BATCH = 8 rows"):
+        model_fused.model_decode_mega_batch(stack, torch.zeros(B, 1, 256), cs, cs, cache,
+                                            list(range(B)), cfg, meta, chunk=chunk)
+
+
+def test_paged_attention_validates_inputs_before_building():
+    """The paged flash decode's launcher checks the contract, the shapes, the
+    table and the positions in Python (here on CPU tensors, so a pass would
+    reach the build and fail differently)."""
+    H, Hkv, D, P, pps = 4, 2, 128, 16, 2
+    q, pk = torch.zeros(2, H * D), torch.zeros(5, P, Hkv, D)
+    table, kw = torch.tensor([[1, 2], [3, 4]]), dict(n_heads=H, n_kv_heads=Hkv, head_dim=D,
+                                                       page_size=P)
+    launch = paged_attention._paged_flash_attention_cuda
+    with pytest.raises(ValueError, match="contract"):
+        launch(q, pk, pk, table, [0, 3], **dict(kw, page_size=12))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        launch(q.double(), pk, pk, table, [0, 3], **kw)
+    with pytest.raises(ValueError, match="pv"):
+        launch(q, pk, pk[:, :8].contiguous(), table, [0, 3], **kw)
+    with pytest.raises(ValueError, match="table"):
+        launch(q, pk, pk, table + 3, [0, 3], **kw)
+    with pytest.raises(ValueError, match="positions"):
+        launch(q, pk, pk, table, [0, pps * P], **kw)
+    assert not paged_attention.paged_attention_supported(P, 64)

@@ -2,7 +2,10 @@
 shapes and in float32, over the options the main path does not reach:
 int2/int8 and per-channel weights, asymmetric grids (streamed bias tables),
 ragged M and N, an intermediate size that is not a multiple of 32, head_dim
-64, 1 to 8 slots, positions on and off the 128-row boundary.
+64, 1 to 8 slots, positions on and off the 128-row boundary; the batched
+kernel's paged mode bitwise against its dense mode, its chunk mode (dense and
+paged, C = 2 to 8, prefix 0 and across page boundaries), the paged flash
+decode (f32/bf16 q and pool), and both paged batchers against the CPU.
 
 Needs an NVIDIA GPU and nvcc; every test skips without one. On the card:
 
@@ -27,9 +30,11 @@ from mi_optimize_tpu_torch.models.llama import LlamaConfig
 from mi_optimize_tpu_torch.models.model import Model
 from mi_optimize_tpu_torch.models.quant_linear import QuantizedLinear, QuantSpec, group_size
 from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
-from mi_optimize_tpu_torch.ops import block_fused, dequant_matmul, model_flat, model_fused
+from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_fused,
+                                       paged_attention)
 from mi_optimize_tpu_torch.serving import engine, megadecode
 from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
+from mi_optimize_tpu_torch.serving.paged import PagedBatcher, PagedMegaBatcher
 from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat, stack_flat
 from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
 
@@ -279,3 +284,146 @@ def test_batcher_and_model_loop_match_the_cpu(dev):
             outs[(symmetric, name)] = toks
         assert outs[(symmetric, "cuda")] == outs[(symmetric, "cpu")], symmetric
     assert model_fused.launches > counts[0] and model_fused.launches_batch > counts[1]
+
+
+# ---------------------------------------------------------------------------
+# the batched kernel's paged (b) and chunk (c) modes, and the paged flash
+# decode (B8)
+# ---------------------------------------------------------------------------
+
+def _slot_caches(cfg, positions, T, seed=0):
+    """Head-transposed [L, S, Hkv, T(, D)] cache, slot s live below positions[s]."""
+    slots = [_cache(cfg, T, p, layers=cfg.num_layers, seed=seed + s)
+             for s, p in enumerate(positions)]
+    return {f: torch.stack([c[f].transpose(1, 2) for c in slots], dim=1).contiguous()
+            for f in slots[0]}
+
+
+def _mirror_pool(cache, seed, spare=1):
+    """The dense cache's 128-row blocks on the pages of a pool (page 0 and
+    `spare` more unused), in a seeded order. Returns (pool, table)."""
+    L, S, Hkv, T = cache["k"].shape[:4]
+    nt = T // 128
+    n_pages = 1 + spare + S * nt
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    table = perm[:S * nt].reshape(S, nt).to(torch.int32)
+    pool = {f: torch.full((L, n_pages, Hkv, 128) + c.shape[4:], 7, dtype=c.dtype)
+            for f, c in cache.items()}
+    for s in range(S):
+        for t in range(nt):
+            for f, c in cache.items():
+                pool[f][:, int(table[s, t])] = c[:, s, :, t * 128:(t + 1) * 128]
+    return pool, table
+
+
+@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", WHOLE_MODEL[:3])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_model_decode_mega_batch_paged_equals_dense(dev, bits, symmetric, head_dim, inter,
+                                                    group, B):
+    """Mode (b) on a pool that mirrors the dense cache: every output bitwise
+    equal to mode (a)'s (only the history addresses differ), and within
+    tolerance of the plain version."""
+    cfg, _, stack, meta = _stacked(dev, bits, symmetric, head_dim, inter, group, B + 20)
+    positions = [POSITIONS[b % len(POSITIONS)] for b in range(B)]
+    cache = _slot_caches(cfg, positions, T_MEGA)
+    pool, table = _mirror_pool(cache, seed=B)
+    cache, pool = _to(cache, dev), _to(pool, dev)
+    x = torch.randn(B, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(B)).to(dev)
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    args = (stack, x, cos.reshape(B, -1), sin.reshape(B, -1))
+    dense = model_fused.model_decode_mega_batch(*args, cache, positions, cfg, meta)
+    before = model_fused.launches_paged
+    paged = model_fused.model_decode_mega_batch(*args, pool, positions, cfg, meta, table=table)
+    assert model_fused.launches_paged == before + 1
+    for d, p in zip(dense, paged):
+        assert torch.equal(d, p)
+    ref = model_fused.model_decode_mega_batch_ref(*args, pool, positions, cfg, meta, table)
+    _close(paged[0], ref[0])
+    _rows_match(paged[1], ref[1])
+    _rows_match(paged[2], ref[2])
+
+
+# (slots, chunk, prefixes, paged)
+CHUNK_CASES = [(1, 8, [0], False), (1, 8, [130], True), (2, 4, [0, 127], False),
+               (2, 4, [126, 250], True), (4, 2, [5, 0, 128, 200], False), (1, 3, [255 - 3], True)]
+
+
+@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", WHOLE_MODEL[:3])
+@pytest.mark.parametrize("n_slots,C,prefixes,paged", CHUNK_CASES)
+def test_model_decode_mega_batch_chunk(dev, bits, symmetric, head_dim, inter, group, n_slots, C,
+                                       prefixes, paged):
+    """Mode (c), dense and paged: C consecutive tokens a slot, each row
+    attending to its slot's history and the chunk's earlier rows, against
+    the plain version."""
+    cfg, _, stack, meta = _stacked(dev, bits, symmetric, head_dim, inter, group, C + 30)
+    B = n_slots * C
+    cache = _slot_caches(cfg, prefixes, T_MEGA, seed=C)
+    table = None
+    if paged:
+        cache, table = _mirror_pool(cache, seed=C)
+    cache = _to(cache, dev)
+    positions = [p + i for p in prefixes for i in range(C)]
+    x = torch.randn(B, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(C)).to(dev)
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    args = (stack, x, cos.reshape(B, -1), sin.reshape(B, -1), cache, positions, cfg, meta)
+    before = model_fused.launches_chunk
+    got = model_fused.model_decode_mega_batch(*args, table=table, chunk=C)
+    assert model_fused.launches_chunk == before + 1
+    ref = model_fused.model_decode_mega_batch_ref(*args, table, C)
+    _close(got[0], ref[0])
+    _rows_match(got[1], ref[1])
+    _rows_match(got[2], ref[2])
+    _close(got[3], ref[3], 1e-5)
+    _close(got[4], ref[4], 1e-5)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("page_size,pps,H,Hkv", [(16, 4, 4, 2), (8, 3, 4, 2), (16, 32, 32, 32)])
+def test_paged_flash_attention(dev, q_dtype, kv_dtype, page_size, pps, H, Hkv):
+    B, D, n_pages = 4, 128, 1 + 4 * pps
+    g = torch.Generator().manual_seed(page_size + pps)
+    q = torch.randn(B, H * D, generator=g).to(q_dtype)
+    pk = torch.randn(n_pages, page_size, Hkv, D, generator=g).to(kv_dtype)
+    pv = torch.randn(n_pages, page_size, Hkv, D, generator=g).to(kv_dtype)
+    table = (torch.randperm(n_pages - 1, generator=g)[:B * pps] + 1).reshape(B, pps).int()
+    T = pps * page_size
+    positions = [0, page_size - 1, page_size, T - 1]
+    kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=D, page_size=page_size)
+    before = paged_attention.launches
+    got = paged_attention.paged_flash_attention(q.to(dev), pk.to(dev), pv.to(dev), table,
+                                                positions, **kw)
+    assert paged_attention.launches == before + 1 and got.dtype == q_dtype
+    ref = paged_attention.paged_flash_attention_ref(q, pk, pv, table, positions, **kw)
+    _close(got.cpu(), ref, RTOL if q_dtype == torch.float32 else 2e-2)
+
+
+def test_paged_batchers_match_the_cpu(dev):
+    """PagedMegaBatcher (waves of 2 over 3 slots, prefix caching on prompts
+    that share a page) and PagedBatcher (page 16: kernel B8) on the card
+    against the plain versions on the CPU: greedy tokens equal."""
+    cfg, cpu, gpu = _small(dev, seed=17)
+    rng = np.random.default_rng(6)
+    shared = rng.integers(0, cfg.vocab_size, (128,))
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, (n,))]) for n in (5, 12)]
+    prompts.append(rng.integers(0, cfg.vocab_size, (40,)))
+    counts = (model_fused.launches_paged, model_fused.launches_chunk, paged_attention.launches)
+    outs = {}
+    for name, m in (("cpu", cpu), ("cuda", gpu)):
+        pb = PagedMegaBatcher(m, n_slots=3, max_len=256, wave_slots=2, prefix_cache=True)
+        mega = pb.run_all(list(prompts), max_new_tokens=6)
+        b = PagedBatcher(m, n_slots=2, page_size=16, n_pages=32, pages_per_slot=8)
+        rids = [b.add_request(p[-60:], max_new_tokens=n) for p, n in zip(prompts, (3, 5))]
+        reqs = dict(zip(rids, b.slot_req))
+        while any(s is not None for s in b.slot_req):
+            b.step()
+            if len(reqs) == 2 and None in b.slot_req:  # the third joins mid-flight
+                r = b.add_request(prompts[2], max_new_tokens=4)
+                reqs[r] = next(s for s in b.slot_req if s is not None and s.rid == r)
+        toks = [reqs[r].tokens for r in sorted(reqs)]
+        outs[name] = (mega, toks, pb.prefix_cache_stats())
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cuda"][2]["hit_tokens"] == 128
+    after = (model_fused.launches_paged, model_fused.launches_chunk, paged_attention.launches)
+    assert all(a > b for a, b in zip(after, counts))
