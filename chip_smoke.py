@@ -13,8 +13,13 @@ Phases:
      whole-model kernel at B = 8 (and B = 2 on the asymmetric grid), in its
      paged mode on a pool that mirrors the B = 8 state (bitwise equal to the
      dense mode), in its chunk mode (8 tokens after a 256-row paged prefix;
-     two slots of 4 tokens at prefixes 0 and 300), and the paged flash
-     decode of one layer (4 slots, pages of 16);
+     two slots of 4 tokens at prefixes 0 and 300), its terminal lm rows
+     (mode d: C=5 after a 256-row prefix, dense and paged, and B = 8
+     one-token rows; timed against the unfused route, the launch without
+     them plus rms_norm and the dequant_matmul lm_head), the multi-token flat
+     decode (kseg=5 after a 200-row history, on the 7B stack and on a planted
+     2-layer draft; timed against 5 model_decode_flat launches), and the
+     paged flash decode of one layer (4 slots, pages of 16);
   3. serve the paths at Llama-2-7B width and depth (int4 g128 packed
      weights made on the card from seed 0, int8 KV cache), each with the
      launch counters set to 0 just before it and read just after:
@@ -35,21 +40,35 @@ Phases:
         the paged chunk mode;
      f. 8 requests through `PagedBatcher` (4 slots, f32 pool of 64 pages of
         16): the paged flash decode;
-     every kernel must have launched on its path;
+     g. a planted Llama-2-7B target (utils/planted.py: greedy decoding
+        follows a fixed token map) with planted 2-layer drafts at 7B width
+        through `speculative_generate`: k=4 (the flat draft, the chunk verify
+        with its lm rows), k="auto" (it must reach k=8: the verify of 9 rows
+        split in two launches), k=4 with a draft that disagrees on 30%; and
+        decode_loop_flat on the same target for comparison;
+     h-i. 12 planted requests (prompts 16-128, 32 new tokens) through a
+        4-slot `SpeculativeBatcher` and `PagedSpeculativeBatcher`, k=3;
+     j. 40 tokens of `decode_loop_flat_seg` (kseg=5) on the planted target
+        and draft, against decode_loop_flat;
+     every kernel must have launched on its path, and every planted path's
+     tokens must equal the planted chain exactly;
   4. check the outputs: tokens in range, logits finite, and on a small f32
      model the card's prefill logits and greedy tokens (generate, the flat
      loop, the batcher with a mid-flight join, decode_loop_model on an
-     asymmetric grid, both paged batchers with waves and prefix caching)
+     asymmetric grid, both paged batchers with waves and prefix caching, a
+     planted pair through speculative_generate and decode_loop_flat_seg)
      agree with the plain versions run on the CPU;
   5. where the time goes: torch.profiler device time by kernel and the
      device busy share over a prefill, flat decode, per-layer decode, 8
-     batcher steps and 8 paged batcher steps with 8 active slots.
+     batcher steps and 8 paged batcher steps with 8 active slots, and one
+     k=4 speculative round on the planted 7B pair.
 
 Earlier lines report each phase; the line before the last is a JSON object
 with every kernel's launches, error, time, plain time, library time (torch's
 own int4 product for the 4-bit dequant_matmul rows, scaled_dot_product_attention
 over the pre-gathered pages for the paged flash decode; none for the decode
-kernels, since no single PyTorch call computes a decoder stack) and bound;
+kernels, since no single PyTorch call computes a decoder stack or its lm
+rows) and bound;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 2 and prints no result. `--report PATH` also writes
 the whole report (per-kernel bytes and flops, per-request latencies)
@@ -639,6 +658,148 @@ def check_mega_batch_chunk(model, stack, meta, cfg, dev, flush, reps, prefixes, 
                      codes=stats)
 
 
+def check_mega_batch_lm(model, stack, meta, lm, lm_meta, cfg, dev, flush, reps, prefixes, C,
+                        paged, T=512):
+    """The batched kernel's terminal lm rows (mode d) with the mode they ride
+    on: C tokens a slot after `prefixes` (C = 1: one-token rows), dense or
+    paged. The base outputs must be bitwise equal to the same launch without
+    the lm rows; the logits within TOL of the plain version's; each row's
+    token equal to the plain version's unless its top-2 gap is below the
+    tolerance. Timed against the unfused route: the same launch without the
+    lm rows, then rms_norm and the M=B dequant_matmul lm_head (no single
+    PyTorch call computes either). Bound: the layers' stack, the lm_head's
+    words and scales, the live history, each row's input, new rows, logits
+    and token."""
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.ops import model_fused as mf
+
+    L, S, h, V = cfg.num_layers, len(prefixes), cfg.hidden_size, lm_meta[2]
+    B = S * C
+    gen = torch.Generator(device=dev).manual_seed(30 + B)
+    cache = random_slot_cache(cfg, prefixes, T, dev, gen)
+    table = None
+    if paged:
+        cache, table = mirror_pool(cache, gen)
+    positions = [p + i for p in prefixes for i in range(C)]
+    x = llama.embed(model.params, torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                                                device=dev))
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    cos, sin = cos.reshape(B, -1), sin.reshape(B, -1)
+    what = (f"{'paged' if paged else 'dense'} C={C}, {S} slot(s) at prefixes {prefixes}"
+            if C > 1 else f"{'paged' if paged else 'dense'} B={B} at positions {positions}")
+    log(f"  model_decode_mega_batch lm rows: {what}, {L} layers, T={T}, V={V}")
+    args = (stack, x, cos, sin, cache, positions, cfg, meta)
+    run = lambda: mf.model_decode_mega_batch(*args, table=table, chunk=C, lm=lm, lm_meta=lm_meta)
+    base = lambda: mf.model_decode_mega_batch(*args, table=table, chunk=C)
+    plain = lambda: mf.model_decode_mega_batch_ref(*args, table, C, lm, lm_meta)
+
+    def unfused():
+        hh = llama.rms_norm(base()[0], model.params["final_norm"], cfg.rms_eps)
+        return llama.unembed(model.params, cfg, hh)[:, 0]
+
+    got, without, ref = run(), base(), plain()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got[:5], without))
+    log(f"  lm rows: x_out, rows and scales {'bitwise equal' if same else 'DIFFER'} to the "
+        f"launch without them -> {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("model_decode_mega_batch: the lm rows changed the base outputs")
+    err = check_close("lm rows logits (bf16)", got[5], ref[5])
+    tol = TOL * float(ref[5].abs().max())
+    for r in range(B):
+        check_token(f"lm rows row {r} token", got[6][r], ref[6][r], ref[5][r], tol)
+    check_close("unfused route logits (bf16)", unfused(), ref[5])
+    ms = time_ms(run, reps, flush)
+    unfused_ms = time_ms(unfused, reps, flush)
+    plain_ms = time_ms(plain, 2, flush)
+    live = list(prefixes) if C > 1 else positions
+    lin = model.params["lm_head"]
+    nb = (stacked_bytes(stack) + nbytes(lm["ue"], lm["ues"], lm["fnorm"])
+          + kv_history_bytes(cfg, live)
+          + B * (2 * h * 2 + L * 2 * cfg.num_kv_heads * (cfg.head_dim + 4) + V * 4 + 4))
+    fl = L * sum(decode_block_flops(cfg, p) for p in positions) + 2.0 * B * h * V
+    b_ms, b_by = bound(nb, fl)
+    log(f"    kernel {ms:.4f} ms  unfused route {unfused_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"bound {b_ms:.4f} ms ({b_by}); lm_head {lin.out_features}x{lin.in_features}")
+    return [dict(name="model_decode_mega_batch_lm", shape=f"{what} {L} layers + lm rows",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 unfused_ms=unfused_ms, bytes=nb, flops=fl)]
+
+
+def check_flat_seg(name, model, fstack, fmeta, cfg, dev, flush, reps, kseg=5, T=384, pos0=200):
+    """The multi-token flat decode (B10): kseg greedy tokens in one launch on
+    the flat stack, over a random int8 history of pos0 rows. Token t is held
+    to the plain version's (equal unless the plain top-2 gap is below the
+    tolerance; after such a flip the later tokens are no longer comparable
+    and only reported), and the dequantized k/v rows of the comparable
+    tokens within TOL. Timed against kseg launches of model_decode_flat on
+    the same tokens (the per-token route). Bound: kseg x the flat kernel's
+    bytes."""
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.ops import model_flat as mfl
+    from mi_optimize_tpu_torch.ops import model_flat_seg as mfs
+    from mi_optimize_tpu_torch.serving.flatdecode import stack_cache_flat
+
+    gen = torch.Generator(device=dev).manual_seed(40 + cfg.num_layers)
+    cache = stack_cache_flat([random_int8_cache(cfg, T, pos0, dev, gen)
+                              for _ in range(cfg.num_layers)])
+    x = llama.embed(model.params, torch.tensor([[7]], device=dev))
+    cos, sin = llama.rope_tables(cfg, pos0 + torch.arange(kseg, device=dev))
+    cossin = torch.cat([cos, sin], -1)
+    emb = model.params["embed"]
+    args = (fstack, emb, x, cossin, cache, pos0, cfg, fmeta, kseg)
+    log(f"  model_decode_flat_seg: {name}, {cfg.num_layers} layers + lm_head, kseg={kseg}, "
+        f"T={T}, pos0={pos0}")
+    got, ref = mfs.model_decode_flat_seg(*args), mfs.model_decode_flat_seg_ref(*args)
+    torch.cuda.synchronize()
+    # the plain version's logits of each token, for the tolerance of its gap
+    work = {f: cache[f].clone() for f in cache}
+    xr, n_ok = x, 0
+    err = 0.0
+    for t in range(kseg):
+        _, logits, kv, sc = mfl.model_decode_flat_ref(fstack, xr, cossin[t], work, pos0 + t, cfg,
+                                                      fmeta)
+        check_token(f"model_decode_flat_seg token {t}", got[0][t], ref[0][t], logits,
+                    TOL * float(logits.abs().max()))
+        err = max(err, check_close(f"model_decode_flat_seg token {t} k/v rows (dequantized)",
+                                   got[1][t].float() * got[2][t][..., None],
+                                   ref[1][t].float() * ref[2][t][..., None]))
+        n_ok += 1
+        if int(got[0][t]) != int(ref[0][t]):
+            log(f"  tokens after {t} follow different inputs: reported only")
+            break
+        work["kv"][:, pos0 + t], work["kv_scale"][:, pos0 + t] = kv, sc[:, :, 0]
+        xr = emb[ref[0][t].long()].reshape(x.shape)
+    toks = [int(t) for t in ref[0].tolist()]
+
+    def per_token():
+        xx = x
+        for t in range(kseg):
+            tok, _, _, _ = mfl.model_decode_flat(fstack, xx, cossin[t], cache, pos0 + t, cfg,
+                                                 fmeta)
+            xx = emb[toks[t]:toks[t] + 1][None]
+
+    ms = time_ms(lambda: mfs.model_decode_flat_seg(*args), reps, flush)
+    per_token_ms = time_ms(per_token, reps, flush)
+    plain_ms = time_ms(lambda: mfs.model_decode_flat_seg_ref(*args), 1, flush)
+    flat_nb = nbytes(*(v for k, v in fstack.items())) + cfg.num_layers * 2 * pos0 * \
+        cfg.num_kv_heads * (cfg.head_dim + 4) + fmeta[-1] * 4
+    nb = kseg * flat_nb
+    fl = kseg * (cfg.num_layers * decode_block_flops(cfg, pos0) + 2.0 * cfg.hidden_size * fmeta[-1])
+    b_ms, b_by = bound(nb, fl)
+    log(f"    kernel {ms:.4f} ms ({ms / kseg:.4f} ms a token)  {kseg} x model_decode_flat "
+        f"{per_token_ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
+        f"{n_ok} of {kseg} tokens compared")
+    return [dict(name="model_decode_flat_seg", shape=f"{name}, {cfg.num_layers} layers + lm_head "
+                 f"kseg={kseg} T={T} pos0={pos0}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, per_token_flat_ms=per_token_ms, bytes=nb,
+                 flops=fl)]
+
+
 def check_paged_attention(cfg, dev, flush, reps, positions=(37, 200, 333, 511), P=16, pps=32):
     """The paged flash decode (B8) at one layer of the 7B model as
     PagedBatcher calls it: q in bf16 over an f32 pool, and in float32 (held
@@ -988,6 +1149,118 @@ def compare_with_generate(model, compare):
     return agree
 
 
+def planted_chain(m, t, n):
+    out = []
+    for _ in range(n):
+        t = int(m[t])
+        out.append(t)
+    return out
+
+
+def gate_chain(what, got, want):
+    """Gate: the tokens equal the planted chain exactly."""
+    got = [int(t) for t in got]
+    n = next((i for i, (g, w) in enumerate(zip(got, want)) if g != w), min(len(got), len(want)))
+    log(f"  {what}: {n} of {len(want)} tokens follow the planted chain -> "
+        f"{'ok' if got == want else 'FAIL'}")
+    if got != want:
+        raise AssertionError(f"{what}: tokens leave the planted chain at {n}")
+
+
+def serve_flat_reference(target, m_t, cfg, dev, prompt, n, kseg=None):
+    """A prefill and n tokens of decode_loop_flat (or, with kseg,
+    decode_loop_flat_seg) on a planted model, host-timed from the prefill
+    on; the tokens gated on the planted chain. Returns (ms per new token,
+    ms of the decode loop alone per token)."""
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.flatdecode import (decode_loop_flat, decode_loop_flat_seg,
+                                                         stack_cache_flat, stack_flat)
+
+    fstack, fmeta = stack_flat(target)
+    S = prompt.shape[1]
+    total = -(-(S + n + (kseg or 0) + 4) // 128) * 128
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = engine.prefill(target.params, cfg, torch.as_tensor(prompt, device=dev),
+                                   engine.init_cache(cfg, 1, total, torch.int8, device=dev))
+    tok = torch.argmax(logits, -1)[:, None]
+    fcache = stack_cache_flat(cache)
+    del cache
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if kseg:
+        toks, _ = decode_loop_flat_seg(target.params, fstack, fmeta, cfg, tok, fcache, S, n - 1,
+                                       kseg=kseg)
+    else:
+        toks, _ = decode_loop_flat(target.params, fstack, fmeta, cfg, tok, fcache, S, n - 1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    got = [int(tok)] + toks[0, :n - 1].tolist()
+    gate_chain(f"{'decode_loop_flat_seg' if kseg else 'decode_loop_flat'} "
+               f"({cfg.num_layers} layers)", got, planted_chain(m_t, int(prompt[0, -1]), n))
+    return (t2 - t0) * 1e3 / n, (t2 - t1) * 1e3 / (n - 1)
+
+
+def serve_speculative(target, draft, m_t, cfg, dev, k, n, prompt, name, need_k8=False):
+    """speculative_generate on the planted 7B target with a planted draft:
+    the tokens gated on the target's chain; with need_k8 (k="auto") the
+    adaptive pick must reach k = 8, the verify of 9 rows split in two
+    launches. Host-timed from the prefills on, ms per new token."""
+    import torch
+
+    from mi_optimize_tpu_torch.serving.speculative import speculative_generate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, stats = speculative_generate(target, draft, prompt, max_new_tokens=n, k=k,
+                                       cache_dtype=torch.int8)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    S = prompt.shape[1]
+    gate_chain(f"speculative_generate {name}", toks[0, S:].tolist(),
+               planted_chain(m_t, int(prompt[0, -1]), n))
+    if not stats.get("scan_segments"):
+        raise AssertionError(f"speculative_generate {name} did not take the scan-flat route")
+    if need_k8 and 8 not in stats.get("adaptive_k", []):
+        raise AssertionError(f"speculative_generate {name}: k never reached 8 "
+                             f"({stats.get('adaptive_k')})")
+    log(f"  speculative_generate {name}: {n} tokens in {dt * 1e3:.1f} ms -> "
+        f"{dt * 1e3 / n:.3f} ms/token (prefills included), accept rate "
+        f"{stats['accept_rate']:.3f}, {stats['target_calls']} verify rounds, "
+        f"{stats['draft_calls']} draft steps" + (f", k history {stats['adaptive_k']}"
+                                                 if "adaptive_k" in stats else ""))
+    return dict(tokens=n, ms=dt * 1e3, ms_per_token=dt * 1e3 / n, stats=stats)
+
+
+def serve_spec_batcher(make, name, m_t, cfg, n_req=12, new=32):
+    """n_req planted requests (prompts uniform in 16-128 tokens, seed 22,
+    `new` tokens each) through a speculative batcher, all queued at once;
+    every request's tokens gated on the target's chain."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in rng.integers(16, 129, n_req)]
+    b = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = b.run_all(list(prompts), max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [i for i in range(n_req) if got[i] != planted_chain(m_t, int(prompts[i][-1]), new)]
+    n_tok = sum(len(t) for t in got.values())
+    acc = b.accepted / max(b.proposed, 1)
+    log(f"  {name}: {n_req} requests, {n_tok} tokens in {wall:.3f} s -> {n_tok / wall:.1f} "
+        f"tokens/s; {b.rounds} rounds, accept rate {acc:.3f}; tokens of {n_req - len(bad)} of "
+        f"{n_req} requests follow the planted chain -> {'ok' if not bad else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"{name}: requests {bad} leave the planted chain")
+    return dict(requests=n_req, tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                rounds=b.rounds, accept_rate=acc, prompt_lens=[len(p) for p in prompts])
+
+
 def serve_model_loop(model, stack, meta, cfg, dev, S=128, n=128):
     """A 128-token prefill, then n tokens of decode_loop_model: one
     whole-model launch per token (bias tables streamed on this grid), the
@@ -1021,10 +1294,10 @@ def serve_model_loop(model, stack, meta, cfg, dev, S=128, n=128):
 # phase 5: where the time goes on the main path
 # ---------------------------------------------------------------------------
 
-def profile_windows(model, fstack, fmeta, cfg, dev):
+def profile_windows(model, fstack, fmeta, cfg, dev, extra=None):
     """For a 128-token prefill, 16 tokens of decode_loop_flat, 8 tokens of
     engine.decode_loop, 8 ContinuousBatcher steps and 8 PagedMegaBatcher steps
-    with 8 active slots:
+    with 8 active slots, and the `extra` windows {name: (fn, units)}:
     the host wall time of the window (unprofiled, best of 3, ending in a
     synchronize), the device time of every kernel and copy from
     torch.profiler summed by name, and the busy share = summed device time /
@@ -1067,6 +1340,7 @@ def profile_windows(model, fstack, fmeta, cfg, dev):
     for n in rng.integers(16, 257, 8):
         paged.add_request(rng.integers(0, cfg.vocab_size, (int(n),)), max_new_tokens=64)
     windows["paged_step_8"] = (lambda: [paged.step() for _ in range(8)], 8)
+    windows.update(extra or {})
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     out = {}
     for name, (fn, n_tok) in windows.items():
@@ -1096,7 +1370,7 @@ def profile_windows(model, fstack, fmeta, cfg, dev):
                      "device_ms": dev_ms or None, "busy_share": dev_ms / wall if dev_ms else None,
                      "top_kernels_ms": [[k, v] for k, v in top]}
         busy = f"{dev_ms / wall:.3f}" if dev_ms else "not measured"
-        unit = "step" if name.endswith("step_8") else "token"
+        unit = "step" if name.endswith("step_8") else "round" if "round" in name else "token"
         log(f"  {name}: wall {wall:.3f} ms ({wall / n_tok:.3f} ms/{unit}), device "
             f"{dev_ms:.3f} ms, busy share {busy}")
         for k, v in top:
@@ -1254,6 +1528,145 @@ def small_paged_check(dev):
         raise AssertionError("small model: paged batcher tokens on the card differ from the CPU")
 
 
+def small_spec_check(dev):
+    """A small float32 planted pair (2-layer target, 1-layer draft whose map
+    disagrees on 30%) on the card and with the plain versions on the CPU:
+    speculative_generate's scan-flat route at k = 3 (the fused lm rows) and
+    k = "auto" (the split verify at k = 8), and decode_loop_flat_seg on the
+    draft: tokens and stats equal."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.flatdecode import (decode_loop_flat_seg, stack_cache_flat,
+                                                         stack_flat)
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+    from mi_optimize_tpu_torch.serving.speculative import speculative_generate
+    from mi_optimize_tpu_torch.utils.planted import planted_pair
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    t, d, _, _ = planted_pair(cfg, draft_layers=1, disagree_frac=0.3, dtype=torch.float32,
+                              device="cpu")
+    prompt = np.array([[9, 77]])
+    got = {}
+    for dv in ("cpu", dev):
+        tm, dm = (fuse_for_serving(Model(config=m.config, params=m.params if dv == "cpu"
+                                         else _to(m.params, dv))) for m in (t, d))
+        res = [speculative_generate(tm, dm, prompt, max_new_tokens=n, k=k,
+                                    cache_dtype=torch.int8, draft_megakernel=True)
+               for k, n in ((3, 24), ("auto", 60))]
+        res = [(o.tolist(), st) for o, st in res]
+        fstack, fmeta = stack_flat(dm)
+        log_, cache = engine.prefill(dm.params, dm.config, torch.as_tensor(prompt, device=dv),
+                                     engine.init_cache(dm.config, 1, 128, torch.int8, device=dv))
+        seg, _ = decode_loop_flat_seg(dm.params, fstack, fmeta, dm.config,
+                                      torch.argmax(log_, -1)[:, None], stack_cache_flat(cache), 2,
+                                      12, kseg=5)
+        got[dv] = res + [seg.cpu().tolist()]
+    log(f"  small f32 planted pair: speculative_generate k=3 {got[dev][0][1]}, k=auto "
+        f"{got[dev][1][1].get('adaptive_k')}; tokens and stats "
+        f"{'equal' if got[dev] == got['cpu'] else 'DIFFER'} to the CPU's; decode_loop_flat_seg "
+        f"{got[dev][2][0][:6]}... vs CPU {got['cpu'][2][0][:6]}...")
+    if got[dev] != got["cpu"]:
+        raise AssertionError("small planted pair: speculative paths on the card differ from the "
+                             "CPU")
+
+
+def small_spec_batchers_check(dev):
+    """Both speculative batchers on random float32 weights, where the tokens
+    and the accept stats depend on attention over every cache: a 2-layer
+    target and its first layer as the draft, 4 slots, k = 3, prompts of
+    110-135 tokens (the rows cross the 128-row page); the dense batcher with
+    and without the fused lm rows, the paged one in verify waves of 2 and 3
+    slots with them, and the paged one with the target as its own draft. On
+    the card and with the plain versions on the CPU: tokens and stats
+    equal."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
+    from mi_optimize_tpu_torch.serving.batching import SpeculativeBatcher
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+    from mi_optimize_tpu_torch.serving.paged import PagedSpeculativeBatcher
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    cpu = build_quantized_llama(cfg, dtype=torch.float32, seed=8, device="cpu")
+    gen = torch.Generator().manual_seed(8)
+    for blk in cpu["layers"]:
+        for k in ("input_norm", "post_norm"):
+            blk[k] = 1.0 + 0.1 * torch.randn(cfg.hidden_size, generator=gen)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in rng.integers(110, 136, 6)]
+    kw = dict(k=3, n_slots=4, max_len=256)
+    dkw = dict(kw, cache_dtype=torch.int8, use_megakernel=True, use_draft_megakernel=True)
+    makes = {
+        "dense": lambda t, d: SpeculativeBatcher(t, d, **dkw),
+        "dense-lm": lambda t, d: SpeculativeBatcher(t, d, fused_lm=True, **dkw),
+        "paged-lm": lambda t, d: PagedSpeculativeBatcher(t, d, fused_lm=True, **kw),
+        "paged-wave3-lm": lambda t, d: PagedSpeculativeBatcher(t, d, verify_wave_slots=3,
+                                                               fused_lm=True, **kw),
+        "paged-self": lambda t, d: PagedSpeculativeBatcher(t, t, **kw)}
+    got = {}
+    for d in ("cpu", dev):
+        # _to makes new linears, so the draft's stack does not rebind the target's
+        tm = fuse_for_serving(Model(config=cfg, params=_to(cpu, d)))
+        dm = fuse_for_serving(Model(config=dataclasses.replace(cfg, num_layers=1),
+                                    params=_to({**cpu, "layers": cpu["layers"][:1]}, d)))
+        got[d] = {}
+        for key, make in makes.items():
+            b = make(tm, dm)
+            got[d][key] = (b.run_all(list(prompts), max_new_tokens=12), b.rounds, b.proposed,
+                           b.accepted)
+    runs = got[dev]
+    same = all(r[0] == runs["dense"][0] for r in runs.values())
+    log(f"  small f32 random pair: speculative batchers (rounds, proposed, accepted) "
+        + ", ".join(f"{k} {r[1:]}" for k, r in runs.items())
+        + f"; tokens {'equal' if same else 'DIFFER'} across the five and "
+        f"{'equal' if got[dev] == got['cpu'] else 'DIFFER'} to the CPU's")
+    if got[dev] != got["cpu"] or not same:
+        raise AssertionError("small random pair: speculative batchers on the card differ from "
+                             "the CPU or from each other")
+    if not 0 < runs["dense"][3] < runs["dense"][2] or runs["paged-self"][2] != runs["paged-self"][3]:
+        raise AssertionError("small random pair: unexpected accept counts")
+
+
+def spec_round_window(target, draft, cfg, dev, k=4, S=128, T=512):
+    """A window of one scan-flat speculative round (k draft proposals on the
+    flat kernel plus the ingest step, one C = k+1 verify with the fused lm
+    rows) after an S-token prompt on both models; each call redoes the same
+    round over the same cache rows."""
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.flatdecode import stack_cache_flat, stack_flat
+    from mi_optimize_tpu_torch.serving.megadecode import (stack_cache_batched, stack_lm,
+                                                          stack_serving)
+    from mi_optimize_tpu_torch.serving.speculative import _spec_scan_flat
+
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(23))
+    prompt = prompt.to(dev)
+    tstack, tmeta = stack_serving(target)
+    dstack, dmeta = stack_flat(draft)
+    tlm, tlm_meta = stack_lm(target, tmeta)
+    logits, tc = engine.prefill(target.params, cfg, prompt,
+                                engine.init_cache(cfg, 1, T, torch.int8, device=dev))
+    _, dc = engine.prefill(draft.params, draft.config, prompt,
+                           engine.init_cache(draft.config, 1, T, torch.int8, device=dev))
+    tcc, dcc = stack_cache_batched(tc), stack_cache_flat(dc)
+    del tc, dc
+    first = int(torch.argmax(logits, -1)[0])
+    return lambda: _spec_scan_flat(target.params, draft.params, tstack, dstack, tmeta, dmeta, cfg,
+                                   draft.config, tcc, dcc, first, S, k, 1, tlm, tlm_meta)
+
+
 def _to(tree, dev):
     import dataclasses
 
@@ -1289,13 +1702,17 @@ KERNELS = {
                                       "mi_optimize_tpu/ops/model_fused.py:594"),
     "paged_flash_attention": ("mi_optimize_tpu_torch/csrc/paged_attention.cu",
                               "mi_optimize_tpu/ops/paged_attention.py:35"),
+    "model_decode_mega_batch_lm": ("mi_optimize_tpu_torch/csrc/model_fused.cu",
+                                   "mi_optimize_tpu/ops/model_fused.py:999"),
+    "model_decode_flat_seg": ("mi_optimize_tpu_torch/csrc/model_flat.cu",
+                              "mi_optimize_tpu/ops/model_flat_seg.py:57"),
 }
 
 
 def counters():
     """(module, attribute) of each kernel's launch counter."""
-    from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_fused,
-                                           paged_attention)
+    from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_flat_seg,
+                                           model_fused, paged_attention)
 
     return {"dequant_matmul": (dequant_matmul, "launches"),
             "block_decode_mega": (block_fused, "launches"),
@@ -1304,7 +1721,9 @@ def counters():
             "model_decode_mega_batch": (model_fused, "launches_batch"),
             "model_decode_mega_batch_paged": (model_fused, "launches_paged"),
             "model_decode_mega_batch_chunk": (model_fused, "launches_chunk"),
-            "paged_flash_attention": (paged_attention, "launches")}
+            "paged_flash_attention": (paged_attention, "launches"),
+            "model_decode_mega_batch_lm": (model_fused, "launches_lm"),
+            "model_decode_flat_seg": (model_flat_seg, "launches")}
 
 
 def run_path(name, needs, fn):
@@ -1349,9 +1768,12 @@ def main() -> int:
     from mi_optimize_tpu_torch.models.model import Model
     from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
     from mi_optimize_tpu_torch.ops import _build
+    from mi_optimize_tpu_torch.serving.batching import SpeculativeBatcher
     from mi_optimize_tpu_torch.serving.flatdecode import stack_flat
-    from mi_optimize_tpu_torch.serving.megadecode import stack_serving
+    from mi_optimize_tpu_torch.serving.megadecode import stack_lm, stack_serving
     from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+    from mi_optimize_tpu_torch.serving.paged import PagedSpeculativeBatcher
+    from mi_optimize_tpu_torch.utils.planted import build_planted_llama, planted_map, planted_pair
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1395,6 +1817,21 @@ def main() -> int:
     fstack, fmeta = fl
     torch.cuda.synchronize()
     log(f"  Llama-2-7B int4 g128 model built and stacked in {time.perf_counter() - t0:.1f} s")
+    # planted models (utils/planted.py): a Llama-2-7B target whose greedy
+    # chain follows a fixed token map, a 2-layer draft at the same width with
+    # the same map, and one whose map disagrees on 30% of the vocabulary
+    t0 = time.perf_counter()
+    target, draft, m_t, _ = planted_pair(cfg, draft_layers=2, device=dev)
+    dcfg = draft.config
+    draft3 = Model(config=dcfg, params=build_planted_llama(
+        dcfg, planted_map(cfg.vocab_size, disagree_frac=0.3), device=dev))
+    target, draft, draft3 = (fuse_for_serving(m) for m in (target, draft, draft3))
+    dfl = stack_flat(draft)
+    if stack_flat(target) is None or dfl is None:
+        raise AssertionError("the planted models do not meet the flat kernel's contract")
+    torch.cuda.synchronize()
+    log(f"  planted Llama-2-7B target and two 2-layer drafts built in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log("phase 2: kernels against their plain versions (bf16, Llama-2-7B shapes)")
     flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
@@ -1407,8 +1844,14 @@ def main() -> int:
     rows += check_mega_batch_paged(model, sstack, smeta, cfg, dev, flush, 5, dense_positions)
     rows += check_mega_batch_chunk(model, sstack, smeta, cfg, dev, flush, 5, [256], 8, True)
     rows += check_mega_batch_chunk(model, sstack, smeta, cfg, dev, flush, 5, [0, 300], 4, False)
+    lm, lm_meta = stack_lm(model, smeta)
+    for prefixes, C, paged in (([256], 5, False), ([256], 5, True), (dense_positions, 1, False)):
+        rows += check_mega_batch_lm(model, sstack, smeta, lm, lm_meta, cfg, dev, flush, 5,
+                                    prefixes, C, paged)
+    rows += check_flat_seg("random weights", model, fstack, fmeta, cfg, dev, flush, 5)
+    rows += check_flat_seg("planted 2-layer draft", draft, *dfl, dcfg, dev, flush, 20)
     rows += check_paged_attention(cfg, dev, flush, reps=20)
-    del sstack, smeta
+    del sstack, smeta, lm
     amodel, astack, ameta = asymmetric()
     rows += check_mega(amodel, astack, ameta, cfg, dev, flush, reps=5)
     rows += check_mega_batch(amodel, astack, ameta, cfg, dev, flush, 5, [77, 300],
@@ -1475,15 +1918,74 @@ def main() -> int:
     tally(c)
     del amodel, astack, ameta
     torch.cuda.empty_cache()
+    import numpy as np
+
+    prompt = np.random.default_rng(21).integers(0, cfg.vocab_size, (1, 32))
+    log(" g. speculative_generate: planted Llama-2-7B target, planted 2-layer drafts")
+    serve_speculative(target, draft, m_t, cfg, dev, 4, 8, prompt, "warm-up")
+    for key, drf, k, n, name, needs in (
+            ("spec_k4", draft, 4, 64, "k=4", ()),
+            ("spec_auto", draft, "auto", 160, "k=auto", ("model_decode_mega_batch_paged",)),
+            ("spec_k4_disagree", draft3, 4, 64, "k=4, draft disagreeing on 30%", ())):
+        report[key], c = run_path(
+            f"speculative_generate {name}", ("dequant_matmul", "model_decode_flat",
+                                            "model_decode_mega_batch_chunk",
+                                            "model_decode_mega_batch_lm") + needs,
+            lambda: serve_speculative(target, drf, m_t, cfg, dev, k, n, prompt, name,
+                                      need_k8=k == "auto"))
+        tally(c)
+    report["spec_flat_reference"], c = run_path(
+        "decode_loop_flat (planted target)", ("model_decode_flat",),
+        lambda: dict(zip(("ms_per_token", "decode_ms_per_token"),
+                         serve_flat_reference(target, m_t, cfg, dev, prompt, 64))))
+    tally(c)
+    log(f"  planted 7B, 64 tokens, ms/token with the prefills: speculative k=4 "
+        f"{report['spec_k4']['ms_per_token']:.3f} (accept "
+        f"{report['spec_k4']['stats']['accept_rate']:.3f}), k=4 with the 30% draft "
+        f"{report['spec_k4_disagree']['ms_per_token']:.3f} (accept "
+        f"{report['spec_k4_disagree']['stats']['accept_rate']:.3f}), decode_loop_flat "
+        f"{report['spec_flat_reference']['ms_per_token']:.3f}")
+    log(" h-i. speculative batchers: 12 planted requests, 4 slots, k=3, the 30% draft")
+    for key, name, make, needs in (
+            ("spec_batcher", "SpeculativeBatcher (4 slots, k=3, fused lm rows)",
+             lambda: SpeculativeBatcher(target, draft3, k=3, n_slots=4, max_len=512,
+                                        cache_dtype=torch.int8, fused_lm=True), ()),
+            ("paged_spec_batcher", "PagedSpeculativeBatcher (4 slots, k=3, fused lm rows)",
+             lambda: PagedSpeculativeBatcher(target, draft3, k=3, n_slots=4, max_len=512,
+                                             fused_lm=True), ())):
+        report[key], c = run_path(
+            name, ("dequant_matmul", "model_decode_mega_batch", "model_decode_mega_batch_chunk",
+                   "model_decode_mega_batch_lm") + needs,
+            lambda: serve_spec_batcher(make, name, m_t, cfg))
+        tally(c)
+    log(" j. decode_loop_flat_seg, kseg=5, 40 tokens, on the planted target and draft")
+
+    def flat_seg_paths():
+        res = {}
+        for name, m in (("target", target), ("draft", draft)):
+            seg = serve_flat_reference(m, m_t, m.config, dev, prompt, 40, kseg=5)
+            flat = serve_flat_reference(m, m_t, m.config, dev, prompt, 40)
+            res[name] = dict(seg_ms_per_token=seg[1], flat_ms_per_token=flat[1])
+            log(f"  {name} ({m.config.num_layers} layers): decode_loop_flat_seg {seg[1]:.3f} "
+                f"ms/token against decode_loop_flat {flat[1]:.3f} (decode loops alone)")
+        return res
+
+    report["flat_seg"], c = run_path("decode_loop_flat_seg", ("model_decode_flat_seg",
+                                                             "model_decode_flat"), flat_seg_paths)
+    tally(c)
     log(f"  launches over the served paths: {counts}")
 
     log("phase 4: small f32 model on the card vs the plain versions on the CPU")
     small_reference_check(dev)
     small_serving_check(dev)
     small_paged_check(dev)
+    small_spec_check(dev)
+    small_spec_batchers_check(dev)
 
     log("phase 5: where the time goes (torch.profiler, Llama-2-7B, T=512)")
-    report["profile"] = profile_windows(model, fstack, fmeta, cfg, dev)
+    report["profile"] = profile_windows(
+        model, fstack, fmeta, cfg, dev,
+        extra={"spec_round": (spec_round_window(target, draft, cfg, dev), 1)})
 
     kernels = []
     for r in rows:

@@ -7,9 +7,13 @@ on the ported path is a hand-written CUDA kernel under `csrc/`, built with
 nvcc at first use (`ops/_build.py`); on CPU tensors each wrapper runs its
 plain PyTorch version instead.
 
-This slice covers int4 (or int2/int8) packed Llama serving: prefill through
-`ops.dequant_matmul`, per-layer decode through `ops.block_fused`, and the
-whole-model flat decode through `ops.model_flat`.
+It covers int4 (or int2/int8) packed Llama serving: prefill through
+`ops.dequant_matmul`, per-layer decode through `ops.block_fused`, the
+whole-model decodes through `ops.model_flat`, `ops.model_flat_seg` and
+`ops.model_fused` (single stream, continuous batching, paged serving), the
+paged flash decode (`ops.paged_attention`), speculative decoding
+(`serving.speculative`, the speculative batchers) and planted-structure
+models for exact token gates (`utils.planted`).
 """
 
 __version__ = "0.1.0"

@@ -451,10 +451,18 @@ __device__ __forceinline__ void attention_phase(const LayerArgs& a, float* sm, f
   }
 }
 
+// The P2 of one token over the cache rows t < a.pos (attention_phase).
+struct TokenAttention {
+  __device__ __forceinline__ void operator()(const LayerArgs& a, float* sm, float* red) const {
+    attention_phase(a, sm, red);
+  }
+};
+
 // One decoder layer, phases P1-P5, with a grid barrier after each of P1-P4.
-// The caller syncs after P5 when another phase follows.
-template <class T, int BITS>
-__device__ void decoder_layer(const LayerArgs& a, float* vec, float* red) {
+// `attn(a, sm, red)` runs P2 (model_flat.cu's multi-token kernel passes its
+// own history). The caller syncs after P5 when another phase follows.
+template <class T, int BITS, class Attn = TokenAttention>
+__device__ void decoder_layer(const LayerArgs& a, float* vec, float* red, Attn attn = Attn()) {
   cg::grid_group grid = cg::this_grid();
   const int h = a.hidden, D = a.head_dim;
   const int qdim = a.n_heads * D, nqkv = qdim + 2 * a.n_kv_heads * D;
@@ -468,7 +476,7 @@ __device__ void decoder_layer(const LayerArgs& a, float* vec, float* red) {
   grid.sync();
 
   // P2
-  attention_phase(a, vec, red);
+  attn(a, vec, red);
   grid.sync();
 
   // P3

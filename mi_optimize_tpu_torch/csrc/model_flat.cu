@@ -1,10 +1,15 @@
-// The whole model for one token in ONE cooperative launch: every decoder
-// layer, the final rmsnorm, the packed lm_head and a first-index argmax.
+// The whole model in ONE cooperative launch: every decoder layer, the final
+// rmsnorm, the packed lm_head and a first-index argmax, for one token
+// (model_flat_kernel) or for kseg greedy tokens back to back
+// (model_flat_seg_kernel).
 //
-// Replaces the TPU kernel mi_optimize_tpu/ops/model_flat.py::_kernel_flat
-// (model_decode_flat). What bounds it on an H100 is the packed weights of the
-// whole model plus the lm_head (about 3.5 GB at Llama-2-7B, int4 g128) read
-// once per token over the memory rate. The design runs the layers of
+// Replaces the TPU kernels mi_optimize_tpu/ops/model_flat.py::_kernel_flat
+// (model_decode_flat) and mi_optimize_tpu/ops/model_flat_seg.py::
+// _kernel_flat_seg (model_decode_flat_seg). What bounds them on an H100 is
+// the packed weights of the whole model plus the lm_head (about 3.5 GB at
+// Llama-2-7B, int4 g128) read once per token over the memory rate: token
+// t + 1's first layer needs token t's argmax, so a segment cannot share a
+// weight read between its tokens. The design runs the layers of
 // decode_common.cuh back to back with the residual kept in f32 across all of
 // them (grid barriers between phases, no launch between layers), then
 // computes the logits with the same tiled dequant dot and folds a per-block
@@ -12,12 +17,22 @@
 // grids only: every bias is -zc*s from one constant per linear, so no bias
 // table is read. The new k/v rows and scales of every layer go out for the
 // caller to scatter into the merged [L, T, 2, Hkv, D] cache.
+//
+// The multi-token kernel saves the launches and the host glue between
+// tokens, which is what a few-layer draft model pays for. After token t's
+// argmax and one more barrier every block reads the winner's embedding row
+// directly (the TPU kernel streamed the whole table through a one-hot dot).
+// Token t attends to the cache rows before the segment and then to the rows
+// of tokens 0..t-1 of this launch, read back from the output buffers through
+// L2; the caller writes all kseg rows into the cache after the launch.
 #include "decode_common.cuh"
 
 // Host-side argument block, mirrored field by field by the ctypes Structure
-// in ops/model_flat.py. Stacked arrays carry a leading layer axis.
+// in ops/model_flat.py. Stacked arrays carry a leading layer axis; the
+// per-token arrays (cos, sin, token, kvrow, kvsc) a leading kseg axis in the
+// multi-token kernel.
 struct FlatArgs {
-  const void* x;                     // model dtype [h] (embedding row)
+  const void* x;                     // model dtype [h] (embedding row of the first token)
   const void* n1; const void* n2;    // model dtype [L, h]
   const int32_t* qkv; const float* qs;   // [L, h/vpw, nqkv], [L, h/g, nqkv]
   const int32_t* o; const float* os;     // [L, qdim/vpw, h], [L, qdim/g, h]
@@ -25,14 +40,15 @@ struct FlatArgs {
   const int32_t* dn; const float* ds;    // [L, I/vpw, h], [L, I/g, h]
   const int32_t* ue; const float* ues;   // [h/vpw, V], [h/g, V]
   const void* fnorm;                     // model dtype [h]
-  const float* cos; const float* sin;    // [D]
+  const float* cos; const float* sin;    // [kseg, D]
   const int8_t* kv; const float* kvs;    // [L, T, 2, Hkv, D], [L, T, 2, Hkv]
-  int* token; float* logits;             // [1], [V]
-  int8_t* kvrow; float* kvsc;            // [L, 2, Hkv, D], [L, 2, 1, Hkv]
+  int* token; float* logits;             // [kseg], [V] (the last token's)
+  int8_t* kvrow; float* kvsc;            // [kseg, L, 2, Hkv, D], [kseg, L, 2, Hkv]
   float* scratch;  // f32: xres h | qkv nqkv | attn qdim | xmid h | act inter | part_val
   int* part_idx;   // [max_blocks]
+  const void* emb;  // model dtype [V, h]: the multi-token kernel's embedding table
   int n_layers, hidden, n_heads, n_kv_heads, head_dim, inter, vocab, max_len, pos;
-  int g_qkv, g_o, g_gu, g_d, g_ue, max_blocks;
+  int g_qkv, g_o, g_gu, g_d, g_ue, max_blocks, kseg;
   float zc_qkv, zc_o, zc_gu, zc_d, zc_ue, eps;
 };
 
@@ -43,6 +59,104 @@ using namespace mi;
 template <int BITS>
 __device__ __forceinline__ long words(long k) { return k / (32 / BITS); }
 
+// Everything of LayerArgs that does not change between layers and tokens.
+__device__ __forceinline__ LayerArgs flat_layer_args(const FlatArgs& f) {
+  const int h = f.hidden, D = f.head_dim;
+  const int qdim = f.n_heads * D, kvdim = f.n_kv_heads * D, nqkv = qdim + 2 * kvdim;
+  LayerArgs a{};
+  a.xres = f.scratch; a.x_out = nullptr;
+  a.qkv_buf = f.scratch + h;
+  a.attn_buf = a.qkv_buf + nqkv;
+  a.xmid_buf = a.attn_buf + qdim;
+  a.act_buf = a.xmid_buf + h;
+  a.qb = a.ob = a.gub = a.db = nullptr;
+  a.cos = f.cos; a.sin = f.sin;
+  a.kv_stride = 2L * kvdim;
+  a.s_stride = 2L * f.n_kv_heads;
+  a.hidden = h; a.n_heads = f.n_heads; a.n_kv_heads = f.n_kv_heads; a.head_dim = D;
+  a.inter = f.inter; a.pos = f.pos;
+  a.g_qkv = f.g_qkv; a.g_o = f.g_o; a.g_gu = f.g_gu; a.g_d = f.g_d;
+  a.zc_qkv = f.zc_qkv; a.zc_o = f.zc_o; a.zc_gu = f.zc_gu; a.zc_d = f.zc_d;
+  a.eps = f.eps;
+  return a;
+}
+
+// Layer l's weights and cache rows, and token t's output rows of layer l.
+template <class T, int BITS>
+__device__ __forceinline__ void set_layer(LayerArgs& a, const FlatArgs& f, int l, int t) {
+  const int h = f.hidden, I = f.inter, Hkv = f.n_kv_heads;
+  const int qdim = f.n_heads * f.head_dim, kvdim = Hkv * f.head_dim, nqkv = qdim + 2 * kvdim;
+  a.n1 = (const T*)f.n1 + (long)l * h;
+  a.n2 = (const T*)f.n2 + (long)l * h;
+  a.qkv = f.qkv + (long)l * words<BITS>(h) * nqkv;
+  a.qs = f.qs + (long)l * (h / f.g_qkv) * nqkv;
+  a.o = f.o + (long)l * words<BITS>(qdim) * h;
+  a.os = f.os + (long)l * (qdim / f.g_o) * h;
+  a.gu = f.gu + (long)l * words<BITS>(h) * 2 * I;
+  a.gus = f.gus + (long)l * (h / f.g_gu) * 2 * I;
+  a.dn = f.dn + (long)l * words<BITS>(I) * h;
+  a.ds = f.ds + (long)l * (I / f.g_d) * h;
+  const int8_t* kvl = f.kv + (long)l * f.max_len * 2 * kvdim;
+  const float* kvsl = f.kvs + (long)l * f.max_len * 2 * Hkv;
+  a.ck = kvl; a.cv = kvl + kvdim;
+  a.cks = kvsl; a.cvs = kvsl + Hkv;
+  const long r = (long)t * f.n_layers + l;
+  a.krow = f.kvrow + r * 2 * kvdim;
+  a.vrow = a.krow + kvdim;
+  a.ks_out = f.kvsc + r * 2 * Hkv;
+  a.vs_out = a.ks_out + Hkv;
+}
+
+// Final rmsnorm of the residual, the lm_head logits, per-block (max, first
+// index) pairs, and after a grid barrier block 0's reduction into *token.
+template <class T, int BITS>
+__device__ __forceinline__ void lm_argmax(const FlatArgs& f, const float* xres, float* part_val,
+                                          float* vec, float* red, int* token) {
+  cg::grid_group grid = cg::this_grid();
+  const int h = f.hidden;
+  stage_rmsnorm<T>(vec, nullptr, xres, (const T*)f.fnorm, h, f.eps, red);
+  float best = -INFINITY;
+  int best_i = 0x7fffffff;
+  const int ntiles = (f.vocab + 31) / 32;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int c0 = t * 32;
+    const float v = tile_dot<BITS>(vec, h, f.ue, f.ues, nullptr, f.zc_ue, f.vocab, f.g_ue, c0,
+                                   c0, f.vocab, red);
+    if (threadIdx.x < 32) {
+      const int n = c0 + threadIdx.x;
+      float bv = -INFINITY;
+      int bi = 0x7fffffff;
+      if (n < f.vocab) {
+        f.logits[n] = v;
+        bv = v; bi = n;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+      }
+      if (bv > best || (bv == best && bi < best_i)) { best = bv; best_i = bi; }
+    }
+  }
+  if (threadIdx.x == 0) { part_val[blockIdx.x] = best; f.part_idx[blockIdx.x] = best_i; }
+  grid.sync();
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    float bv = -INFINITY;
+    int bi = 0x7fffffff;
+    for (int b = 0; b < (int)gridDim.x; ++b) {
+      const float v = __ldcg(part_val + b);
+      const int i = __ldcg(f.part_idx + b);
+      if (v > bv || (v == bv && i < bi)) { bv = v; bi = i; }
+    }
+    *token = bi;
+  }
+}
+
+// The one-token kernel keeps its own copy of the layer loop and the lm phase
+// (the multi-token kernel below reaches them through flat_layer_args,
+// set_layer and lm_argmax): routing it through those helpers moved ptxas's
+// register budget for it from 128 to 104.
 template <class T, int BITS>
 __global__ void __launch_bounds__(NT, COOP_PER_SM) model_flat_kernel(FlatArgs f) {
   extern __shared__ float smem[];
@@ -135,9 +249,92 @@ __global__ void __launch_bounds__(NT, COOP_PER_SM) model_flat_kernel(FlatArgs f)
   }
 }
 
+// The history of one kv head for token t of a segment: rows t' < pos0 from
+// the cache (`stride` apart, scales `sstride` apart), then rows pos0 <= t' <
+// pos of the segment's earlier tokens from this launch's output rows (`step`
+// and `sstep` apart), which other blocks wrote: every load goes through L2.
+struct SegHist {
+  const int8_t* k; const int8_t* v; const float* ks; const float* vs;
+  long stride, sstride;
+  const int8_t* sk; const int8_t* sv; const float* sks; const float* svs;
+  long step, sstep;
+  int pos0, pos;
+  __device__ __forceinline__ void row(int t, const int8_t*& kr, const int8_t*& vr, float& ksc,
+                                      float& vsc) const {
+    if (t < pos0) {
+      kr = k + (long)t * stride;
+      vr = v + (long)t * stride;
+      ksc = __ldcg(ks + (long)t * sstride);
+      vsc = __ldcg(vs + (long)t * sstride);
+    } else {
+      const long j = t - pos0;
+      kr = sk + j * step;
+      vr = sv + j * step;
+      ksc = __ldcg(sks + j * sstep);
+      vsc = __ldcg(svs + j * sstep);
+    }
+  }
+  static __device__ __forceinline__ int8_t ld(const int8_t* p) { return __ldcg(p); }
+};
+
+// P2 of token t of a segment: every q head over SegHist. rows/scales point at
+// layer l's [2, Hkv, D] rows and [2, Hkv] scales of the segment's token 0.
+struct SegAttention {
+  const int8_t* rows;
+  const float* scales;
+  long step, sstep;
+  int pos0;
+  __device__ __forceinline__ void operator()(const LayerArgs& a, float* sm, float* red) const {
+    const int D = a.head_dim, Hkv = a.n_kv_heads, reps = a.n_heads / Hkv;
+    const int qdim = a.n_heads * D, kvdim = Hkv * D;
+    for (int hq = blockIdx.x; hq < a.n_heads; hq += gridDim.x) {
+      const int kvh = hq / reps;
+      const SegHist hh{a.ck + (long)kvh * D, a.cv + (long)kvh * D, a.cks + kvh, a.cvs + kvh,
+                       a.kv_stride, a.s_stride, rows + (long)kvh * D,
+                       rows + kvdim + (long)kvh * D, scales + kvh, scales + Hkv + kvh, step,
+                       sstep, pos0, a.pos};
+      attention_item(a.qkv_buf, a.cos, a.sin, hq, kvh, qdim, kvdim, D, hh, hq % reps == 0,
+                     a.krow + (long)kvh * D, a.vrow + (long)kvh * D, a.ks_out + kvh,
+                     a.vs_out + kvh, a.attn_buf + (long)hq * D, sm, red);
+    }
+  }
+};
+
 template <class T, int BITS>
+__global__ void __launch_bounds__(NT, COOP_PER_SM) model_flat_seg_kernel(FlatArgs f) {
+  extern __shared__ float smem[];
+  float* red = smem;
+  float* vec = smem + RED_FLOATS;
+  cg::grid_group grid = cg::this_grid();
+
+  const int h = f.hidden, D = f.head_dim, I = f.inter, L = f.n_layers, Hkv = f.n_kv_heads;
+  const int qdim = f.n_heads * D, kvdim = Hkv * D, nqkv = qdim + 2 * kvdim;
+  float* part_val = f.scratch + h + nqkv + qdim + h + I;
+
+  LayerArgs a = flat_layer_args(f);
+  for (int t = 0; t < f.kseg; ++t) {
+    // token t's input: the first token's row, else the embedding row of the
+    // token block 0 chose before the last barrier
+    const T* xt = t == 0 ? (const T*)f.x : (const T*)f.emb + (long)__ldcg(f.token + t - 1) * h;
+    a.cos = f.cos + (long)t * D;
+    a.sin = f.sin + (long)t * D;
+    a.pos = f.pos + t;
+    for (int l = 0; l < L; ++l) {
+      a.x_t = l == 0 ? xt : nullptr;
+      set_layer<T, BITS>(a, f, l, t);
+      const SegAttention attn{f.kvrow + (long)l * 2 * kvdim, f.kvsc + (long)l * 2 * Hkv,
+                              (long)L * 2 * kvdim, (long)L * 2 * Hkv, f.pos};
+      decoder_layer<T, BITS>(a, vec, red, attn);
+      grid.sync();
+    }
+    lm_argmax<T, BITS>(f, a.xres, part_val, vec, red, f.token + t);
+    if (t + 1 < f.kseg) grid.sync();
+  }
+}
+
+template <class T, int BITS, bool SEG>
 cudaError_t launch(const FlatArgs& f, cudaStream_t stream) {
-  auto kern = model_flat_kernel<T, BITS>;
+  auto kern = SEG ? model_flat_seg_kernel<T, BITS> : model_flat_kernel<T, BITS>;
   const size_t smem = sizeof(float) * (size_t)decode_smem_floats(
       f.hidden, f.n_heads * f.head_dim, f.inter, f.head_dim);
   int grid = 0;
@@ -149,25 +346,35 @@ cudaError_t launch(const FlatArgs& f, cudaStream_t stream) {
                                      stream);
 }
 
-template <class T>
+template <class T, bool SEG>
 cudaError_t dispatch_bits(const FlatArgs& f, int bits, cudaStream_t s) {
   switch (bits) {
-    case 2: return launch<T, 2>(f, s);
-    case 4: return launch<T, 4>(f, s);
-    case 8: return launch<T, 8>(f, s);
+    case 2: return launch<T, 2, SEG>(f, s);
+    case 4: return launch<T, 4, SEG>(f, s);
+    case 8: return launch<T, 8, SEG>(f, s);
   }
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() after the launch.
-extern "C" int mi_model_decode_flat(const FlatArgs* f, int bits, int dtype, void* stream) {
+template <bool SEG>
+int dispatch(const FlatArgs* f, int bits, int dtype, void* stream) {
   cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = dtype == 0   ? dispatch_bits<float>(*f, bits, s)
-                  : dtype == 1 ? dispatch_bits<__nv_bfloat16>(*f, bits, s)
+  cudaError_t e = dtype == 0   ? dispatch_bits<float, SEG>(*f, bits, s)
+                  : dtype == 1 ? dispatch_bits<__nv_bfloat16, SEG>(*f, bits, s)
                                : cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16. Each returns cudaGetLastError() after the launch.
+extern "C" int mi_model_decode_flat(const FlatArgs* f, int bits, int dtype, void* stream) {
+  return dispatch<false>(f, bits, dtype, stream);
+}
+
+extern "C" int mi_model_decode_flat_seg(const FlatArgs* f, int bits, int dtype, void* stream) {
+  if (f->kseg < 1 || !f->emb) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(f, bits, dtype, stream);
 }

@@ -5,7 +5,7 @@
 //
 // Replaces the TPU kernels mi_optimize_tpu/ops/model_fused.py::_kernel
 // (model_decode_mega) and ::_kernel_b in its modes (a) batched decode, (b)
-// paged and (c) chunk (model_decode_mega_batch).
+// paged, (c) chunk and (d) terminal lm rows (model_decode_mega_batch).
 //
 // What bounds them on an H100: the stacked packed weights of the whole model
 // (about 3.4 GB at Llama-2-7B, int4 g128, plus 0.2 GB of f32 bias tables on
@@ -26,6 +26,15 @@
 // block, over the slot's head-transposed cache [L, B, Hkv, T, D] up to its
 // own position (a free slot at position 0 has no history). New int8 rows and
 // scales go out for the caller to scatter.
+//
+// Terminal lm rows (d), with any of the modes above: after the last layer,
+// every row's final rmsnorm, its f32 logits over the packed lm_head (each
+// word read once for all rows, like the layers' GEMVs) and a first-index
+// argmax: per-block (max, index) pairs a row, which block 0 reduces after
+// one more grid barrier (model_flat.cu's lm phase, NB rows wide). It adds
+// the lm_head's words and scales to the step's bytes. Launches with lm rows
+// take instances of their own (LM = true, NB = 8), so the others compile
+// as they did without them.
 //
 // Paged mode (b): the history of slot s is a page pool [L, n_pages, Hkv, P,
 // D] read through the slot's page-table row: row t is row t % P of page
@@ -84,6 +93,13 @@ struct BatchArgs {
   // batch / chunk slots
   const int* table;                                       // [batch / chunk, pps], or null
   int chunk, page_size, pps, n_pages;
+  // terminal lm rows (mode d), with a non-null ue
+  const int32_t* ue; const float* ues;                    // [h/vpw, V], [h/g_ue, V]
+  const void* fnorm;                                      // model dtype [h]
+  float* logits; int* tokens;                             // [B, V], [B]
+  float* part_val; int* part_idx;                         // [max_blocks, 8] (block, row)
+  int vocab, g_ue, max_blocks;                            // max_blocks caps the grid
+  float zc_ue;
 };
 
 namespace {
@@ -376,7 +392,70 @@ __device__ __forceinline__ PagedChunkHist chunk_hist(const BatchArgs& f, int l, 
   return h;
 }
 
-template <class T, int BITS, int NB, bool GEN>
+// Mode (d): the final rmsnorm of every row, its logits and its first-index
+// argmax into f.tokens, after the last layer's residual rows (the caller's
+// grid barrier) are complete. Only the LM instances compile it: inside the
+// other instances it raised the paged/chunk instance's spills (80 -> 96
+// bytes) and made those launches 3-5% slower; as a call it made every
+// instance 17% slower.
+template <class T, int BITS, int NB>
+__device__ __forceinline__ void lm_rows(const BatchArgs& f, const float* xres, float* xs,
+                                        float* red, float* rstd) {
+  cg::grid_group grid = cg::this_grid();
+  const int B = f.batch, h = f.hidden, V = f.vocab;
+  row_rstd(rstd, xres, B, h, f.eps, red);
+  float best[NB];
+  int best_i[NB];
+#pragma unroll
+  for (int m = 0; m < NB; ++m) { best[m] = -INFINITY; best_i[m] = 0x7fffffff; }
+  const int ntiles = (V + 31) / 32;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int n = t * 32 + (threadIdx.x & 31);
+    float out[1][NB];
+    tile_dot_b<BITS, NB, 1>(xs, B, h, RowsNorm<T>{xres, h, (const T*)f.fnorm, rstd}, f.ue, f.ues,
+                            nullptr, f.zc_ue, V, f.g_ue, n, 0, n < V, red, out);
+    if (threadIdx.x < 32) {
+#pragma unroll
+      for (int m = 0; m < NB; ++m) {
+        if (m >= B) continue;
+        float bv = -INFINITY;
+        int bi = 0x7fffffff;
+        if (n < V) {
+          f.logits[(long)m * V + n] = out[0][m];
+          bv = out[0][m]; bi = n;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+          if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+        }
+        if (bv > best[m] || (bv == best[m] && bi < best_i[m])) { best[m] = bv; best_i[m] = bi; }
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int m = 0; m < NB; ++m) {
+      f.part_val[(long)blockIdx.x * 8 + m] = best[m];
+      f.part_idx[(long)blockIdx.x * 8 + m] = best_i[m];
+    }
+  }
+  grid.sync();
+  if (blockIdx.x == 0 && threadIdx.x < B) {
+    const int m = threadIdx.x;
+    float bv = -INFINITY;
+    int bi = 0x7fffffff;
+    for (int b = 0; b < (int)gridDim.x; ++b) {
+      const float v = __ldcg(f.part_val + (long)b * 8 + m);
+      const int i = __ldcg(f.part_idx + (long)b * 8 + m);
+      if (v > bv || (v == bv && i < bi)) { bv = v; bi = i; }
+    }
+    f.tokens[m] = bi;
+  }
+}
+
+template <class T, int BITS, int NB, bool GEN, bool LM>
 __global__ void __launch_bounds__(NT, COOP_PER_SM) batch_kernel(BatchArgs f) {
   extern __shared__ float smem[];
   const int D = f.head_dim;
@@ -497,8 +576,9 @@ __global__ void __launch_bounds__(NT, COOP_PER_SM) batch_kernel(BatchArgs f) {
           xres[(long)m * h + n] = r;
           if (last) x_out[(long)m * h + n] = from_f<T>(r);
         });
-    if (!last) grid.sync();
+    if (!last || LM) grid.sync();
   }
+  if constexpr (LM) lm_rows<T, BITS, NB>(f, xres, xs, red, rstd);
 }
 
 // ---------------------------------------------------------------------------
@@ -519,12 +599,12 @@ cudaError_t launch_mega(const MegaArgs& f, cudaStream_t stream) {
                                      stream);
 }
 
-template <class T, int BITS, int NB, bool GEN>
+template <class T, int BITS, int NB, bool GEN, bool LM>
 cudaError_t launch_batch(const BatchArgs& f, cudaStream_t stream) {
-  auto kern = batch_kernel<T, BITS, NB, GEN>;
+  auto kern = batch_kernel<T, BITS, NB, GEN, LM>;
   const size_t smem = sizeof(float) * (size_t)batch_smem_floats(NB, f.head_dim);
   int grid = 0;
-  cudaError_t e = coop_grid(kern, smem, 0, &grid);
+  cudaError_t e = coop_grid(kern, smem, f.max_blocks, &grid);
   if (e != cudaSuccess) return e;
   BatchArgs a = f;
   void* args[] = {&a};
@@ -536,10 +616,14 @@ template <class T, int BITS>
 cudaError_t dispatch_nb(const BatchArgs& f, cudaStream_t s) {
   if (f.batch < 1 || f.batch > 8 || f.chunk < 1 || f.batch % f.chunk)
     return cudaErrorInvalidValue;
-  if (f.table || f.chunk > 1) return launch_batch<T, BITS, 8, true>(f, s);
-  if (f.batch <= 2) return launch_batch<T, BITS, 2, false>(f, s);
-  if (f.batch <= 4) return launch_batch<T, BITS, 4, false>(f, s);
-  return launch_batch<T, BITS, 8, false>(f, s);
+  const bool gen = f.table || f.chunk > 1;
+  if (f.ue)  // the lm rows take NB = 8 instances of their own
+    return gen ? launch_batch<T, BITS, 8, true, true>(f, s)
+               : launch_batch<T, BITS, 8, false, true>(f, s);
+  if (gen) return launch_batch<T, BITS, 8, true, false>(f, s);
+  if (f.batch <= 2) return launch_batch<T, BITS, 2, false, false>(f, s);
+  if (f.batch <= 4) return launch_batch<T, BITS, 4, false, false>(f, s);
+  return launch_batch<T, BITS, 8, false, false>(f, s);
 }
 
 template <class T>

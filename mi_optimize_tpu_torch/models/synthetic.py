@@ -18,6 +18,19 @@ from .llama import LlamaConfig
 from .quant_linear import QuantizedLinear, QuantSpec
 
 
+def quantized_linear(w, bits: int, groupsize: int, symmetric: bool = True) -> QuantizedLinear:
+    """The float weight w [out, in] fake-quantized per group, mapped to its
+    integer grid and packed words-major, on w's device."""
+    spec = QuantSpec(wbit=bits, w_qtype="per_group", w_groupsize=groupsize,
+                     w_symmetric=symmetric, w_packed=True)
+    fake, scale, zero = qparams.quantize_dequantize(w, bits, "per_group", groupsize, symmetric)
+    ints = qparams.quantize_to_int(fake, scale, zero, bits, "per_group", groupsize)
+    del fake
+    return QuantizedLinear(spec=spec, out_features=w.shape[0], in_features=w.shape[1],
+                           packed=packing.pack_weight_device(ints, bits, qrange(bits, True)),
+                           w_scale=scale, w_zero=zero)
+
+
 def build_quantized_llama(cfg: LlamaConfig, bits: int = 4, groupsize: int = 128,
                           dtype=torch.bfloat16, seed: int = 0, device=None,
                           symmetric: bool = True):
@@ -26,20 +39,10 @@ def build_quantized_llama(cfg: LlamaConfig, bits: int = 4, groupsize: int = 128,
     zero varies by group."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    rng = qrange(bits, True)
-    spec = QuantSpec(wbit=bits, w_qtype="per_group", w_groupsize=groupsize,
-                     w_symmetric=symmetric, w_packed=True)
 
     def lin(out_f, in_f):
         w = torch.randn(out_f, in_f, generator=gen, device=dev) * (in_f ** -0.5)
-        fake, scale, zero = qparams.quantize_dequantize(w, bits, "per_group", groupsize,
-                                                          symmetric)
-        del w
-        ints = qparams.quantize_to_int(fake, scale, zero, bits, "per_group", groupsize)
-        del fake
-        return QuantizedLinear(spec=spec, out_features=out_f, in_features=in_f,
-                               packed=packing.pack_weight_device(ints, bits, rng),
-                               w_scale=scale, w_zero=zero)
+        return quantized_linear(w, bits, groupsize, symmetric)
 
     h, q_dim = cfg.hidden_size, cfg.num_heads * cfg.head_dim
     kv_dim = cfg.num_kv_heads * cfg.head_dim

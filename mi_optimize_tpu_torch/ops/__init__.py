@@ -3,7 +3,9 @@
   dequant_matmul  packed-int dequant matmul      <- ops/dequant_matmul.py::_kernel
   block_fused     one decoder layer, one launch  <- ops/block_fused.py::_kernel
   model_flat      whole model + lm_head + argmax <- ops/model_flat.py::_kernel_flat
-  model_fused     whole model, one token or B rows (dense, paged, chunk)
+  model_flat_seg  kseg tokens of model_flat, one launch
+                                                 <- ops/model_flat_seg.py::_kernel_flat_seg
+  model_fused     whole model, one token or B rows (dense, paged, chunk, lm rows)
                                                  <- ops/model_fused.py::_kernel, ::_kernel_b
   paged_attention flash decode over a page pool  <- ops/paged_attention.py::_kernel
 

@@ -17,6 +17,8 @@ Layout: the port's `serving.megadecode.stack_serving` stacks the natural
 words-major per-layer arrays into [L, KW, N] with f32 scales [L, K/g, N];
 the reference's TPU tiling of the intermediate axis is not copied. On CPU
 tensors the wrapper runs the plain version, `model_decode_flat_ref`.
+`flat_launch` checks the inputs and launches either entry point of
+model_flat.cu; ops/model_flat_seg.py launches the multi-token one.
 """
 from __future__ import annotations
 
@@ -106,35 +108,38 @@ class _FlatArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "x", "n1", "n2", "qkv", "qs", "o", "os", "gu", "gus", "dn", "ds",
         "ue", "ues", "fnorm", "cos", "sin", "kv", "kvs",
-        "token", "logits", "kvrow", "kvsc", "scratch", "part_idx")] + [
+        "token", "logits", "kvrow", "kvsc", "scratch", "part_idx", "emb")] + [
         (n, ctypes.c_int) for n in (
             "n_layers", "hidden", "n_heads", "n_kv_heads", "head_dim", "inter", "vocab",
-            "max_len", "pos", "g_qkv", "g_o", "g_gu", "g_d", "g_ue", "max_blocks")] + [
+            "max_len", "pos", "g_qkv", "g_o", "g_gu", "g_d", "g_ue", "max_blocks", "kseg")] + [
         (n, ctypes.c_float) for n in ("zc_qkv", "zc_o", "zc_gu", "zc_d", "zc_ue", "eps")]
 
 
-def _model_decode_flat_cuda(stack, x, cossin, cache, pos: int, cfg, meta):
-    global launches
+def flat_launch(entry, stack, x, cos, sin, cache, pos: int, cfg, meta, kseg=1, emb=None):
+    """Check the inputs of the flat kernels (model_flat.cu), launch `entry`
+    for kseg tokens from position pos (cos/sin [kseg, D]) and return (tokens
+    [kseg] int32, logits [V] f32 of the last token, kvrows [kseg, L, 2, Hkv,
+    D] int8, kvscales [kseg, L, 2, Hkv] f32)."""
     from . import _build
 
     (bits, g_qkv, g_o, g_gu, g_d, zc_qkv, zc_o, zc_gu, zc_d, g_ue, zc_ue, vocab) = meta
     dev, dt = x.device, x.dtype
     if dt not in _DTYPES:
-        raise TypeError(f"model_decode_flat kernel takes float32 or bfloat16, not {dt}")
+        raise TypeError(f"the flat kernels take float32 or bfloat16, not {dt}")
     h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     L, inter = cfg.num_layers, cfg.intermediate_size
     qdim, kvdim = H * D, Hkv * D
     if D % 32 or D > 256:
         raise ValueError(f"head_dim {D} outside the decode kernel's contract")
     T = cache["kv"].shape[1]
-    if not 0 <= pos < T:
-        raise ValueError(f"position {pos} outside the cache of {T} rows")
+    if not (0 <= pos and pos + kseg <= T):
+        raise ValueError(f"positions {pos}..{pos + kseg - 1} outside the cache of {T} rows")
     xr = x.reshape(h).contiguous()
     n1 = stack["n1"].to(dt).contiguous()
     n2 = stack["n2"].to(dt).contiguous()
     fnorm = stack["fnorm"].to(dt).contiguous()
-    cos = cossin.reshape(-1)[:D].to(torch.float32).contiguous()
-    sin = cossin.reshape(-1)[D:].to(torch.float32).contiguous()
+    cos = cos.reshape(kseg, D).to(torch.float32).contiguous()
+    sin = sin.reshape(kseg, D).to(torch.float32).contiguous()
     vpw = 32 // bits
     nqkv = qdim + 2 * kvdim
     for k, sk, k_in, n_out, g in (("qkv", "qs", h, nqkv, g_qkv), ("o", "os", qdim, h, g_o),
@@ -144,15 +149,17 @@ def _model_decode_flat_cuda(stack, x, cossin, cache, pos: int, cfg, meta):
     _check_cuda("stack[ue]", stack["ue"], dev, torch.int32, (h // vpw, vocab))
     _check_cuda("stack[ues]", stack["ues"], dev, torch.float32, (h // g_ue, vocab))
     for name, t, shape in (("n1", n1, (L, h)), ("n2", n2, (L, h)), ("final norm", fnorm, (h,)),
-                           ("cos", cos, (D,)), ("sin", sin, (D,))):
+                           ("cos", cos, (kseg, D)), ("sin", sin, (kseg, D))):
         _check_cuda(name, t, dev, shape=shape)
+    if emb is not None:
+        _check_cuda("emb", emb, dev, dt, (vocab, h))
     _check_cuda("kv cache", cache["kv"], dev, torch.int8, (L, T, 2, Hkv, D))
     _check_cuda("kv scales", cache["kv_scale"], dev, torch.float32, (L, T, 2, Hkv))
 
-    token = torch.empty(1, dtype=torch.int32, device=dev)
-    logits = torch.empty(1, vocab, dtype=torch.float32, device=dev)
-    kvrows = torch.empty(L, 2, Hkv, D, dtype=torch.int8, device=dev)
-    kvsc = torch.empty(L, 2, 1, Hkv, dtype=torch.float32, device=dev)
+    token = torch.empty(kseg, dtype=torch.int32, device=dev)
+    logits = torch.empty(vocab, dtype=torch.float32, device=dev)
+    kvrows = torch.empty(kseg, L, 2, Hkv, D, dtype=torch.int8, device=dev)
+    kvsc = torch.empty(kseg, L, 2, Hkv, dtype=torch.float32, device=dev)
     scratch = torch.empty(h + qdim + 2 * kvdim + qdim + h + inter + _MAX_BLOCKS,
                           dtype=torch.float32, device=dev)
     part_idx = torch.empty(_MAX_BLOCKS, dtype=torch.int32, device=dev)
@@ -163,15 +170,24 @@ def _model_decode_flat_cuda(stack, x, cossin, cache, pos: int, cfg, meta):
         p(stack["ue"]), p(stack["ues"]), p(fnorm), p(cos), p(sin),
         p(cache["kv"]), p(cache["kv_scale"]),
         p(token), p(logits), p(kvrows), p(kvsc), p(scratch), p(part_idx),
-        L, h, H, Hkv, D, inter, vocab, T, pos, g_qkv, g_o, g_gu, g_d, g_ue, _MAX_BLOCKS,
+        None if emb is None else p(emb),
+        L, h, H, Hkv, D, inter, vocab, T, pos, g_qkv, g_o, g_gu, g_d, g_ue, _MAX_BLOCKS, kseg,
         zc_qkv, zc_o, zc_gu, zc_d, zc_ue, cfg.rms_eps)
-    fn = _build.load("model_flat").mi_model_decode_flat
+    fn = getattr(_build.load("model_flat"), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(_FlatArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    err = fn(ctypes.byref(args), bits, _DTYPES[dt], _build.stream_ptr(dev))
-    _build.check(err, "model_decode_flat")
-    launches += 1
+    _build.check(fn(ctypes.byref(args), bits, _DTYPES[dt], _build.stream_ptr(dev)), entry)
     return token, logits, kvrows, kvsc
+
+
+def _model_decode_flat_cuda(stack, x, cossin, cache, pos: int, cfg, meta):
+    global launches
+    D = cfg.head_dim
+    cs = cossin.reshape(-1)
+    token, logits, kvrows, kvsc = flat_launch("mi_model_decode_flat", stack, x, cs[:D], cs[D:],
+                                              cache, pos, cfg, meta)
+    launches += 1
+    return token, logits[None], kvrows[0], kvsc[0][:, :, None]
 
 
 def model_decode_flat(stack, x, cossin, cache, pos: int, cfg, meta):

@@ -6,11 +6,12 @@ chunk modes).
 Kernels: csrc/model_fused.cu (with csrc/decode_common.cuh), which replaces
 the TPU kernels mi_optimize_tpu/ops/model_fused.py::_kernel
 (model_decode_mega) and ::_kernel_b in its modes (a) batched decode, (b)
-paged (a page table picks each history row's pool page) and (c) chunk (C
-consecutive tokens a slot with an intra-chunk causal pass), alone or
-combined (model_decode_mega_batch). The terminal-lm (d) and
-tensor-parallel (e) modes of _kernel_b are not ported: the batched wrapper
-raises NotImplementedError for them.
+paged (a page table picks each history row's pool page), (c) chunk (C
+consecutive tokens a slot with an intra-chunk causal pass) and (d) terminal
+lm rows (every row's final rmsnorm, packed lm_head logits and first-index
+argmax after the last layer), alone or combined (model_decode_mega_batch).
+The tensor-parallel mode (e) of _kernel_b is not ported: the batched
+wrapper raises NotImplementedError for it.
 
 What bounds them on an H100: the stacked packed weights (about 3.4 GB at
 Llama-2-7B, int4 g128) read once per step over the memory rate, plus every
@@ -20,7 +21,7 @@ them. The batched kernel reads each packed word once per step for all B
 rows (B accumulators per lane, the activations staged a chunk at a time),
 so a step costs about one weight read however many rows it decodes. Paging
 changes only the history rows' addresses, so the paged step moves the
-dense step's bytes.
+dense step's bytes. The lm rows add the lm_head's words and scales.
 
 Grids: a linear whose zero is one constant across the model computes its
 bias -zc*s in-kernel; otherwise `serving.megadecode.stack_serving` stacks
@@ -35,15 +36,18 @@ import ctypes
 
 import torch
 
-from .block_fused import _check_cuda, layer_rows_ref
+from .block_fused import _check_cuda, layer_rows_ref, norm_row
+from .dequant_matmul import qdot_ref
 
 launches = 0        # model_decode_mega kernel launches; chip_smoke.py resets and reads it
 launches_batch = 0  # model_decode_mega_batch launches in mode (a), dense one-token rows
 launches_paged = 0  # ... in mode (b) with one token a slot (paged decode)
 launches_chunk = 0  # ... in mode (c), dense or paged (C > 1 tokens a slot)
+launches_lm = 0     # ... with the terminal lm rows, mode (d) (also counted in its mode above)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 8  # rows (slots x chunk tokens): the batched kernel keeps one accumulator a row
+_MAX_BLOCKS = 1024  # cap on the cooperative grid (the lm rows' per-block argmax slots)
 # (stack key of the words, of the scale table, of the bias table, meta index of the group)
 _STACKED = (("qkv", "qs", "qz", 1), ("o", "os", "oz", 2), ("gu", "gus", "guz", 3),
             ("d", "ds", "dz", 4))
@@ -93,14 +97,17 @@ def _history(cache, l, s, table, n):
 
 
 def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta, table=None,
-                                chunk: int = 1):
+                                chunk: int = 1, lm=None, lm_meta=None):
     """Plain PyTorch version of the batched kernel (same signature and
-    outputs as `model_decode_mega_batch`, modes (a)-(c)).
+    outputs as `model_decode_mega_batch`, modes (a)-(d)).
 
     Row r = s*C + i is token i of slot s's chunk (C = chunk; C = 1: one token
     a slot). It attends to its slot's history rows t < prefix = positions[s*C]
     (gathered through `table` when paged), then to the quantized new rows
-    0..i-1 of its own chunk, then to its own row: position prefix + i."""
+    0..i-1 of its own chunk, then to its own row: position prefix + i. With
+    `lm`, every row's f32 residual after the last layer goes through the
+    final rmsnorm (the model-dtype rounding points) and the packed lm_head,
+    and the first index of each row's maximum is its token."""
     B, h, D, L = x.shape[0], cfg.hidden_size, cfg.head_dim, cfg.num_layers
     C = chunk
     pos = [int(p) for p in torch.as_tensor(positions).reshape(-1).tolist()]
@@ -128,7 +135,13 @@ def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta,
                                             [prefix[r // C] + r % C for r in range(B)], cfg)
         rows.append((kq, vq, ks, vs))
     krows, vrows, ksr, vsr = (torch.stack(r) for r in zip(*rows))
-    return xr.to(x.dtype).reshape(B, 1, h), krows, vrows, ksr, vsr
+    out = (xr.to(x.dtype).reshape(B, 1, h), krows, vrows, ksr, vsr)
+    if lm is None:
+        return out
+    g_ue, zc_ue = lm_meta[:2]
+    hh = norm_row(xr, lm["fnorm"], cfg.rms_eps, x.dtype)
+    logits = qdot_ref(hh, lm["ue"], lm["ues"], lm["ues"] * (-zc_ue), meta[0], g_ue)
+    return out + (logits, torch.argmax(logits, -1).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +166,10 @@ class _BatchArgs(ctypes.Structure):
         (n, ctypes.c_int) for n in ["batch", "n_layers", "hidden", "n_heads", "n_kv_heads",
                                     "head_dim", "inter", "max_len"] + _GROUPS] + _ZCS + [
         ("table", ctypes.c_void_p)] + [
-        (n, ctypes.c_int) for n in ("chunk", "page_size", "pps", "n_pages")]
+        (n, ctypes.c_int) for n in ("chunk", "page_size", "pps", "n_pages")] + [
+        (n, ctypes.c_void_p) for n in ("ue", "ues", "fnorm", "logits", "tokens", "part_val",
+                                       "part_idx")] + [
+        (n, ctypes.c_int) for n in ("vocab", "g_ue", "max_blocks")] + [("zc_ue", ctypes.c_float)]
 
 
 def _check_stack(stack, cfg, meta, dev, dt):
@@ -248,9 +264,23 @@ def model_decode_mega(stack, x, cos, sin, cache, pos: int, cfg, meta):
     return model_decode_mega_ref(stack, x, cos, sin, cache, int(pos), cfg, meta)
 
 
+def _check_lm(lm, lm_meta, cfg, meta, dev, dt):
+    """Validate the terminal lm rows' arrays (mode d); returns (fnorm in the
+    model dtype, g_ue, zc_ue, vocab)."""
+    g_ue, zc_ue, vocab = lm_meta[:3]
+    h, vpw = cfg.hidden_size, 32 // meta[0]
+    if h % g_ue or g_ue % vpw:
+        raise ValueError(f"lm_head group {g_ue} does not fit {h} inputs of {vpw} values a word")
+    fnorm = lm["fnorm"].reshape(-1).to(dt).contiguous()
+    _check_cuda("lm[ue]", lm["ue"], dev, torch.int32, (h // vpw, vocab))
+    _check_cuda("lm[ues]", lm["ues"], dev, torch.float32, (h // g_ue, vocab))
+    _check_cuda("lm[fnorm]", fnorm, dev, shape=(h,))
+    return fnorm, g_ue, float(zc_ue), vocab
+
+
 def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta, table=None,
-                                  chunk: int = 1):
-    global launches_batch, launches_paged, launches_chunk
+                                  chunk: int = 1, lm=None, lm_meta=None):
+    global launches_batch, launches_paged, launches_chunk, launches_lm
     dev, dt = x.device, x.dtype
     if dt not in _DTYPES:
         raise TypeError(f"model_decode_mega_batch kernel takes float32 or bfloat16, not {dt}")
@@ -299,11 +329,22 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
     scratch = torch.empty(B * (2 * h + 2 * H * D + 2 * Hkv * D + inter), dtype=torch.float32,
                           device=dev)
     p = lambda t: t.data_ptr()
+    lm_ptrs, lm_ints, zc_ue = [None] * 7, [0, 0], 0.0
+    if lm is not None:
+        fnorm, g_ue, zc_ue, vocab = _check_lm(lm, lm_meta, cfg, meta, dev, dt)
+        logits = torch.empty(B, vocab, dtype=torch.float32, device=dev)
+        tokens = torch.empty(B, dtype=torch.int32, device=dev)
+        part_val = torch.empty(_MAX_BLOCKS * MAX_BATCH, dtype=torch.float32, device=dev)
+        part_idx = torch.empty(_MAX_BLOCKS * MAX_BATCH, dtype=torch.int32, device=dev)
+        lm_ptrs = [p(lm["ue"]), p(lm["ues"]), p(fnorm), p(logits), p(tokens), p(part_val),
+                   p(part_idx)]
+        lm_ints = [vocab, g_ue]
     args = _BatchArgs(p(xr), p(n1), p(n2), *ptrs, p(cos), p(sin), p(pos),
                       p(cache["k"]), p(cache["v"]), p(cache["k_scale"]), p(cache["v_scale"]),
                       p(x_out), p(krows), p(vrows), p(ksr), p(vsr), p(scratch),
                       B, L, h, H, Hkv, D, inter, T, *groups, *floats,
-                      None if tbl is None else p(tbl), chunk, P, pps, n_pages)
+                      None if tbl is None else p(tbl), chunk, P, pps, n_pages,
+                      *lm_ptrs, *lm_ints, _MAX_BLOCKS, zc_ue)
     _call("mi_model_decode_mega_batch", args, _BatchArgs, meta[0], dt, dev)
     if chunk > 1:
         launches_chunk += 1
@@ -311,14 +352,19 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
         launches_paged += 1
     else:
         launches_batch += 1
-    return x_out.reshape(B, 1, h), krows, vrows, ksr, vsr
+    out = (x_out.reshape(B, 1, h), krows, vrows, ksr, vsr)
+    if lm is None:
+        return out
+    launches_lm += 1
+    return out + (logits, tokens)
 
 
 def model_decode_mega_batch(stack, x, cos, sin, cache, positions, cfg, meta, *, table=None,
-                            chunk: int = 1, tp: int = 1, lm=None):
+                            chunk: int = 1, tp: int = 1, lm=None, lm_meta=None):
     """Whole-model decode of B rows, one launch: x [B,1,h], positions [B] ->
     (x_out [B,1,h] in x's dtype, krows [L,B,Hkv,D] int8, vrows, ksr [L,B,Hkv]
-    f32, vsr). The kernel on GPU tensors, the plain version on CPU tensors.
+    f32, vsr), and with `lm` also (logits [B,V] f32, tokens [B] int32). The
+    kernel on GPU tensors, the plain version on CPU tensors.
     At most MAX_BATCH rows (the reference takes any B; its callers stay at 8
     rows or fewer).
 
@@ -335,11 +381,16 @@ def model_decode_mega_batch(stack, x, cos, sin, cache, positions, cfg, meta, *, 
     `serving.megadecode.init_pool_batched` {"k"/"v": [L,n_pages,Hkv,P,D]
     int8, "k_scale"/"v_scale": [L,n_pages,Hkv,P] f32}, P a multiple of 128;
     slot s's history row t lives on page table[s, t // P] at offset t % P.
-    Fused `lm` rows (mode d) and `tp` > 1 (mode e) raise NotImplementedError."""
-    for given, mode in ((lm is not None, "(d) terminal lm rows"), (tp != 1, "(e) tp>1")):
-        if given:
-            raise NotImplementedError(
-                f"model_decode_mega_batch mode {mode} is not ported yet (ROADMAP.md B5)")
+    lm, mode (d), with any mode above: {"ue": [h/vpw, V] int32 words, "ues":
+    [h/g_ue, V] f32 scales, "fnorm": [h] final norm} and lm_meta = (g_ue,
+    zc_ue, vocab, tv) from `serving.megadecode.stack_lm` (a symmetric lm_head
+    grid: the bias is -zc_ue*s; tv is the reference's TPU tile, unused).
+    `tp` > 1 (mode e) raises NotImplementedError."""
+    if tp != 1:
+        raise NotImplementedError(
+            "model_decode_mega_batch mode (e) tp>1 is not ported yet (ROADMAP.md B5)")
+    if (lm is None) != (lm_meta is None):
+        raise ValueError("lm and lm_meta come together (serving.megadecode.stack_lm)")
     B = x.shape[0]
     if B > MAX_BATCH:
         raise ValueError(f"the batched kernel takes at most MAX_BATCH = {MAX_BATCH} rows "
@@ -355,6 +406,7 @@ def model_decode_mega_batch(stack, x, cos, sin, cache, positions, cfg, meta, *, 
             raise ValueError(f"a chunk's positions must be consecutive: {pos.tolist()}")
     if x.is_cuda:
         return _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta,
-                                             table, chunk)
+                                             table, chunk, lm, lm_meta)
+    lm_kw = {} if lm is None else dict(lm=lm, lm_meta=lm_meta)
     return model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta, table,
-                                       chunk)
+                                       chunk, **lm_kw)

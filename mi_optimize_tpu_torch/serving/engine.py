@@ -1,6 +1,7 @@
 """Serving path: KV-cached prefill, single-token decode, sampling, generate.
 
-Port of mi_optimize_tpu/serving/engine.py. PyTorch runs eagerly, so the
+Port of mi_optimize_tpu/serving/engine.py (prefill, the chunk prefills of
+speculative verify, decode, sampling). PyTorch runs eagerly, so the
 reference's jit-compiled prefill / decode-step functions are plain functions
 and its on-device scan is a Python loop. Caches are updated in place.
 """
@@ -55,6 +56,50 @@ def prefill(params, cfg, input_ids, cache, fused=True):
         new_cache.append(kv)
     x = llama.rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
     return llama.unembed(params, cfg, x, fused=fused)[:, 0], new_cache
+
+
+@torch.no_grad()
+def prefill_chunk(params, cfg, input_ids, cache, pos0: int, fused=True):
+    """Process a chunk of C tokens at positions pos0..pos0+C-1 against the
+    cached context before pos0; returns (logits [B,C,V], cache). Unlike
+    `prefill` it scores every chunk position: the speculative-decoding
+    verify step."""
+    B, C = input_ids.shape
+    max_len = _cache_len(cache)
+    x = llama.embed(params, input_ids)
+    dev = x.device
+    positions = int(pos0) + torch.arange(C, device=dev)
+    cos, sin = llama.rope_tables(cfg, positions)
+    mask = torch.arange(max_len, device=dev)[None, :] <= positions[:, None]       # [C, T]
+    new_cache = []
+    for blk, kv in zip(params["layers"], cache):
+        x, kv, _ = llama.block_apply(blk, x, cos, sin, mask, cfg, kv_cache=kv,
+                                     cache_index=int(pos0), fused=fused)
+        new_cache.append(kv)
+    x = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return llama.unembed(params, cfg, x, fused=fused), new_cache
+
+
+@torch.no_grad()
+def prefill_chunk_batched(params, cfg, input_ids, cache, positions, fused=True):
+    """B-slot chunk ingest or verify: input_ids [B, C], slot b's chunk at
+    positions[b]..positions[b]+C-1 against its own cached prefix. Returns
+    (logits [B, C, V], cache)."""
+    B, C = input_ids.shape
+    max_len = _cache_len(cache)
+    x = llama.embed(params, input_ids)
+    dev = x.device
+    pos = torch.as_tensor(positions).reshape(-1).to(dev, torch.long)
+    posm = pos[:, None] + torch.arange(C, device=dev)[None, :]                    # [B, C]
+    cos, sin = llama.rope_tables(cfg, posm)                                       # [B, C, rd]
+    mask = torch.arange(max_len, device=dev)[None, None, None, :] <= posm[:, None, :, None]
+    new_cache = []
+    for blk, kv in zip(params["layers"], cache):
+        x, kv, _ = llama.block_apply(blk, x, cos, sin, mask, cfg, kv_cache=kv,
+                                     cache_index=pos, fused=fused)
+        new_cache.append(kv)
+    x = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return llama.unembed(params, cfg, x, fused=fused), new_cache
 
 
 @torch.no_grad()

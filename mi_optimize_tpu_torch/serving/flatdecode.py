@@ -1,13 +1,13 @@
 """Serving glue for the flat whole-model decode kernel (ops/model_flat.py):
 single-stream greedy decode with the lm_head and argmax inside the kernel.
 
-Port of mi_optimize_tpu/serving/flatdecode.py (without the multi-token
-`_seg` variant):
+Port of mi_optimize_tpu/serving/flatdecode.py:
 
     model = fuse_for_serving(model)
     fl = stack_flat(model)                    # None -> use engine.decode_loop
     logits, cache = prefill(...)              # per-layer int8 cache
     decode_loop_flat(..., stack_cache_flat(cache), ...)   # one launch per token
+    decode_loop_flat_seg(..., kseg=k)         # one launch per k tokens
 
 Where `stack_flat` returns None (asymmetric grids, an unpacked lm_head)
 callers decode as the reference's bench does: through
@@ -71,3 +71,36 @@ def decode_loop_flat(params, stack, meta, cfg, token, cache, pos0: int, n: int):
         tok = nt.to(token.dtype).reshape(1, 1)
         toks.append(tok[:, 0])
     return torch.stack(toks, dim=1), cache
+
+
+def _flat_seg_step(params, stack, meta, cfg, tok, cache, pos: int, kseg: int):
+    """kseg greedy tokens in ONE launch (ops/model_flat_seg.py): the kernel
+    reads the next token's embedding row itself, and the segment's kseg
+    cache rows are written after it with one indexed write per field.
+    Returns (tokens [kseg] int32, cache)."""
+    from ..ops.model_flat_seg import model_decode_flat_seg
+
+    x = llama.embed(params, tok)                                   # [1, 1, h]
+    cos, sin = llama.rope_tables(cfg, int(pos) + torch.arange(kseg, device=x.device))
+    toks, kvrows, kvsc = model_decode_flat_seg(stack, params["embed"], x,
+                                               torch.cat([cos, sin], dim=-1), cache, pos, cfg,
+                                               meta, kseg)
+    cache["kv"][:, pos:pos + kseg] = kvrows.transpose(0, 1)
+    cache["kv_scale"][:, pos:pos + kseg] = kvsc.transpose(0, 1)
+    return toks, cache
+
+
+@torch.no_grad()
+def decode_loop_flat_seg(params, stack, meta, cfg, token, cache, pos0: int, n: int, kseg: int = 8):
+    """Greedy-decode n tokens with ceil(n/kseg) multi-token launches. token
+    [1,1] -> (tokens [1, ceil(n/kseg)*kseg], cache): the last segment's
+    surplus tokens are decoded too and extend the same greedy sequence; the
+    caller keeps the first n."""
+    toks = []
+    tok = token
+    for s in range(-(-n // kseg)):
+        seg, cache = _flat_seg_step(params, stack, meta, cfg, tok, cache, int(pos0) + s * kseg,
+                                    kseg)
+        tok = seg[kseg - 1].to(token.dtype).reshape(1, 1)
+        toks.append(seg.to(token.dtype))
+    return torch.cat(toks)[None], cache

@@ -6,11 +6,21 @@ Port of mi_optimize_tpu/serving/megadecode.py: `_grp`, `_zconst`,
 continuous batching (`default_lm`, `stack_cache_batched`,
 `unstack_cache_batched`, `_scatter_rows_batched`, `model_step_batch`), the
 paged steps over a shared page pool (`init_pool_batched`,
-`_scatter_rows_paged`, `scatter_prefill_pages`, `model_step_batch_paged`)
-and the chunk steps (`_scatter_chunk_rows_batched`, `model_step_chunk`,
+`_scatter_rows_paged`, `scatter_prefill_pages`, `model_step_batch_paged`),
+the chunk steps (`_scatter_chunk_rows_batched`, `model_step_chunk`,
 `model_step_chunk_batch`, `model_step_chunk_batch_paged`; the reference's
-one-slot `_scatter_chunk_rows` is the batched scatter with one prefix). The
-tensor-parallel steps are not ported yet (ROADMAP.md A12).
+one-slot `_scatter_chunk_rows` is the batched scatter with one prefix) and
+the batched kernel's fused terminal lm rows (`stack_lm`; `lm=`/`lm_meta=` of
+the batch and chunk steps). The tensor-parallel steps are not ported yet
+(ROADMAP.md A12).
+
+A chunk step takes any number of slots and rows, where one batched launch
+takes at most ops.model_fused.MAX_BATCH = 8 rows: the slots go in waves of
+max(1, 8 // C) and a chunk longer than 8 rows in consecutive sub-chunks,
+each launched after the previous one's rows are written (a row attends to
+the earlier rows' int8 k/v either way; only the order of the sums changes).
+A wave over a subset of a dense cache's slots reads that cache as a page
+pool of one T-row page a slot (page s = slot s).
 
     model = fuse_for_serving(model)
     stack, meta = stack_serving(model)          # None -> engine.decode_loop
@@ -110,6 +120,55 @@ def _share(model: Model, stack) -> None:
         b["mega"] = prepare_block(b, model.config)
 
 
+def _pick_tv(vocab: int, cap: int) -> int:
+    """Largest 128-aligned divisor of the vocab <= cap, else 0: the
+    reference's lm_head tile (ops/model_flat.py::_pick_tv without its MI_TV
+    override). The port's kernel does not tile by it; stack_lm keeps it as
+    the reference's acceptance test and in lm_meta."""
+    best = 0
+    for c in range(128, cap + 1, 128):
+        if vocab % c == 0:
+            best = c
+    return best
+
+
+def stack_lm(model: Model, meta, cap: int = 1280):
+    """(lm dict, lm_meta) for the batched kernel's terminal lm rows (mode
+    d), or None: the flat kernel's lm contract (a packed lm_head on
+    `meta`'s bits, a symmetric grid: one zero for the whole matrix, a group
+    a multiple of the values a word dividing the hidden size), plus the
+    reference's checks that the hidden size is a multiple of 512 and that
+    the vocab has a 128-aligned divisor <= cap (`_pick_tv`; the reference's
+    default cap of 1280 is a TPU tile ceiling).
+
+    lm = {"ue": packed words [h/vpw, V], "ues": f32 scales [h/g, V],
+    "fnorm": final norm [h]}; lm_meta = (g_ue, zc_ue, vocab, tv)."""
+    bits = meta[0]
+    lin = model.params.get("lm_head")
+    cfg = model.config
+    if lin is None or getattr(lin, "packed", None) is None:
+        return None
+    s = lin.spec
+    if s.wbit != bits or s.abit is not None or lin.bias is not None \
+            or lin.smooth_factor is not None or lin.perm is not None:
+        return None
+    if s.w_qtype not in ("per_group", "per_channel"):
+        return None
+    g_ue = _grp(lin)
+    if g_ue % (32 // bits) or cfg.hidden_size % g_ue or cfg.hidden_size % 512:
+        return None
+    tv = _pick_tv(lin.out_features, cap)
+    if not tv:
+        return None
+    z = lin.w_zero.reshape(-1)
+    if not bool(torch.all(z == z[0])):
+        return None
+    zc_ue = float(z[0]) - float(qrange(s.wbit, s.w_unsigned).qmin)
+    lm = {"ue": lin.packed, "ues": kernel_tables(lin)[0],
+          "fnorm": model.params["final_norm"].reshape(-1)}
+    return lm, (g_ue, zc_ue, lin.out_features, tv)
+
+
 # ---------------------------------------------------------------------------
 # single stream: one model_decode_mega launch per token
 # ---------------------------------------------------------------------------
@@ -163,10 +222,11 @@ def decode_loop_model(params, stack, meta, cfg, token, cache, pos0: int, n: int)
 # ---------------------------------------------------------------------------
 
 def default_lm(model: Model, meta):
-    """The batched kernel's fused terminal lm rows (mode (d)) are not ported;
-    the lm_head runs after the kernel through dequant_matmul with M = B.
-    The reference keeps the fused rows opt-in and off by default too.
-    Returns (lm, lm_meta)."""
+    """The batchers' default for the fused terminal lm rows (mode (d)): off,
+    as the reference's default, so the batched step's lm_head runs after the
+    kernel through dequant_matmul with M = B. The reference's MI_FUSED_LM=1
+    switch is not ported; a caller that wants the rows passes `stack_lm`'s
+    result. Returns (lm, lm_meta)."""
     return None, None
 
 
@@ -208,19 +268,23 @@ def _scatter_rows_batched(cache, krows, vrows, ksr, vsr, positions):
 
 
 @torch.no_grad()
-def model_step_batch(params, stack, meta, cfg, tokens, cache, positions, lm=None):
+def model_step_batch(params, stack, meta, cfg, tokens, cache, positions, lm=None,
+                     lm_meta=None):
     """One B-slot decode step: tokens [B,1], positions [B] (host ints, one
     per slot) -> (logits [B,V], cache). ONE launch for the whole decoder
-    stack: the weights stream once for all B slots."""
-    logits, cache = _step_rows(params, stack, meta, cfg, tokens, cache, positions, lm=lm)
+    stack: the weights stream once for all B slots. With `lm` (stack_lm) the
+    logits come from the kernel's terminal lm rows."""
+    logits, cache = _step_rows(params, stack, meta, cfg, tokens, cache, positions, lm=lm,
+                               lm_meta=lm_meta)
     return logits[:, 0], cache
 
 
 def _step_rows(params, stack, meta, cfg, tokens, cache, positions, chunk=1, table=None,
-               lm=None, scatter=None):
+               lm=None, lm_meta=None, scatter=None):
     """The whole-model launch for tokens [S, C] at positions [S*C] (C = chunk
     tokens a slot), the new rows scattered in place (`scatter`, default the
-    dense one-row-a-slot scatter), then the lm_head: (logits [S, C, V], cache)."""
+    dense one-row-a-slot scatter), then the lm_head, or with `lm` the
+    kernel's own logits: (logits [S, C, V], cache)."""
     from ..ops.model_fused import model_decode_mega_batch
 
     S, C = tokens.shape
@@ -228,13 +292,15 @@ def _step_rows(params, stack, meta, cfg, tokens, cache, positions, chunk=1, tabl
     x = llama.embed(params, tokens).reshape(S * C, 1, h)
     pos = _host(positions).reshape(-1)
     cos, sin = llama.rope_tables(cfg, pos.to(x.device)[:, None])
-    x, krows, vrows, ksr, vsr = model_decode_mega_batch(
+    outs = model_decode_mega_batch(
         stack, x, cos.reshape(S * C, -1)[:, -cfg.head_dim:],
         sin.reshape(S * C, -1)[:, -cfg.head_dim:], cache, pos, cfg, meta, table=table,
-        chunk=C, lm=lm)
+        chunk=C, lm=lm, lm_meta=lm_meta)
     scatter = scatter or _scatter_rows_batched
-    cache = scatter(cache, krows, vrows, ksr, vsr, pos)
-    hh = llama.rms_norm(x.reshape(S, C, h), params["final_norm"], cfg.rms_eps)
+    cache = scatter(cache, *outs[1:5], pos)
+    if lm is not None:
+        return outs[5].reshape(S, C, -1), cache
+    hh = llama.rms_norm(outs[0].reshape(S, C, h), params["final_norm"], cfg.rms_eps)
     return llama.unembed(params, cfg, hh), cache
 
 
@@ -270,13 +336,14 @@ def _scatter_rows_paged(pool, krows, vrows, ksr, vsr, table, positions):
 
 
 @torch.no_grad()
-def model_step_batch_paged(params, stack, meta, cfg, tokens, pool, table, positions, lm=None):
+def model_step_batch_paged(params, stack, meta, cfg, tokens, pool, table, positions, lm=None,
+                           lm_meta=None):
     """model_step_batch over a shared KV page pool: tokens [B,1], table
     [B, pps], positions [B] -> (logits [B,V], pool). The same one-launch
     weight stream; the kernel reads history through the page table and the
     new rows scatter into (page, offset)."""
     logits, pool = _step_rows(
-        params, stack, meta, cfg, tokens, pool, positions, table=table, lm=lm,
+        params, stack, meta, cfg, tokens, pool, positions, table=table, lm=lm, lm_meta=lm_meta,
         scatter=lambda c, *r: _scatter_rows_paged(c, *r[:4], table, r[4]))
     return logits[:, 0], pool
 
@@ -320,41 +387,75 @@ def _scatter_chunk_rows_batched(cache, krows, vrows, ksr, vsr, prefixes, C):
                     torch.arange(pre.numel()).repeat_interleave(C).to(dev), at.to(dev))
 
 
+def _chunk_waves(n_slots: int, C: int):
+    """(slot indices, first token, tokens) of the launches that cover
+    n_slots chunks of C tokens at most MAX_BATCH rows each: waves of
+    max(1, MAX_BATCH // C) slots; a chunk above MAX_BATCH tokens in
+    consecutive sub-chunks of at most MAX_BATCH, in order."""
+    from ..ops.model_fused import MAX_BATCH
+
+    G = max(1, MAX_BATCH // C)
+    for s0 in range(0, n_slots, G):
+        for off in range(0, C, MAX_BATCH):
+            yield list(range(s0, min(s0 + G, n_slots))), off, min(MAX_BATCH, C - off)
+
+
 @torch.no_grad()
-def model_step_chunk(params, stack, meta, cfg, tokens, cache, prefix, lm=None):
+def model_step_chunk(params, stack, meta, cfg, tokens, cache, prefix, lm=None, lm_meta=None):
     """Whole-model CHUNK step: score C consecutive tokens of ONE sequence
-    (positions prefix..prefix+C-1) in one launch, with the intra-chunk causal
-    attention inside the kernel. tokens [1, C]; cache: the 1-slot batched
-    stacked layout [L,1,Hkv,T,D]. Returns (logits [C, V], cache with the C
-    rows written). The fused terminal lm rows (mode d) are not ported."""
-    if lm is not None:
-        raise NotImplementedError("model_step_chunk with fused lm rows: mode (d) is not ported "
-                                  "yet (ROADMAP.md B5)")
-    logits, cache = model_step_chunk_batch(params, stack, meta, cfg, tokens, cache, [int(prefix)])
+    (positions prefix..prefix+C-1) with the intra-chunk causal attention in
+    the kernel: one launch up to 8 tokens, else consecutive sub-chunks.
+    tokens [1, C]; cache: the 1-slot batched stacked layout [L,1,Hkv,T,D].
+    Returns (logits [C, V], cache with the C rows written); with `lm`
+    (stack_lm) the logits come from the kernel's terminal lm rows. This is
+    the speculative-decoding verify step."""
+    logits, cache = model_step_chunk_batch(params, stack, meta, cfg, tokens, cache,
+                                           [int(prefix)], lm=lm, lm_meta=lm_meta)
     return logits[0], cache
 
 
 @torch.no_grad()
-def model_step_chunk_batch(params, stack, meta, cfg, tokens, cache, prefixes):
-    """B-slot chunk step in ONE whole-model launch: tokens [B, C], slot b's
-    chunk at positions prefixes[b]..prefixes[b]+C-1 against its own cache
-    slot. Returns (logits [B, C, V], cache with all B*C rows written)."""
-    C = tokens.shape[1]
+def model_step_chunk_batch(params, stack, meta, cfg, tokens, cache, prefixes, lm=None,
+                           lm_meta=None):
+    """B-slot chunk step: tokens [B, C], slot b's chunk at positions
+    prefixes[b]..prefixes[b]+C-1 against its own cache slot; ONE whole-model
+    launch up to 8 rows, else waves (the module's docstring). Returns (logits
+    [B, C, V], cache with all B*C rows written)."""
+    from ..ops.model_fused import MAX_BATCH
+
+    B, C = tokens.shape
     pre = _host(prefixes).reshape(-1)
+    if B * C > MAX_BATCH:
+        # the dense slot cache as a pool of one T-row page a slot: a wave
+        # reads its slots' rows through a table of their slot numbers
+        return model_step_chunk_batch_paged(params, stack, meta, cfg, tokens, cache,
+                                            torch.arange(B)[:, None], pre, lm=lm,
+                                            lm_meta=lm_meta)
     return _step_rows(params, stack, meta, cfg, tokens, cache,
-                      pre[:, None] + torch.arange(C), chunk=C,
+                      pre[:, None] + torch.arange(C), chunk=C, lm=lm, lm_meta=lm_meta,
                       scatter=lambda c, *r: _scatter_chunk_rows_batched(c, *r[:4], pre, C))
 
 
 @torch.no_grad()
-def model_step_chunk_batch_paged(params, stack, meta, cfg, tokens, pool, table, prefixes):
+def model_step_chunk_batch_paged(params, stack, meta, cfg, tokens, pool, table, prefixes,
+                                 lm=None, lm_meta=None):
     """model_step_chunk_batch over the shared page pool: tokens [B, C], table
     [B, pps]; each slot's C rows scatter into (page, offset) through its table
     row (the scheduler must have pages through position prefix+C-1; rows
-    past them land in the scratch page 0). Returns (logits [B, C, V], pool)."""
-    C = tokens.shape[1]
-    rows_table = _host(table).repeat_interleave(C, 0)
-    return _step_rows(params, stack, meta, cfg, tokens, pool,
-                      _host(prefixes).reshape(-1)[:, None] + torch.arange(C), chunk=C,
-                      table=table,
-                      scatter=lambda c, *r: _scatter_rows_paged(c, *r[:4], rows_table, r[4]))
+    past them land in the scratch page 0). Launches of at most 8 rows in
+    waves (the module's docstring). Returns (logits [B, C, V], pool)."""
+    B, C = tokens.shape
+    tbl = _host(table)
+    pre = _host(prefixes).reshape(-1)
+    logits = None
+    for slots, off, c in _chunk_waves(B, C):
+        rows_table = tbl[slots].repeat_interleave(c, 0)
+        lg, pool = _step_rows(params, stack, meta, cfg, tokens[slots, off:off + c], pool,
+                              pre[slots, None] + off + torch.arange(c), chunk=c,
+                              table=tbl[slots], lm=lm, lm_meta=lm_meta,
+                              scatter=lambda p, *r: _scatter_rows_paged(p, *r[:4], rows_table,
+                                                                        r[4]))
+        if logits is None:
+            logits = lg.new_empty(B, C, lg.shape[-1])
+        logits[slots, off:off + c] = lg
+    return logits, pool

@@ -1,9 +1,8 @@
 """Paged KV cache: slots share one page pool through per-slot page tables.
 
 Port of mi_optimize_tpu/serving/paged.py: `_topk_packed`, `_copy_pool_page`,
-`init_paged_cache`, `paged_decode_step`, `PagedMegaBatcher` and
-`PagedRequest` / `PagedBatcher`. `PagedSpeculativeBatcher` waits for the
-speculative batcher (ROADMAP.md A10).
+`init_paged_cache`, `paged_decode_step`, `PagedMegaBatcher`,
+`PagedSpeculativeBatcher` and `PagedRequest` / `PagedBatcher`.
 
 The slot scheduler of batching.py reserves max_len rows of cache a slot;
 paging lifts that: K/V live in fixed-size pages drawn from one pool, a
@@ -14,12 +13,15 @@ n_slots x max_len.
   write:  page = table[slot, pos // P]; pages[page, pos % P] = kv
   read:   through the table, inside the kernels
 
-Two batchers:
+Three batchers:
   * `PagedMegaBatcher`: each step is ONE launch of the batched whole-model
     kernel reading the int8 pool through the table (ops/model_fused.py mode
     (b)); batchers wider than 8 slots step in waves of 8; with
     prefix_cache=True full prompt pages are shared between requests and a
     hit's suffix runs through the paged chunk mode ((b) + (c)).
+  * `PagedSpeculativeBatcher`: speculative rounds over the pool: the draft
+    on the batched kernel over its own dense cache, the verify of every
+    slot's k+1 tokens on the paged chunk mode, in waves.
   * `PagedBatcher`: the per-layer step over an f32 pool, attention through
     the paged flash-decode kernel (ops/paged_attention.py) where it applies.
 
@@ -39,7 +41,7 @@ from ..core.device import resolve_device
 from ..models import llama
 from ..models.model import Model
 from ..models.quant_linear import quant_linear_apply
-from .batching import _prefill_kv
+from .batching import _accept_round, _prefill_kv
 
 
 def _topk_packed(logits, k):
@@ -548,6 +550,109 @@ class PagedMegaBatcher:
         for r in reqs:
             results[r.rid] = r.tokens
         return results
+
+
+class PagedSpeculativeBatcher(PagedMegaBatcher):
+    """Speculative decoding under page-pool memory management: each step
+    drafts k tokens a slot (the batched whole-model kernel over the draft's
+    dense stacked cache: the draft is the small model; the target's KV, the
+    big allocation, lives in the shared pool), then verifies every slot's
+    k+1-token chunk on the paged chunk mode, reading and writing the pool
+    through the page table (megadecode.model_step_chunk_batch_paged).
+
+    Greedy speculative decoding is exact, so the emitted sequences equal the
+    plain paged batcher's up to the capacity boundary (slots retire 2k+1
+    tokens earlier). Pages grow lazily: before a round each active slot
+    takes any missing page covering its prefix..prefix+k. The verify runs in
+    waves of `verify_wave_slots` (default max(1, 8 // (k+1))) over all
+    n_slots, free ones included, as the reference; a short wave repeats its
+    last slot (the duplicate rows rewrite the same data). The draft takes at
+    most 8 slots (the batched kernel's rows). `fused_lm` as
+    SpeculativeBatcher's."""
+
+    def __init__(self, model: Model, draft: Model, k: int = 4, n_slots: int = 4,
+                 max_len: int = 512, page_size: int = 128, n_pages: Optional[int] = None,
+                 verify_wave_slots: Optional[int] = None, fused_lm: bool = False):
+        from ..ops.model_fused import MAX_BATCH
+        from .batching import verify_lm
+        from .engine import init_cache
+        from .megadecode import stack_cache_batched, stack_serving
+
+        super().__init__(model, n_slots, max_len, page_size, n_pages)
+        if fused_lm:
+            self._lm = verify_lm(model, self._mega)
+        self._verify_wave = verify_wave_slots   # None -> max(1, 8 // (k+1)) slots
+        self.draft = draft
+        self.k = k
+        st = stack_serving(draft)
+        if st is None:
+            raise ValueError("draft does not satisfy the megakernel contract")
+        if n_slots > MAX_BATCH:
+            raise ValueError(f"the batched whole-model kernel drafts at most {MAX_BATCH} slots, "
+                             f"not {n_slots}")
+        self._dmega = st
+        self.ddevice = resolve_device(draft.params["embed"].device)
+        self.dcache = stack_cache_batched(init_cache(draft.config, n_slots, self.max_len,
+                                                     torch.int8, device=self.ddevice))
+        self.rounds = 0
+        self.proposed = 0
+        self.accepted = 0
+
+    def _headroom(self) -> int:
+        return 2 * self.k + 2
+
+    def add_request(self, prompt, max_new_tokens=32, eos_token_id=None):
+        from .batching import _prefill_into_slot_mega
+
+        try:
+            slot = self.slot_req.index(None)
+        except ValueError:
+            return None
+        rid = super().add_request(prompt, max_new_tokens, eos_token_id)
+        if rid is None:
+            return None
+        ids = torch.as_tensor(self.slot_req[slot].prompt[None, :], device=self.ddevice)
+        _, self.dcache = _prefill_into_slot_mega(self.draft.params, self.draft.config, ids,
+                                                 self.dcache, slot, self.max_len)
+        return rid
+
+    def step(self) -> Dict[int, List[int]]:
+        """One speculative round for all active slots; returns {rid: [new
+        tokens]}."""
+        from .batching import draft_propose_batch
+        from .megadecode import model_step_chunk_batch_paged
+
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return {}
+        P, k = self.page_size, self.k
+        for i in active:  # lazy growth: this round writes rows pos..pos+k
+            for j in range(int(self.positions[i]) // P, (int(self.positions[i]) + k) // P + 1):
+                if self.table[i, j] == 0:
+                    pg = self._alloc(1)
+                    if pg is None:
+                        raise RuntimeError("KV page pool exhausted")
+                    self.table[i, j] = pg[0]
+        toks = torch.as_tensor(self.last_token[:, None], device=self.ddevice)
+        dstack, dmeta = self._dmega
+        props, self.dcache = draft_propose_batch(self.draft.params, dstack, dmeta,
+                                                 self.draft.config, toks, self.dcache,
+                                                 self.positions, k)
+        chunk = torch.cat([toks, props], dim=1).to(self.device)                # [B, k+1]
+        stack, meta = self._mega
+        B = chunk.shape[0]
+        G = self._verify_wave or max(1, 8 // (k + 1))
+        parts = []
+        for o in range(0, B, min(G, B)):
+            g = list(range(o, min(o + G, B)))
+            idx = g + [g[-1]] * (G - len(g))
+            lg, self.pool = model_step_chunk_batch_paged(
+                self.model.params, stack, meta, self.cfg, chunk[idx], self.pool,
+                self.table[idx], self.positions[idx], lm=self._lm[0], lm_meta=self._lm[1])
+            parts.append(torch.argmax(lg, -1)[:len(g)])
+        ver = torch.cat(parts, 0).cpu().numpy()                                # [B, k+1]
+        return _accept_round(self, active, ver, props.cpu().numpy(),
+                             self.max_len - self._headroom(), self._retire)
 
 
 @dataclass

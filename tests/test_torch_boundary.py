@@ -13,13 +13,17 @@ import torch
 from mi_optimize_tpu_torch.models.llama import LlamaConfig, init_params
 from mi_optimize_tpu_torch.models.model import Model
 from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
-from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_fused,
-                                       paged_attention)
+from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_flat_seg,
+                                       model_fused, paged_attention)
 from mi_optimize_tpu_torch.serving import engine, megadecode
-from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
-from mi_optimize_tpu_torch.serving.paged import PagedBatcher, PagedMegaBatcher
-from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat, stack_flat
+from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher, SpeculativeBatcher
+from mi_optimize_tpu_torch.serving.paged import (PagedBatcher, PagedMegaBatcher,
+                                                 PagedSpeculativeBatcher)
+from mi_optimize_tpu_torch.serving.flatdecode import (decode_loop_flat, decode_loop_flat_seg,
+                                                      stack_cache_flat, stack_flat)
 from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+from mi_optimize_tpu_torch.serving.speculative import speculative_generate
+from mi_optimize_tpu_torch.utils.planted import build_planted_llama, planted_pair
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,7 +45,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 24  # every module of the three slices was imported
+    assert int(n) >= 28  # every module of the four slices was imported
     assert bad.strip() == "[]"
 
 
@@ -53,6 +57,8 @@ def _no_cuda(monkeypatch):
     lambda cfg: engine.init_cache(cfg, 1, 128, torch.int8),
     lambda cfg: init_params(cfg),
     lambda cfg: build_quantized_llama(cfg),
+    lambda cfg: build_planted_llama(cfg, np.arange(cfg.vocab_size)),
+    lambda cfg: planted_pair(cfg),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, call):
     _no_cuda(monkeypatch)
@@ -64,6 +70,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, call):
     lambda m: ContinuousBatcher(m, n_slots=2, max_len=128, cache_dtype=torch.int8),
     lambda m: PagedMegaBatcher(m, n_slots=2, max_len=128),
     lambda m: PagedBatcher(m, n_slots=2),
+    lambda m: SpeculativeBatcher(m, m, n_slots=2, max_len=128, cache_dtype=torch.int8),
+    lambda m: PagedSpeculativeBatcher(m, m, n_slots=2, max_len=128),
 ])
 def test_batcher_cache_on_cuda_raises_without_gpu(monkeypatch, make):
     """A model built with the default device has its tensors on CUDA; each
@@ -94,6 +102,7 @@ def test_batcher_refuses_more_slots_than_the_batched_kernel_takes():
 _COUNTERS = ((dequant_matmul, "launches"), (block_fused, "launches"), (model_flat, "launches"),
              (model_fused, "launches"), (model_fused, "launches_batch"),
              (model_fused, "launches_paged"), (model_fused, "launches_chunk"),
+             (model_fused, "launches_lm"), (model_flat_seg, "launches"),
              (paged_attention, "launches"))
 
 
@@ -135,6 +144,21 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_nothing():
     pb.add_request(prompt[0], max_new_tokens=3)
     while any(pb.slot_req):
         pb.step()
+    # the speculative paths: the multi-token flat decode, the scan-flat
+    # route (flat draft, chunk verify with the fused lm rows) and both
+    # speculative batchers
+    stoks, _ = decode_loop_flat_seg(model.params, fstack, fmeta, cfg, tok,
+                                    stack_cache_flat(cache), 5, 3, kseg=2)
+    assert torch.equal(stoks[:, :3], toks)
+    out2, stats = speculative_generate(model, model, prompt, max_new_tokens=4, k=2,
+                                       cache_dtype=torch.int8, draft_megakernel=True)
+    assert stats["scan_segments"] and stats["accept_rate"] == 1.0
+    assert out2[0, 5:].tolist() == [int(tok)] + toks[0].tolist()
+    sb = SpeculativeBatcher(model, model, k=2, n_slots=2, max_len=128, cache_dtype=torch.int8,
+                            use_megakernel=True, use_draft_megakernel=True)
+    assert sb.run_all([prompt[0]], max_new_tokens=3) == {0: out2[0, 5:8].tolist()}
+    ps = PagedSpeculativeBatcher(model, model, k=2, n_slots=2, max_len=256)
+    assert ps.run_all([prompt[0]], max_new_tokens=3) == {0: out2[0, 5:8].tolist()}
     assert _counts() == (0,) * len(_COUNTERS)
 
 
@@ -173,6 +197,15 @@ def test_kernel_launchers_validate_inputs_before_building():
     bad = dict(fstack, ue=fstack["ue"][:, :32].contiguous())
     with pytest.raises(ValueError, match=r"stack\[ue\]"):
         model_flat._model_decode_flat_cuda(bad, x[None], torch.zeros(256), fcache, 3, cfg, fmeta)
+    # the multi-token entry point: the embedding table and the segment's rows
+    emb = model.params["embed"]
+    cs = torch.zeros(4, 128)
+    with pytest.raises(ValueError, match="emb"):
+        model_flat.flat_launch("mi_model_decode_flat_seg", fstack, x[None], cs, cs, fcache, 3,
+                               cfg, fmeta, kseg=4, emb=emb[:, :64].contiguous())
+    with pytest.raises(ValueError, match="outside the cache"):
+        model_flat.flat_launch("mi_model_decode_flat_seg", fstack, x[None], cs, cs, fcache, 125,
+                               cfg, fmeta, kseg=4, emb=emb)
 
 
 def test_whole_model_launchers_validate_inputs_before_building():
@@ -234,9 +267,22 @@ def test_whole_model_launchers_validate_inputs_before_building():
         mega_batch(stack, xb[:2], cb[:2], cb[:2], bcache, [3, 5], cfg, meta, chunk=2)
     with pytest.raises(ValueError, match="one row per slot"):
         mega_batch(stack, xb, cb, cb, pool, [0, 5, 7], cfg, meta, table=table[:2])
-    for kw, mode in ((dict(lm={}), "lm rows"), (dict(tp=2), "tp")):
-        with pytest.raises(NotImplementedError, match=mode):
-            mega_batch(stack, xb, cb, cb, bcache, [0, 5, 7], cfg, meta, **kw)
+    with pytest.raises(NotImplementedError, match="tp"):
+        mega_batch(stack, xb, cb, cb, bcache, [0, 5, 7], cfg, meta, tp=2)
+    # the terminal lm rows (mode d): lm and lm_meta come together, and the
+    # launcher checks the lm_head's words, scales and final norm
+    assert megadecode.stack_lm(model, meta) is None   # an asymmetric lm_head grid
+    ue = build_quantized_llama(cfg, dtype=torch.float32, device="cpu")["lm_head"]
+    lm = {"ue": ue.packed, "ues": dequant_matmul.kernel_tables(ue)[0],
+          "fnorm": model.params["final_norm"]}
+    lm_meta = (128, 8.0, cfg.vocab_size, 64)
+    with pytest.raises(ValueError, match="lm_meta"):
+        mega_batch(stack, xb, cb, cb, bcache, [0, 5, 7], cfg, meta, lm=lm)
+    for bad, what in ((dict(lm, ue=lm["ue"][:, :32].contiguous()), r"lm\[ue\]"),
+                      (dict(lm, ues=lm["ues"][:1].contiguous()), r"lm\[ues\]"),
+                      (dict(lm, fnorm=lm["fnorm"][:8]), r"lm\[fnorm\]")):
+        with pytest.raises(ValueError, match=what):
+            batch(stack, xb, cb, cb, bcache, [0, 5, 7], cfg, meta, lm=bad, lm_meta=lm_meta)
 
 
 @pytest.mark.parametrize("B,chunk", [(9, 1), (10, 5), (16, 8)])

@@ -5,7 +5,11 @@ ragged M and N, an intermediate size that is not a multiple of 32, head_dim
 64, 1 to 8 slots, positions on and off the 128-row boundary; the batched
 kernel's paged mode bitwise against its dense mode, its chunk mode (dense and
 paged, C = 2 to 8, prefix 0 and across page boundaries), the paged flash
-decode (f32/bf16 q and pool), and both paged batchers against the CPU.
+decode (f32/bf16 q and pool), and both paged batchers against the CPU; the
+batched kernel's terminal lm rows (mode d) in every mode (dense one-token,
+paged, dense and paged chunk; a vocab that is not a multiple of 32), the
+multi-token flat decode (kseg 1 to 5), and the speculative paths and
+batchers against the CPU.
 
 Needs an NVIDIA GPU and nvcc; every test skips without one. On the card:
 
@@ -30,13 +34,17 @@ from mi_optimize_tpu_torch.models.llama import LlamaConfig
 from mi_optimize_tpu_torch.models.model import Model
 from mi_optimize_tpu_torch.models.quant_linear import QuantizedLinear, QuantSpec, group_size
 from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
-from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_fused,
-                                       paged_attention)
+from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_flat_seg,
+                                       model_fused, paged_attention)
 from mi_optimize_tpu_torch.serving import engine, megadecode
-from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
-from mi_optimize_tpu_torch.serving.paged import PagedBatcher, PagedMegaBatcher
-from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat, stack_flat
+from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher, SpeculativeBatcher
+from mi_optimize_tpu_torch.serving.paged import (PagedBatcher, PagedMegaBatcher,
+                                                 PagedSpeculativeBatcher)
+from mi_optimize_tpu_torch.serving.flatdecode import (decode_loop_flat, decode_loop_flat_seg,
+                                                      stack_cache_flat, stack_flat)
 from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+from mi_optimize_tpu_torch.serving.speculative import speculative_generate
+from mi_optimize_tpu_torch.utils.planted import planted_pair
 
 pytestmark = pytest.mark.cuda
 
@@ -427,3 +435,179 @@ def test_paged_batchers_match_the_cpu(dev):
     assert outs["cuda"][2]["hit_tokens"] == 128
     after = (model_fused.launches_paged, model_fused.launches_chunk, paged_attention.launches)
     assert all(a > b for a, b in zip(after, counts))
+
+
+# ---------------------------------------------------------------------------
+# the batched kernel's terminal lm rows (mode d), the multi-token flat decode
+# (B10), and the speculative paths
+# ---------------------------------------------------------------------------
+
+def _lm_rows(dev, bits, V=200, seed=0):
+    """Terminal lm rows on a symmetric packed lm_head of V outputs (200: not
+    a multiple of the kernel's 32-column tiles) and a non-unit final norm."""
+    lin = _linear(V, 512, bits, "per_group", 128, True, seed)
+    zc = float(lin.w_zero.reshape(-1)[0]) - float(qrange(bits, True).qmin)
+    fnorm = 1.0 + 0.1 * torch.randn(512, generator=torch.Generator().manual_seed(seed))
+    lm = {"ue": lin.packed, "ues": dequant_matmul.kernel_tables(lin)[0], "fnorm": fnorm}
+    return _to(lm, dev), (128, zc, V, 0)
+
+
+# (slots, chunk, prefixes, paged): one-token dense and paged, chunk dense and paged
+LM_CASES = [(1, 1, [0], False), (2, 1, [127, 128], False), (8, 1, POSITIONS * 2, False),
+            (3, 1, [0, 130, 255], True), (1, 5, [100], False), (2, 4, [0, 127], False),
+            (1, 5, [130], True), (2, 3, [126, 250], True)]
+
+
+@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", WHOLE_MODEL[:3])
+@pytest.mark.parametrize("n_slots,C,prefixes,paged", LM_CASES)
+def test_model_decode_mega_batch_lm_rows(dev, bits, symmetric, head_dim, inter, group, n_slots,
+                                         C, prefixes, paged):
+    """Mode (d) with each mode it composes with: the base outputs bitwise
+    equal to the same launch without the lm rows; logits against the plain
+    version; tokens equal to the plain version's and the first index of the
+    kernel's own maximum."""
+    cfg, _, stack, meta = _stacked(dev, bits, symmetric, head_dim, inter, group, C + 40)
+    lm, lm_meta = _lm_rows(dev, bits, seed=n_slots + C)
+    B = n_slots * C
+    cache = _slot_caches(cfg, prefixes, T_MEGA, seed=C)
+    table = None
+    if paged:
+        cache, table = _mirror_pool(cache, seed=C)
+    cache = _to(cache, dev)
+    positions = [p + i for p in prefixes for i in range(C)]
+    x = torch.randn(B, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(B)).to(dev)
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    args = (stack, x, cos.reshape(B, -1), sin.reshape(B, -1), cache, positions, cfg, meta)
+    base = model_fused.model_decode_mega_batch(*args, table=table, chunk=C)
+    before = model_fused.launches_lm
+    got = model_fused.model_decode_mega_batch(*args, table=table, chunk=C, lm=lm, lm_meta=lm_meta)
+    assert model_fused.launches_lm == before + 1
+    for b, g in zip(base, got[:5]):
+        assert torch.equal(b, g)
+    ref = model_fused.model_decode_mega_batch_ref(*args, table, C, lm, lm_meta)
+    _close(got[5], ref[5])
+    assert got[6].tolist() == ref[6].tolist() == torch.argmax(got[5], -1).tolist()
+
+
+@pytest.mark.parametrize("bits,head_dim", [(4, 128), (8, 64)])
+@pytest.mark.parametrize("kseg", [1, 3, 5])
+def test_model_decode_flat_seg(dev, bits, head_dim, kseg):
+    """B10 against its plain version: kseg tokens equal, every token's rows
+    up to tie flips, scales to 1e-5; the segment's history: cache rows before
+    pos0 and the launch's own earlier rows."""
+    cfg, _, gpu = _small(dev, bits=bits, head_dim=head_dim, layers=3, seed=8 + kseg)
+    fstack, fmeta = stack_flat(gpu)
+    T, pos0 = 256, 150
+    cache = stack_cache_flat([_to(_cache(cfg, T, pos0, seed=l), dev) for l in range(3)])
+    x = llama.embed(gpu.params, torch.tensor([[9]], device=dev))
+    cos, sin = llama.rope_tables(cfg, pos0 + torch.arange(kseg, device=dev))
+    args = (fstack, gpu.params["embed"], x, torch.cat([cos, sin], -1), cache, pos0, cfg, fmeta,
+            kseg)
+    before = model_flat_seg.launches
+    got = model_flat_seg.model_decode_flat_seg(*args)
+    assert model_flat_seg.launches == before + 1
+    ref = model_flat_seg.model_decode_flat_seg_ref(*args)
+    assert got[0].tolist() == ref[0].tolist()
+    _rows_match(got[1], ref[1])
+    _close(got[2], ref[2], 1e-5)
+
+
+def test_speculative_paths_match_the_cpu(dev):
+    """A planted pair (2-layer target, 1-layer draft disagreeing on 30% of
+    its map) on the card against the plain versions on the CPU: the
+    scan-flat route at k = 3 (fused lm rows) and k = "auto" (the split C = 9
+    verify), decode_loop_flat_seg, SpeculativeBatcher and
+    PagedSpeculativeBatcher at 4 slots and k = 3: tokens and stats equal."""
+    # V = 256: the fused lm rows need a 128-aligned divisor of the vocab (stack_lm)
+    cfg = LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    t, d, m_t, _ = planted_pair(cfg, draft_layers=1, disagree_frac=0.3, dtype=torch.float32,
+                                device="cpu")
+    prompt = np.array([[9, 77]])
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, (int(n),)) for n in rng.integers(8, 140, 6)]
+    counts = (model_fused.launches_lm, model_flat_seg.launches)
+    outs = {}
+    for name, (tm, dm) in (("cpu", (t, d)), ("cuda", (_to(t.params, dev), _to(d.params, dev)))):
+        if name == "cuda":
+            tm = Model(config=cfg, params=tm)
+            dm = Model(config=dataclasses.replace(cfg, num_layers=1), params=dm)
+        tm, dm = fuse_for_serving(tm), fuse_for_serving(dm)
+        res = [speculative_generate(tm, dm, prompt, max_new_tokens=n, k=k,
+                                    cache_dtype=torch.int8, draft_megakernel=True)
+               for k, n in ((3, 20), ("auto", 60))]
+        res = [(o.tolist(), st) for o, st in res]
+        fstack, fmeta = stack_flat(dm)
+        dd = dm.params["embed"].device
+        log, cache = engine.prefill(dm.params, dm.config, torch.as_tensor(prompt, device=dd),
+                                    engine.init_cache(dm.config, 1, 128, torch.int8, device=dd))
+        seg, _ = decode_loop_flat_seg(dm.params, fstack, fmeta, dm.config,
+                                      torch.argmax(log, -1)[:, None], stack_cache_flat(cache), 2,
+                                      10, kseg=5)
+        res.append(seg.cpu().tolist())
+        for make in (lambda: SpeculativeBatcher(tm, dm, k=3, n_slots=4, max_len=256,
+                                                cache_dtype=torch.int8, use_megakernel=True,
+                                                use_draft_megakernel=True),
+                     lambda: PagedSpeculativeBatcher(tm, dm, k=3, n_slots=4, max_len=256)):
+            b = make()
+            res.append((b.run_all(list(prompts), max_new_tokens=8), b.rounds, b.accepted))
+        outs[name] = res
+    assert outs["cuda"] == outs["cpu"]
+    assert all(c1 > c0 for c0, c1 in zip(counts, (model_fused.launches_lm,
+                                                   model_flat_seg.launches)))
+
+
+def test_spec_batchers_random_weights_match_the_cpu(dev):
+    """Both speculative batchers on random weights (a 2-layer target and its
+    first layer as the draft), where the tokens and the accept stats depend
+    on attention over every cache: 4 slots, k = 3, the dense batcher without
+    and with the fused lm rows, the paged one in verify waves of 2 slots and
+    of 3 (a padded short wave) with the lm rows, and the paged one with the
+    target as its own draft. Prompts of 110-135 tokens: the rows cross the
+    128-row page. On the card against the plain versions on the CPU: tokens
+    and stats equal."""
+    cfg = LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    p = build_quantized_llama(cfg, dtype=torch.float32, seed=8, device="cpu")
+    gen = torch.Generator().manual_seed(8)
+    for blk in p["layers"]:
+        for k in ("input_norm", "post_norm"):
+            blk[k] = 1.0 + 0.1 * torch.randn(cfg.hidden_size, generator=gen)
+    dp = {**p, "layers": p["layers"][:1]}
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 256, (int(n),)) for n in rng.integers(110, 136, 6)]
+    makes = {
+        "dense": lambda t, d: SpeculativeBatcher(t, d, k=3, n_slots=4, max_len=256,
+                                                 cache_dtype=torch.int8, use_megakernel=True,
+                                                 use_draft_megakernel=True),
+        "dense-lm": lambda t, d: SpeculativeBatcher(t, d, k=3, n_slots=4, max_len=256,
+                                                    cache_dtype=torch.int8, use_megakernel=True,
+                                                    use_draft_megakernel=True, fused_lm=True),
+        "paged": lambda t, d: PagedSpeculativeBatcher(t, d, k=3, n_slots=4, max_len=256),
+        "paged-wave3-lm": lambda t, d: PagedSpeculativeBatcher(t, d, k=3, n_slots=4, max_len=256,
+                                                               verify_wave_slots=3,
+                                                               fused_lm=True),
+        # the target as its own draft: every proposal accepted while the
+        # draft's cache holds every accepted row
+        "paged-self": lambda t, d: PagedSpeculativeBatcher(t, t, k=3, n_slots=4, max_len=256)}
+    lm0 = model_fused.launches_lm
+    outs = {}
+    for name in ("cpu", "cuda"):
+        d = "cpu" if name == "cpu" else dev
+        # _to makes new linears: the draft's stack does not rebind the target's
+        tm = fuse_for_serving(Model(config=cfg, params=_to(p, d)))
+        dm = fuse_for_serving(Model(config=dataclasses.replace(cfg, num_layers=1),
+                                    params=_to(dp, d)))
+        outs[name] = {}
+        for key, make in makes.items():
+            b = make(tm, dm)
+            outs[name][key] = (b.run_all(list(prompts), max_new_tokens=12), b.rounds,
+                               b.proposed, b.accepted)
+    assert outs["cuda"] == outs["cpu"]
+    runs = outs["cuda"]
+    assert all(r[0] == runs["dense"][0] for r in runs.values())     # the same tokens
+    assert all(r[1:] == runs["dense"][1:] for k, r in runs.items() if k != "paged-self")
+    _, _, proposed, accepted = runs["dense"]
+    assert 0 < accepted < proposed
+    assert runs["paged-self"][2] == runs["paged-self"][3]
+    assert model_fused.launches_lm > lm0
