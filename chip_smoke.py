@@ -18,8 +18,12 @@ Phases:
      one-token rows; timed against the unfused route, the launch without
      them plus rms_norm and the dequant_matmul lm_head), the multi-token flat
      decode (kseg=5 after a 200-row history, on the 7B stack and on a planted
-     2-layer draft; timed against 5 model_decode_flat launches), and the
-     paged flash decode of one layer (4 slots, pages of 16);
+     2-layer draft; timed against 5 model_decode_flat launches), the
+     paged flash decode of one layer (4 slots, pages of 16), the decode
+     attention of one layer (T=384 at pos 200, T=2048 at pos 2047; new
+     int8 rows and scales bit-equal), the fused MLP (M = 1, 128, 2048; also
+     timed against the unfused route) and the W4A8 integer product (M = 128:
+     q, gate and down per group, gate per channel) on the unfused model;
   3. serve the paths at Llama-2-7B width and depth (int4 g128 packed
      weights made on the card from seed 0, int8 KV cache), each with the
      launch counters set to 0 just before it and read just after:
@@ -50,25 +54,40 @@ Phases:
         4-slot `SpeculativeBatcher` and `PagedSpeculativeBatcher`, k=3;
      j. 40 tokens of `decode_loop_flat_seg` (kseg=5) on the planted target
         and draft, against decode_loop_flat;
+     k. `generate` on the planted target served unfused (separate q/k/v
+        and gate/up, as quantization returns it; int8 cache): a 128-token
+        prompt and 32 tokens through the decode attention and the fused MLP
+        (no fused-model decode kernel may launch);
+     l. `compute_ppl` on the random-weight model served unfused, 2 batches
+        of 2048 tokens from a seed: the fused route (dequant matmul, fused
+        MLP) against the dequantize-then-matmul route, within 1e-2;
+     m. the W4A8 spec on every decoder linear with MI_W4A8_INT=1 (set in
+        the phase, restored after): `generate` on the planted target (the
+        integer product at the prefill), and `compute_ppl` on the
+        random-weight model against the fake-quant route, within 1e-2;
      every kernel must have launched on its path, and every planted path's
      tokens must equal the planted chain exactly;
   4. check the outputs: tokens in range, logits finite, and on a small f32
      model the card's prefill logits and greedy tokens (generate, the flat
      loop, the batcher with a mid-flight join, decode_loop_model on an
      asymmetric grid, both paged batchers with waves and prefix caching, a
-     planted pair through speculative_generate and decode_loop_flat_seg)
-     agree with the plain versions run on the CPU;
+     planted pair through speculative_generate and decode_loop_flat_seg,
+     an unfused model's generate and compute_ppl, int4 and W4A8) agree
+     with the plain versions run on the CPU;
   5. where the time goes: torch.profiler device time by kernel and the
      device busy share over a prefill, flat decode, per-layer decode, 8
-     batcher steps and 8 paged batcher steps with 8 active slots, and one
-     k=4 speculative round on the planted 7B pair.
+     batcher steps and 8 paged batcher steps with 8 active slots, one
+     k=4 speculative round on the planted 7B pair, 8 decode steps of the
+     unfused planted model and one 2048-token perplexity batch.
 
 Earlier lines report each phase; the line before the last is a JSON object
 with every kernel's launches, error, time, plain time, library time (torch's
 own int4 product for the 4-bit dequant_matmul rows, scaled_dot_product_attention
-over the pre-gathered pages for the paged flash decode; none for the decode
-kernels, since no single PyTorch call computes a decoder stack or its lm
-rows) and bound;
+over the pre-gathered pages for the paged flash decode and over the
+pre-dequantized history for the decode attention, torch._int_mm for the
+per-channel W4A8 row; none for the decode kernels and the fused MLP, since no
+single PyTorch call computes a decoder stack, its lm rows or a quantized
+SwiGLU MLP) and bound;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 2 and prints no result. `--report PATH` also writes
 the whole report (per-kernel bytes and flops, per-request latencies)
@@ -77,6 +96,7 @@ there as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -87,6 +107,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core peak
 TOL = 2e-2                  # max|kernel - plain| <= TOL * max|plain| in bf16
 F32_TOL = 1e-3              # the same in float32 (sum orders differ)
 DEPTH_GATE_POS = 64         # slots at or past this position are held in float32 at full depth
@@ -105,9 +126,9 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     """(least ms the card could take, what bounds it)."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -187,9 +208,12 @@ def tinygemm_operands(lin, st, bt):
 
 
 def check_dequant_matmul(model, cfg, dev, flush, reps):
-    """Also times torch's int4 product (the library yardstick) on the same x
-    and the same 4-bit weights; it is held to the same tolerance against the
-    plain version and used nowhere in the port."""
+    """Every fused linear at M = 128 (prefill) and M = 1 (decode), and at
+    M = 2048, the rows of one compute_ppl batch, the 4096->4096 shape of the
+    unfused q/k/v/o projections (the same shape and kernel as o_proj) and
+    the lm_head. Also times torch's int4 product (the library yardstick) on
+    the same x and the same 4-bit weights; it is held to the same tolerance
+    against the plain version and used nowhere in the port."""
     import torch
 
     from mi_optimize_tpu_torch.models.quant_linear import group_size
@@ -201,35 +225,37 @@ def check_dequant_matmul(model, cfg, dev, flush, reps):
     gen = torch.Generator(device=dev).manual_seed(1)
     lib_ops = {}
     rows = []
-    for M in (128, 1):
-        for name, lin in lins.items():
-            K, N, bits, g = lin.in_features, lin.out_features, lin.spec.wbit, group_size(lin)
-            st, bt = dm.kernel_tables(lin)
-            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-            run = lambda: dm.packed_matmul(x, lin.packed, st, bt, bits, g)
-            plain = lambda: dm.dequant_matmul_ref(x, lin.packed, st, bt, bits, g)
-            y, ref = run(), plain()
-            torch.cuda.synchronize()
-            err = check_close(f"dequant_matmul {name} M={M} [{K}->{N}]", y, ref)
-            ms = time_ms(run, reps, flush)
-            plain_ms = time_ms(plain, max(2, reps // 10), flush)
-            lib_ms = lib_err = None
-            if bits == 4 and g in (32, 64, 128, 256):
-                if name not in lib_ops:
-                    lib_ops[name] = tinygemm_operands(lin, st, bt)
-                w4, sz = lib_ops[name]
-                lib = lambda: torch._weight_int4pack_mm(x, w4, g, sz)
-                lib_err = check_close(f"  torch._weight_int4pack_mm {name} M={M}", lib(), ref)
-                lib_ms = time_ms(lib, reps, flush)
-            nb, fl = nbytes(x, lin.packed, st, bt) + M * N * 2, 2.0 * M * N * K
-            b_ms, b_by = bound(nb, fl)
-            log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
-                f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {b_ms:.4f} ms "
-                f"({b_by})")
-            rows.append(dict(name="dequant_matmul", shape=f"{name} M={M} K={K} N={N}",
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms, library_max_abs_err=lib_err,
-                             bytes=nb, flops=fl))
+    cases = [(M, name) for M in (128, 1) for name in lins] + [(2048, "o"), (2048, "lm_head")]
+    for M, name in cases:
+        lin = lins[name]
+        K, N, bits, g = lin.in_features, lin.out_features, lin.spec.wbit, group_size(lin)
+        reps_m = reps if M < 2048 else max(2, reps // 4)
+        st, bt = dm.kernel_tables(lin)
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        run = lambda: dm.packed_matmul(x, lin.packed, st, bt, bits, g)
+        plain = lambda: dm.dequant_matmul_ref(x, lin.packed, st, bt, bits, g)
+        y, ref = run(), plain()
+        torch.cuda.synchronize()
+        err = check_close(f"dequant_matmul {name} M={M} [{K}->{N}]", y, ref)
+        ms = time_ms(run, reps_m, flush)
+        plain_ms = time_ms(plain, max(2, reps_m // 10), flush)
+        lib_ms = lib_err = None
+        if bits == 4 and g in (32, 64, 128, 256):
+            if name not in lib_ops:
+                lib_ops[name] = tinygemm_operands(lin, st, bt)
+            w4, sz = lib_ops[name]
+            lib = lambda: torch._weight_int4pack_mm(x, w4, g, sz)
+            lib_err = check_close(f"  torch._weight_int4pack_mm {name} M={M}", lib(), ref)
+            lib_ms = time_ms(lib, reps_m, flush)
+        nb, fl = nbytes(x, lin.packed, st, bt) + M * N * 2, 2.0 * M * N * K
+        b_ms, b_by = bound(nb, fl)
+        log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {b_ms:.4f} ms "
+            f"({b_by})")
+        rows.append(dict(name="dequant_matmul", shape=f"{name} M={M} K={K} N={N}",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, library_max_abs_err=lib_err,
+                         bytes=nb, flops=fl))
     return rows
 
 
@@ -862,6 +888,200 @@ def check_paged_attention(cfg, dev, flush, reps, positions=(37, 200, 333, 511), 
                  library_max_abs_err=lib_err, bytes=nb, flops=fl)]
 
 
+def check_decode_attention(cfg, dev, flush, reps, cases=((384, 200), (2048, 2047))):
+    """The decode attention (B6) at one layer of the 7B model: bf16 q/k/v
+    rows over an int8 cache whose rows t < pos are live. The new row's codes
+    and scales must be bit-equal to the plain version's; the f32 output is
+    held within F32_TOL of max|plain|. The library yardstick is
+    F.scaled_dot_product_attention over the history already dequantized to
+    f32 (the new row included), as the paged flash decode's row has it."""
+    import torch
+    import torch.nn.functional as F
+
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.ops import decode_attention as da
+
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for T, pos in cases:
+        q, k, v = (torch.randn(1, n * D, generator=gen, device=dev).to(torch.bfloat16)
+                   for n in (H, Hkv, Hkv))
+        c = random_int8_cache(cfg, T, pos, dev, gen)
+        cache = [c[f][0] for f in ("k", "v", "k_scale", "v_scale")]
+        cos, sin = (t.reshape(-1) for t in llama.rope_tables(cfg, torch.tensor([pos],
+                                                                               device=dev)))
+        kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=D, max_len=T)
+        mine = [t.clone() for t in cache]
+        plain_c = [t.clone() for t in cache]
+        run = lambda: da.fused_decode_attention(q, k, v, cos, sin, *mine, pos, **kw)[0]
+        plain = lambda: da.fused_decode_attention_ref(q, k, v, cos, sin, *plain_c, pos, **kw)[0]
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        what = f"decode_attention T={T} pos={pos}"
+        same = [bool(torch.equal(a, b)) for a, b in zip(mine, plain_c)]
+        log(f"  {what}: new k/v codes and scales bit-equal: {same}")
+        if not all(same):
+            raise AssertionError(f"{what}: codes or scales differ from the plain version's")
+        err = check_close(what, got, ref, F32_TOL)
+        n = pos + 1
+        kd = (mine[0][:n].float() * mine[2][:n, :, None]).transpose(0, 1)[None].contiguous()
+        vd = (mine[1][:n].float() * mine[3][:n, :, None]).transpose(0, 1)[None].contiguous()
+        if H != Hkv:
+            kd, vd = (t.repeat_interleave(H // Hkv, 1) for t in (kd, vd))
+        qr = da._rope_rows(q.reshape(H, D).float(), cos, sin).reshape(1, H, 1, D)
+        lib = lambda: F.scaled_dot_product_attention(qr, kd, vd)
+        lib_err = check_close("  F.scaled_dot_product_attention (pre-dequantized, f32)",
+                              lib().reshape(1, H * D), ref, F32_TOL)
+        ms = time_ms(run, reps, flush)
+        plain_ms = time_ms(plain, max(2, reps // 10), flush)
+        lib_ms = time_ms(lib, reps, flush)
+        nb = n * Hkv * D * 2 + n * Hkv * 4 * 2 + nbytes(q, k, v) + H * D * 4
+        fl = 4.0 * n * H * D
+        b_ms, b_by = bound(nb, fl)
+        log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms "
+            f"(pre-dequantized SDPA)  bound {b_ms:.4f} ms ({b_by}), {nb / 1e6:.3f} MB")
+        rows.append(dict(name="decode_attention", shape=f"H={H} Hkv={Hkv} D={D} T={T} pos={pos} "
+                         "bf16 rows, int8 cache", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         library_max_abs_err=lib_err, bytes=nb, flops=fl, codes="bit-equal"))
+    return rows
+
+
+def mlp_bytes(lins, M, dtype_bytes=2) -> int:
+    """Bytes the fused MLP must move: the packed words and the (scale, zero)
+    tables of gate, up and down, x and y."""
+    from mi_optimize_tpu_torch.ops.dequant_matmul import zero_tables
+
+    K = lins[0].in_features
+    return (sum(nbytes(l.packed, *zero_tables(l)) for l in lins)
+            + M * K * dtype_bytes * 2)
+
+
+def check_mlp_fused(blk, cfg, dev, flush, reps, Ms=(1, 128, 2048)):
+    """The fused MLP (B7) on the unfused 7B model's layer 0, bf16 x, held
+    within TOL of max|plain| and timed against its plain version and
+    against the unfused route (gate and up through dequant_matmul, SiLU *
+    up, down through dequant_matmul). No single PyTorch call computes it:
+    library_ms is null."""
+    import torch
+
+    from mi_optimize_tpu_torch.models.quant_linear import group_size
+    from mi_optimize_tpu_torch.ops import mlp_fused as mf
+    from mi_optimize_tpu_torch.ops.dequant_matmul import dequant_matmul, zero_tables
+
+    lins = (blk["gate_proj"], blk["up_proj"], blk["down_proj"])
+    if not mf.mlp_supported(*lins, cfg.hidden_size, cfg.intermediate_size):
+        raise AssertionError("the 7B MLP should meet the fused MLP's routing predicate")
+    tabs = [t for l in lins for t in (l.packed, *zero_tables(l))]
+    kw = dict(bits=4, k_group=group_size(lins[0]), i_group=group_size(lins[2]), qmin=0,
+              inter=cfg.intermediate_size, hidden=cfg.hidden_size)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    for M in Ms:
+        x = torch.randn(M, cfg.hidden_size, generator=gen, device=dev).to(torch.bfloat16)
+        run = lambda: mf.mlp_apply_fused(x, *lins, cfg)
+        plain = lambda: mf.fused_mlp_ref(x, *tabs, **kw)
+        unfused = lambda: dequant_matmul(torch.nn.functional.silu(dequant_matmul(x, lins[0]))
+                                         * dequant_matmul(x, lins[1]), lins[2])
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        err = check_close(f"mlp_fused M={M}", got, ref)
+        check_close(f"  unfused route M={M}", unfused(), ref)
+        ms = time_ms(run, reps, flush)
+        plain_ms = time_ms(plain, max(2, reps // 10), flush)
+        unfused_ms = time_ms(unfused, reps, flush)
+        nb = mlp_bytes(lins, M)
+        fl = 2.0 * M * cfg.intermediate_size * (2 * cfg.hidden_size + cfg.hidden_size)
+        b_ms, b_by = bound(nb, fl)
+        log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  unfused route {unfused_ms:.4f} ms "
+            f"library none  bound {b_ms:.4f} ms ({b_by}), {nb / 1e6:.2f} MB, "
+            f"{fl / 1e9:.2f} GFLOP")
+        rows.append(dict(name="mlp_fused", shape=f"M={M} K={cfg.hidden_size} "
+                         f"I={cfg.intermediate_size} int4 g128 bf16", max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, bytes=nb, flops=fl))
+    return rows
+
+
+def per_channel_linear(out_f, in_f, dev, seed):
+    """A packed int4 per-channel linear (symmetric grid) made on the card."""
+    import torch
+
+    from mi_optimize_tpu_torch.core import packing, qparams
+    from mi_optimize_tpu_torch.core.qparams import qrange
+    from mi_optimize_tpu_torch.models.quant_linear import QuantizedLinear, QuantSpec
+
+    w = torch.randn(out_f, in_f, generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev) * in_f ** -0.5
+    fake, scale, zero = qparams.quantize_dequantize(w, 4, "per_channel")
+    ints = qparams.quantize_to_int(fake, scale, zero, 4, "per_channel")
+    return QuantizedLinear(spec=QuantSpec(wbit=4, w_qtype="per_channel", w_packed=True),
+                           out_features=out_f, in_features=in_f,
+                           packed=packing.pack_weight_device(ints, 4, qrange(4, True)),
+                           w_scale=scale, w_zero=zero)
+
+
+def check_w4a8(blk, cfg, dev, flush, reps):
+    """The W4A8 integer product (B9) at M = 128 on the unfused 7B model's q,
+    gate and down projections (per group, g128) and on a per-channel gate,
+    and at M = 2048 (one compute_ppl batch) on q and down: held within 1e-5
+    of max|plain| (both sum each group exactly; the plain version in
+    float64) and reported bitwise. The library yardstick, for
+    the per-channel row only (one group: one integer product), is
+    torch._int_mm on the weights pre-unpacked to int8 (q - z), then the
+    scales."""
+    import torch
+
+    from mi_optimize_tpu_torch.core.packing import unpack_words
+    from mi_optimize_tpu_torch.models.quant_linear import group_size
+    from mi_optimize_tpu_torch.ops import w4a8_matmul as w4
+    from mi_optimize_tpu_torch.ops.dequant_matmul import zero_tables
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cases = [(128, "q_proj", blk["q_proj"]), (128, "gate_proj", blk["gate_proj"]),
+             (128, "down_proj", blk["down_proj"]),
+             (128, "gate_proj per_channel", per_channel_linear(cfg.intermediate_size,
+                                                               cfg.hidden_size, dev, 15)),
+             (2048, "q_proj", blk["q_proj"]), (2048, "down_proj", blk["down_proj"])]
+    rows = []
+    for M, name, lin in cases:
+        K, N = lin.in_features, lin.out_features
+        g = group_size(lin) if lin.spec.w_qtype == "per_group" else -1
+        st, zt = zero_tables(lin)
+        x = torch.randn(M, K, generator=gen, device=dev)
+        xi, _ = w4.quantize_activations(x, "per_token")
+        kw = dict(bits=4, groupsize=g, qmin=0)
+        run = lambda: w4.w4a8_matmul_int(xi, lin.packed, st, zt, **kw)
+        plain = lambda: w4.w4a8_matmul_int_ref(xi, lin.packed, st, zt, **kw)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        what = f"w4a8_matmul {name} M={M} [{K}->{N}]"
+        err = check_close(what, got, ref, 1e-5)
+        log(f"    bit-equal to the plain version: {bool(torch.equal(got, ref))}")
+        lib_ms = lib_err = None
+        if g < 0:
+            # [K, N] int8 in column-major order, the layout of cuBLASLt's int8 product
+            w8 = (unpack_words(lin.packed, 4) - zt.to(torch.int32)).to(torch.int8).t()
+            w8 = w8.contiguous().t()
+            lib = lambda: torch._int_mm(xi, w8).float() * st
+            lib_err = check_close("  torch._int_mm then the scales", lib(), ref, 1e-5)
+            lib_ms = time_ms(lib, reps, flush)
+        ms = time_ms(run, reps, flush)
+        plain_ms = time_ms(plain, max(2, reps // 10), flush)
+        nb = nbytes(xi, lin.packed, st, zt) + M * N * 4
+        fl = 2.0 * M * N * K
+        b_ms, b_by = bound(nb, fl, INT8_OPS)
+        log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {b_ms:.4f} ms ({b_by})")
+        rows.append(dict(name="w4a8_matmul", shape=f"{name} M={M} K={K} N={N} "
+                         f"{'g128' if g > 0 else 'per_channel'}", max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         library_max_abs_err=lib_err, bytes=nb, flops=fl,
+                         codes="bit-equal" if torch.equal(got, ref) else "within 1e-5"))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width and depth
 # ---------------------------------------------------------------------------
@@ -1128,6 +1348,110 @@ def serve_paged_batcher(model, cfg, n_req=8, n_slots=4, new=32, n_compare=2):
         f"{res['ms_per_step_full']:.3f} ms a step; f32 pool {pool_gb:.2f} GB; greedy tokens "
         f"equal to engine.generate's (f32 cache) on the first {agree} of {new} (reported)")
     return res
+
+
+class w4a8_route:
+    """MI_W4A8_INT=1 inside the block, restored after it."""
+
+    def __enter__(self):
+        self.old = os.environ.get("MI_W4A8_INT")
+        os.environ["MI_W4A8_INT"] = "1"
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("MI_W4A8_INT", None)
+        else:
+            os.environ["MI_W4A8_INT"] = self.old
+
+
+def serve_generate_unfused(model, m_t, cfg, dev, S=128, n=32, name="generate_unfused"):
+    """engine.generate on a planted unfused model (separate q/k/v and
+    gate/up, no fuse_for_serving) with the int8 cache: an S-token prompt and
+    n new tokens, gated on the planted chain; host-timed, with the decode
+    ms/token from a second run of 1 new token."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+
+    prompt = np.random.default_rng(31).integers(0, cfg.vocab_size, (1, S))
+    walls = {}
+    for k in (n, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = engine.generate(model, prompt, max_new_tokens=k, cache_dtype=torch.int8)
+        walls[k] = (time.perf_counter() - t0) * 1e3
+        gate_chain(f"{name}, {k} new tokens", toks[0, S:].tolist(),
+                   planted_chain(m_t, int(prompt[0, -1]), k))
+    decode = (walls[n] - walls[1]) / (n - 1)
+    log(f"  {name}: {S}-token prompt + {n} tokens in {walls[n]:.1f} ms; prefill and first "
+        f"token {walls[1]:.1f} ms; decode {decode:.3f} ms/token")
+    return dict(prompt=S, tokens=n, ms=walls[n], first_token_ms=walls[1],
+                decode_ms_per_token=decode)
+
+
+def ppl_batches(cfg, n=2, S=2048, seed=41):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, (1, S)) for _ in range(n)]
+
+
+def timed_ppl(model, batches, fused):
+    import torch
+
+    from mi_optimize_tpu_torch.eval.ppl import compute_ppl
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ppl = compute_ppl(model, batches, fused=fused)
+    return ppl, (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def serve_ppl_unfused(model, cfg, tol=1e-2):
+    """compute_ppl on the random-weight unfused 7B model over 2 batches of
+    2048 tokens from a seed: the fused route (dequant_matmul and the fused
+    MLP) against the reference's dequantize-then-matmul route (fused=False),
+    gated at `tol` relative (bf16 activations through 32 layers, rounded at
+    other places on the two routes)."""
+    batches = ppl_batches(cfg)
+    ppl, ms = timed_ppl(model, batches, True)
+    ppl_ref, ms_ref = timed_ppl(model, batches, False)
+    rel = abs(ppl - ppl_ref) / ppl_ref
+    log(f"  compute_ppl, 2 x 2048 tokens: fused {ppl:.4f} ({ms:.1f} ms/batch), dequantize-then-"
+        f"matmul {ppl_ref:.4f} ({ms_ref:.1f} ms/batch): relative difference {rel:.3e} vs {tol} "
+        f"-> {'ok' if rel <= tol else 'FAIL'}")
+    if not (rel <= tol and ppl > 1.0):
+        raise AssertionError("compute_ppl: the fused route disagrees with the unfused one")
+    return dict(ppl=ppl, ms_per_batch=ms, ppl_unfused_route=ppl_ref,
+                unfused_route_ms_per_batch=ms_ref, rel_diff=rel)
+
+
+def serve_w4a8(ptarget, m_t, rmodel, cfg, tol=1e-2):
+    """The W4A8 spec on every decoder linear (the lm_head keeps its
+    weight-only spec) with MI_W4A8_INT=1: generate on the planted target
+    (the integer product at the 128-token prefill, gated on the chain),
+    then compute_ppl on the random-weight model with the variable set (the
+    integer product) against unset (the fake-quant route), gated at `tol`
+    relative."""
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import with_w4a8
+
+    pw = Model(config=cfg, params=with_w4a8(ptarget.params))
+    rw = Model(config=cfg, params=with_w4a8(rmodel.params))
+    batches = ppl_batches(cfg)
+    with w4a8_route():
+        res = serve_generate_unfused(pw, m_t, cfg, None, name="generate W4A8")
+        ppl, ms = timed_ppl(rw, batches, True)
+    ppl_fq, ms_fq = timed_ppl(rw, batches, True)
+    rel = abs(ppl - ppl_fq) / ppl_fq
+    log(f"  compute_ppl W4A8, 2 x 2048 tokens: integer product {ppl:.4f} ({ms:.1f} ms/batch), "
+        f"fake-quant route {ppl_fq:.4f} ({ms_fq:.1f} ms/batch): relative difference {rel:.3e} "
+        f"vs {tol} -> {'ok' if rel <= tol else 'FAIL'}")
+    if not (rel <= tol and ppl > 1.0):
+        raise AssertionError("compute_ppl W4A8: the integer product disagrees with fake-quant")
+    return dict(generate=res, ppl=ppl, ms_per_batch=ms, ppl_fake_quant=ppl_fq,
+                fake_quant_ms_per_batch=ms_fq, rel_diff=rel)
 
 
 def compare_with_generate(model, compare):
@@ -1638,6 +1962,55 @@ def small_spec_batchers_check(dev):
         raise AssertionError("small random pair: unexpected accept counts")
 
 
+def small_unfused_check(dev):
+    """An unfused small f32 model (separate q/k/v and gate/up), int4 and
+    with the W4A8 spec (MI_W4A8_INT=1): generate with the int8 cache (a
+    40-token prompt, 6 new tokens) and compute_ppl (2 batches of 2 x 64
+    tokens), on the card (decode attention, fused MLP, W4A8 integer product)
+    and on the CPU with the same branches forced through the plain versions.
+    Tokens equal; perplexity within 1e-4 relative (W4A8: 1e-3, an int8
+    activation code at a rounding boundary flips with the sums' order)."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.eval.ppl import compute_ppl
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama, with_w4a8
+    from mi_optimize_tpu_torch.serving import engine
+
+    cfg = LlamaConfig(vocab_size=160, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    base = build_quantized_llama(cfg, dtype=torch.float32, seed=3, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    for blk in base["layers"]:
+        for k in ("input_norm", "post_norm"):
+            blk[k] = 1.0 + 0.1 * torch.randn(cfg.hidden_size, generator=gen)
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 40))
+    batches = [np.random.default_rng(6 + i).integers(0, cfg.vocab_size, (2, 64))
+               for i in range(2)]
+    branches = llama.kernel_branches
+    with w4a8_route():
+        for spec, p, tol in (("int4", base, 1e-4), ("W4A8", with_w4a8(base), 1e-3)):
+            out = {}
+            for d in (dev, "cpu"):
+                m = Model(config=cfg, params=p if d == "cpu" else _to(p, dev))
+                llama.kernel_branches = (lambda x: True) if d == "cpu" else branches
+                try:
+                    out[d] = (engine.generate(m, prompt, max_new_tokens=6,
+                                              cache_dtype=torch.int8), compute_ppl(m, batches))
+                finally:
+                    llama.kernel_branches = branches
+            rel = abs(out[dev][1] - out["cpu"][1]) / out["cpu"][1]
+            log(f"  small unfused f32 model, {spec}: generate {out[dev][0][0, 40:].tolist()} vs "
+                f"CPU {out['cpu'][0][0, 40:].tolist()}; PPL {out[dev][1]:.6f} vs CPU "
+                f"{out['cpu'][1]:.6f} (relative {rel:.2e}, tolerance {tol})")
+            if (out[dev][0] != out["cpu"][0]).any() or not rel <= tol:
+                raise AssertionError(f"small unfused model ({spec}): the card disagrees with "
+                                     "the CPU")
+
+
 def spec_round_window(target, draft, cfg, dev, k=4, S=128, T=512):
     """A window of one scan-flat speculative round (k draft proposals on the
     flat kernel plus the ingest step, one C = k+1 verify with the fused lm
@@ -1667,6 +2040,31 @@ def spec_round_window(target, draft, cfg, dev, k=4, S=128, T=512):
                                    draft.config, tcc, dcc, first, S, k, 1, tlm, tlm_meta)
 
 
+def unfused_decode_window(model, cfg, dev, S=128, T=512, n=8):
+    """A window of n decode steps (engine.decode_loop) on an unfused model
+    after an S-token prompt: the decode attention and the fused MLP; each
+    call redoes the same steps over the same cache rows."""
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(24))
+    logits, cache = engine.prefill(model.params, cfg, prompt.to(dev),
+                                   engine.init_cache(cfg, 1, T, torch.int8, device=dev))
+    tok = torch.argmax(logits, -1)[:, None]
+    return lambda: engine.decode_loop(model.params, cfg, tok, cache, S, n)
+
+
+def ppl_window(model, cfg, dev, S=2048):
+    """A window of one perplexity batch (1 x S tokens) through the fused route."""
+    import torch
+
+    from mi_optimize_tpu_torch.eval.ppl import batch_loss
+
+    ids = torch.as_tensor(ppl_batches(cfg, 1, S, seed=42)[0], device=dev)
+    return lambda: batch_loss(model, ids)
+
+
 def _to(tree, dev):
     import dataclasses
 
@@ -1681,7 +2079,7 @@ def _to(tree, dev):
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **{
             f.name: _to(getattr(tree, f.name), dev) for f in dataclasses.fields(tree)
-            if isinstance(getattr(tree, f.name), torch.Tensor)})
+            if f.init and isinstance(getattr(tree, f.name), torch.Tensor)})
     return tree
 
 
@@ -1706,13 +2104,19 @@ KERNELS = {
                                    "mi_optimize_tpu/ops/model_fused.py:999"),
     "model_decode_flat_seg": ("mi_optimize_tpu_torch/csrc/model_flat.cu",
                               "mi_optimize_tpu/ops/model_flat_seg.py:57"),
+    "decode_attention": ("mi_optimize_tpu_torch/csrc/decode_attention.cu",
+                         "mi_optimize_tpu/ops/decode_attention.py:37"),
+    "mlp_fused": ("mi_optimize_tpu_torch/csrc/mlp_fused.cu", "mi_optimize_tpu/ops/mlp_fused.py:44"),
+    "w4a8_matmul": ("mi_optimize_tpu_torch/csrc/w4a8_matmul.cu",
+                    "mi_optimize_tpu/ops/w4a8_matmul.py:49"),
 }
 
 
 def counters():
     """(module, attribute) of each kernel's launch counter."""
-    from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_flat_seg,
-                                           model_fused, paged_attention)
+    from mi_optimize_tpu_torch.ops import (block_fused, decode_attention, dequant_matmul, mlp_fused,
+                                           model_flat, model_flat_seg, model_fused, paged_attention,
+                                           w4a8_matmul)
 
     return {"dequant_matmul": (dequant_matmul, "launches"),
             "block_decode_mega": (block_fused, "launches"),
@@ -1723,7 +2127,10 @@ def counters():
             "model_decode_mega_batch_chunk": (model_fused, "launches_chunk"),
             "paged_flash_attention": (paged_attention, "launches"),
             "model_decode_mega_batch_lm": (model_fused, "launches_lm"),
-            "model_decode_flat_seg": (model_flat_seg, "launches")}
+            "model_decode_flat_seg": (model_flat_seg, "launches"),
+            "decode_attention": (decode_attention, "launches"),
+            "mlp_fused": (mlp_fused, "launches"),
+            "w4a8_matmul": (w4a8_matmul, "launches")}
 
 
 def run_path(name, needs, fn):
@@ -1797,6 +2204,12 @@ def main() -> int:
             cfg, bits=4, groupsize=128, dtype=torch.bfloat16, seed=seed, device=dev,
             symmetric=symmetric)))
 
+    def unfused(c=cfg, seed=0):
+        """The random-weight model as quantization returns it: separate
+        q/k/v and gate/up, no fuse_for_serving."""
+        return Model(config=c, params=build_quantized_llama(
+            c, bits=4, groupsize=128, dtype=torch.bfloat16, seed=seed, device=dev))
+
     def asymmetric():
         """The asymmetric-grid model (a zero per group, as GPTQ's default
         grid): the flat kernel refuses it, the whole-model kernel streams its
@@ -1857,6 +2270,14 @@ def main() -> int:
     rows += check_mega_batch(amodel, astack, ameta, cfg, dev, flush, 5, [77, 300],
                              label="asymmetric ")
     del amodel, astack, ameta
+    torch.cuda.empty_cache()
+    # the unfused model's kernels: decode attention, fused MLP, W4A8 integer
+    # product, on layer 0 of the unfused random-weight model (seed 0)
+    rows += check_decode_attention(cfg, dev, flush, reps=20)
+    ublk = unfused(dataclasses.replace(cfg, num_layers=1)).params["layers"][0]
+    rows += check_mlp_fused(ublk, cfg, dev, flush, reps=5)
+    rows += check_w4a8(ublk, cfg, dev, flush, reps=5)
+    del ublk
     torch.cuda.empty_cache()
 
     log("phase 3: serving at Llama-2-7B width and depth (int4 g128, bf16, int8 KV cache)")
@@ -1973,6 +2394,24 @@ def main() -> int:
     report["flat_seg"], c = run_path("decode_loop_flat_seg", ("model_decode_flat_seg",
                                                              "model_decode_flat"), flat_seg_paths)
     tally(c)
+    log(" k. generate on the unfused planted Llama-2-7B, int8 cache: 128-token prompt, 32 tokens")
+    ptarget = Model(config=cfg, params=build_planted_llama(cfg, m_t, device=dev))
+    report["generate_unfused"], c = run_path(
+        "generate_unfused", ("dequant_matmul", "decode_attention", "mlp_fused"),
+        lambda: serve_generate_unfused(ptarget, m_t, cfg, dev))
+    tally(c)
+    if c["block_decode_mega"] or c["model_decode_flat"]:
+        raise AssertionError("generate_unfused launched a fused-model decode kernel")
+    log(" l. compute_ppl on the unfused random-weight Llama-2-7B, 2 x 2048 tokens")
+    rmodel = unfused()
+    report["ppl_unfused"], c = run_path("ppl_unfused", ("dequant_matmul", "mlp_fused"),
+                                        lambda: serve_ppl_unfused(rmodel, cfg))
+    tally(c)
+    log(" m. the W4A8 spec on every decoder linear, MI_W4A8_INT=1")
+    report["w4a8_unfused"], c = run_path(
+        "w4a8_unfused", ("dequant_matmul", "decode_attention", "w4a8_matmul"),
+        lambda: serve_w4a8(ptarget, m_t, rmodel, cfg))
+    tally(c)
     log(f"  launches over the served paths: {counts}")
 
     log("phase 4: small f32 model on the card vs the plain versions on the CPU")
@@ -1981,11 +2420,14 @@ def main() -> int:
     small_paged_check(dev)
     small_spec_check(dev)
     small_spec_batchers_check(dev)
+    small_unfused_check(dev)
 
     log("phase 5: where the time goes (torch.profiler, Llama-2-7B, T=512)")
     report["profile"] = profile_windows(
         model, fstack, fmeta, cfg, dev,
-        extra={"spec_round": (spec_round_window(target, draft, cfg, dev), 1)})
+        extra={"spec_round": (spec_round_window(target, draft, cfg, dev), 1),
+               "generate_unfused_8": (unfused_decode_window(ptarget, cfg, dev), 8),
+               "ppl_2048": (ppl_window(rmodel, cfg, dev), 2048)})
 
     kernels = []
     for r in rows:

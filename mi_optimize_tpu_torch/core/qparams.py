@@ -5,9 +5,14 @@ per_channel, per_group, per_dimension, per_token), the same symmetric and
 asymmetric formulas, and round-half-to-even rounding (`torch.round`, like
 `jnp.round`), so integer grids match the reference bit for bit.
 
-PyTorch divides with a correctly rounded IEEE quotient on both the CPU and the
-GPU, so the reference's `exact_div` refinement (which undoes XLA's
-reciprocal-multiply lowering) is a plain division here.
+PyTorch divides two tensors with a correctly rounded IEEE quotient on both the
+CPU and the GPU. A Python number as the divisor is another matter on the GPU:
+there PyTorch multiplies by its f32 reciprocal, which can be one ulp off the
+quotient (1/127 is not exact). `exact_div` hands the divisor over as a 0-dim
+tensor on x's device, which gives the reference's `exact_div` (the true
+quotient) everywhere; the W4A8 activation grid uses it. `find_qparams` still
+divides by Python numbers, one ulp off the reference on the GPU for some
+scales (ROADMAP.md C).
 """
 from __future__ import annotations
 
@@ -18,6 +23,14 @@ import torch
 GRANULARITIES = ("per_tensor", "per_channel", "per_group", "per_dimension", "per_token")
 
 _EPS = 1e-12
+
+
+def exact_div(x: torch.Tensor, y) -> torch.Tensor:
+    """The correctly rounded quotient x / y, also for a Python-number y on
+    the GPU."""
+    if not isinstance(y, torch.Tensor):
+        y = torch.full((), y, dtype=x.dtype, device=x.device)
+    return x / y
 
 
 def div_round(x: torch.Tensor, y) -> torch.Tensor:

@@ -8,9 +8,10 @@ cache holds per-(token, head) absmax scales.
 Differences from the reference:
   * caches are updated in place (the reference returns fresh functional
     arrays); `block_apply` still returns the cache it wrote;
-  * the decode-attention and fused-MLP branches the reference takes only on a
-    TPU backend are absent; a block prepared by serving.optimize (`"mega"`)
-    decodes through ops.block_fused instead.
+  * the decode-attention (ops.decode_attention) and fused-MLP
+    (ops.mlp_fused) branches, which the reference takes on a TPU backend,
+    are taken where the block's tensors are on CUDA (`kernel_branches`);
+    on CPU tensors the stock path runs, as the reference's does on a CPU.
 """
 from __future__ import annotations
 
@@ -157,12 +158,19 @@ def attention(q, k, v, mask, cfg: LlamaConfig):
     return out.to(v.dtype)
 
 
+# The int8 KV scale is amax * f32(1/127): the reference writes amax / 127.0,
+# and XLA lowers a division by that constant to a multiply by its f32
+# reciprocal (on the CPU, jitted and inside the interpret-mode kernels; one
+# ulp off the true quotient for about 5% of heads).
+KV_RCP = 1.0 / 127.0
+
+
 def quantize_kv(x: torch.Tensor):
     """Per-(batch, token, head) symmetric int8 quantization of a K/V slab
     [B, S, H, D] -> (int8 values, f32 scales [B, S, H])."""
     xf = x.to(torch.float32)
     amax = torch.clamp(xf.abs().amax(dim=-1), min=1e-8)
-    scale = amax / 127.0
+    scale = amax * KV_RCP
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -184,6 +192,13 @@ def _upd(buf: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
     i = min(max(int(idx), 0), T - S)
     buf[:, i:i + S] = new
     return buf
+
+
+def kernel_branches(x: torch.Tensor) -> bool:
+    """Whether `block_apply` takes the reference's TPU-only branches (decode
+    attention, fused MLP): on CUDA tensors. Tests force it to run the plain
+    versions through the branches on the CPU."""
+    return x.is_cuda
 
 
 def block_apply(
@@ -230,6 +245,23 @@ def block_apply(
         q = quant_linear_apply(blk["q_proj"], h, fused=fused)
         k = quant_linear_apply(blk["k_proj"], h, fused=fused)
         v = quant_linear_apply(blk["v_proj"], h, fused=fused)
+    # decode attention of one token: rope, int8 cache append and attention in
+    # one launch (ops/decode_attention.py)
+    if (fused and not capture and S == 1 and B == 1 and isinstance(kv_cache, dict)
+            and cfg.rotary_dim in (-1, cfg.head_dim) and not cfg.rope_interleaved
+            and not (isinstance(cache_index, torch.Tensor) and cache_index.ndim > 0)
+            and kernel_branches(x)):
+        from ..ops.decode_attention import fused_decode_attention
+
+        attn, _, _, _, _ = fused_decode_attention(
+            q.reshape(1, -1), k.reshape(1, -1), v.reshape(1, -1), cos.reshape(-1)[-cfg.head_dim:],
+            sin.reshape(-1)[-cfg.head_dim:], kv_cache["k"][0], kv_cache["v"][0],
+            kv_cache["k_scale"][0], kv_cache["v_scale"][0], int(cache_index),
+            n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            max_len=kv_cache["k"].shape[1])
+        attn = attn.reshape(B, S, q_dim).to(x.dtype)
+        x = x + quant_linear_apply(blk["o_proj"], attn, fused=fused)
+        return _mlp_tail(blk, x, cfg, caps, capture, fused), kv_cache, caps
 
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
@@ -266,6 +298,14 @@ def block_apply(
 
 
 def _mlp_tail(blk, x, cfg: LlamaConfig, caps, capture: bool, fused: bool):
+    if fused and not capture and "gate_proj" in blk and kernel_branches(x):
+        from ..ops.mlp_fused import mlp_apply_fused, mlp_supported
+
+        gate, up, down = blk["gate_proj"], blk["up_proj"], blk["down_proj"]
+        if mlp_supported(gate, up, down, cfg.hidden_size, cfg.intermediate_size):
+            # the whole SwiGLU MLP in one launch (ops/mlp_fused.py)
+            h = rms_norm(x, blk["post_norm"], cfg.rms_eps)
+            return x + mlp_apply_fused(h, gate, up, down, cfg).to(x.dtype)
     h = rms_norm(x, blk["post_norm"], cfg.rms_eps)
     if capture:
         caps["gate_proj"] = caps["up_proj"] = h

@@ -8,12 +8,18 @@ weights, fake-quantized weights, or packed int weights plus qparams, and
        -> fake-quant activations     (static scale or dynamic per-token/tensor)
        -> x @ dequant(W)^T + bias    (packed path: ops.dequant_matmul)
 
+With `MI_W4A8_INT=1` (read at each call), packed int4 linears with dynamic
+symmetric int8 activations take the integer product of ops.w4a8_matmul at
+32 rows or more, as the reference does; the W8A8 route is not ported.
+
 Packed words are the int32 bit-view of the reference's uint32 words-major
 [in*wbit/32, out] layout (core/packing.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 from typing import Optional
 
 import torch
@@ -62,6 +68,11 @@ class QuantizedLinear:
     # by ops.dequant_matmul.kernel_tables; `replace` starts without them
     tables: Optional[tuple] = dataclasses.field(default=None, init=False, repr=False,
                                                 compare=False)
+    # the fused MLP's and the W4A8 kernel's f32 [ngroups, out] zero - qmin
+    # table, made once by ops.dequant_matmul.zero_tables (their scale table
+    # is tables[0])
+    ztable: Optional[torch.Tensor] = dataclasses.field(default=None, init=False, repr=False,
+                                                       compare=False)
 
     @classmethod
     def fp(cls, weight, bias=None):
@@ -141,6 +152,15 @@ def quant_linear_apply(q: QuantizedLinear, x: torch.Tensor, *, fused: bool = Tru
     if q.packed is not None and fused and _supports_w8a8(s):
         raise NotImplementedError(
             "the W8A8 int8 matmul route is not ported yet (ROADMAP.md A8)")
+    if q.packed is not None and fused:
+        from ..ops.w4a8_matmul import supports_w4a8, w4a8_matmul
+        if (supports_w4a8(s) and math.prod(x.shape[:-1]) >= 32
+                and os.environ.get("MI_W4A8_INT") == "1"):
+            # the W4A8 integer product, opt-in as in the reference (ops/w4a8_matmul.py)
+            y = w4a8_matmul(x, q)
+            if q.bias is not None:
+                y = y + q.bias
+            return y.to(in_dtype)
 
     x = _quant_activations(q, x)
     if q.packed is not None and fused and s.wbit in (2, 4, 8):

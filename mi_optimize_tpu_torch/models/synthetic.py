@@ -6,8 +6,14 @@ per-group (symmetric by default, or asymmetric: a zero per group, as GPTQ's
 default 'affine' grid), mapped to its integer grid and packed words-major,
 all on `device`. One linear is quantized and packed at a time, so the peak memory
 stays near the packed model plus one float32 weight matrix.
+
+`with_w4a8` gives a model's decoder linears the W4A8 activation spec
+(dynamic symmetric signed per-token int8), as smoothquant+gptq at wbit 4,
+abit 8 produces.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -66,3 +72,18 @@ def build_quantized_llama(cfg: LlamaConfig, bits: int = 4, groupsize: int = 128,
         "final_norm": torch.ones(h, dtype=dtype, device=dev),
         "lm_head": lin(cfg.vocab_size, h),
     }
+
+
+def w4a8_spec(spec: QuantSpec) -> QuantSpec:
+    """spec with dynamic symmetric signed per-token int8 activations."""
+    return dataclasses.replace(spec, abit=8, a_qtype="per_token", a_dynamic=True,
+                               a_symmetric=True, a_unsigned=False)
+
+
+def with_w4a8(params):
+    """A params dict whose decoder linears carry `w4a8_spec`; the lm_head
+    keeps its weight-only spec, as calibrated models keep it. The tensors are
+    shared with `params`."""
+    layers = [{k: v.replace(spec=w4a8_spec(v.spec)) if isinstance(v, QuantizedLinear) else v
+               for k, v in blk.items()} for blk in params["layers"]]
+    return dict(params, layers=layers)

@@ -37,19 +37,44 @@ launches = 0  # kernel launches; chip_smoke.py resets and reads it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _group_table(qlin, t, minus=0.0):
+    """qlin's per-group table t (scales or zeros) minus `minus`, as f32
+    [ngroups, N], contiguous."""
+    ng = qlin.in_features // group_size(qlin)
+    t = t.reshape(-1, ng).t().to(torch.float32).expand(ng, qlin.out_features)
+    return (t - minus).contiguous()
+
+
+def _zero_table(qlin):
+    """zero - qmin: the zero on the stored codes."""
+    s = qlin.spec
+    return _group_table(qlin, qlin.w_zero, float(qrange(s.wbit, s.w_unsigned).qmin))
+
+
 def kernel_tables(qlin):
     """The kernel layout of qlin's scales/zeros: (scale, dequant bias), f32
     [ngroups, N]. Made at the first call and kept on qlin (`qlin.tables`);
     `serving.optimize.fuse_for_serving` makes them for every packed linear."""
     if qlin.tables is None:
-        s = qlin.spec
-        ng = qlin.in_features // group_size(qlin)
-        n = qlin.out_features
-        rng = qrange(s.wbit, s.w_unsigned)
-        st = qlin.w_scale.reshape(-1, ng).t().to(torch.float32).expand(ng, n)
-        zt = qlin.w_zero.reshape(-1, ng).t().to(torch.float32).expand(ng, n)
-        qlin.tables = (st.contiguous(), (-(zt - float(rng.qmin)) * st).contiguous())
+        st = _group_table(qlin, qlin.w_scale)
+        qlin.tables = (st, (-_zero_table(qlin) * st).contiguous())
     return qlin.tables
+
+
+def zero_tables(qlin):
+    """qlin's scales and zeros as the fused MLP and W4A8 kernels take them,
+    (scale, zero - qmin), f32 [ngroups, N]: the weight is (q - z) * s on the
+    stored codes q. The scale is `kernel_tables`' own; the zero table is made
+    at the first call and kept on qlin (`qlin.ztable`)."""
+    if qlin.ztable is None:
+        qlin.ztable = _zero_table(qlin)
+    return kernel_tables(qlin)[0], qlin.ztable
+
+
+def f32_table(t):
+    """A [ngroups, N] scale or zero table as contiguous f32; a cached table
+    passes through uncopied."""
+    return t.to(torch.float32).contiguous()
 
 
 def qdot_ref(x32, packed, scale_t, bias_t, bits: int, group: int):

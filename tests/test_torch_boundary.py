@@ -13,8 +13,11 @@ import torch
 from mi_optimize_tpu_torch.models.llama import LlamaConfig, init_params
 from mi_optimize_tpu_torch.models.model import Model
 from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
-from mi_optimize_tpu_torch.ops import (block_fused, dequant_matmul, model_flat, model_flat_seg,
-                                       model_fused, paged_attention)
+from mi_optimize_tpu_torch.eval.ppl import compute_ppl
+from mi_optimize_tpu_torch.models.synthetic import with_w4a8
+from mi_optimize_tpu_torch.ops import (block_fused, decode_attention, dequant_matmul, mlp_fused,
+                                       model_flat, model_flat_seg, model_fused, paged_attention,
+                                       w4a8_matmul)
 from mi_optimize_tpu_torch.serving import engine, megadecode
 from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher, SpeculativeBatcher
 from mi_optimize_tpu_torch.serving.paged import (PagedBatcher, PagedMegaBatcher,
@@ -103,7 +106,8 @@ _COUNTERS = ((dequant_matmul, "launches"), (block_fused, "launches"), (model_fla
              (model_fused, "launches"), (model_fused, "launches_batch"),
              (model_fused, "launches_paged"), (model_fused, "launches_chunk"),
              (model_fused, "launches_lm"), (model_flat_seg, "launches"),
-             (paged_attention, "launches"))
+             (paged_attention, "launches"), (decode_attention, "launches"),
+             (mlp_fused, "launches"), (w4a8_matmul, "launches"))
 
 
 def _counts():
@@ -323,3 +327,68 @@ def test_paged_attention_validates_inputs_before_building():
     with pytest.raises(ValueError, match="positions"):
         launch(q, pk, pk, table, [0, pps * P], **kw)
     assert not paged_attention.paged_attention_supported(P, 64)
+
+
+@pytest.mark.parametrize("w4a8", [False, True])
+def test_unfused_path_on_cpu_takes_the_stock_route_and_counts_nothing(monkeypatch, w4a8):
+    """An unfused model on CPU tensors: generate and compute_ppl take the
+    stock path (the reference's on a CPU), even with MI_W4A8_INT=1, whose
+    integer product runs its plain version; no kernel is launched."""
+    cfg = LlamaConfig(vocab_size=64, hidden_size=256, intermediate_size=512, num_layers=2,
+                      num_heads=2, num_kv_heads=1, head_dim=128, max_seq_len=256)
+    params = build_quantized_llama(cfg, dtype=torch.float32, device="cpu")
+    model = Model(config=cfg, params=with_w4a8(params) if w4a8 else params)
+    monkeypatch.setenv("MI_W4A8_INT", "1")
+    for m, a in _COUNTERS:
+        setattr(m, a, 0)
+    prompt = np.arange(40)[None] % cfg.vocab_size
+    out = engine.generate(model, prompt, max_new_tokens=3, cache_dtype=torch.int8)
+    ppl = compute_ppl(model, [prompt, prompt[:, :33]])
+    assert out.shape == (1, 43) and np.isfinite(ppl) and ppl > 1.0
+    assert _counts() == (0,) * len(_COUNTERS)
+
+
+def test_unfused_launchers_validate_inputs_before_building():
+    """The decode attention, fused MLP and W4A8 launchers check dtype and
+    shape in Python before any pointer reaches native code (called here on
+    CPU tensors, they raise before the build is reached)."""
+    H, Hkv, D, T = 4, 2, 128, 64
+    q, kv = torch.zeros(1, H * D), torch.zeros(1, Hkv * D)
+    cs = torch.zeros(1, D)
+    ck, cks = torch.zeros(T, Hkv, D, dtype=torch.int8), torch.zeros(T, Hkv)
+    att = decode_attention._fused_decode_attention_cuda
+    kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=D, max_len=T)
+    with pytest.raises(TypeError, match="one dtype"):
+        att(q, kv.to(torch.bfloat16), kv, cs, cs, ck, ck, cks, cks, 3, **kw)
+    with pytest.raises(ValueError, match="position"):
+        att(q, kv, kv, cs, cs, ck, ck, cks, cks, T, **kw)
+    with pytest.raises(ValueError, match="cache_v"):
+        att(q, kv, kv, cs, cs, ck, ck[:, :, :64].contiguous(), cks, cks, 3, **kw)
+    with pytest.raises(ValueError, match="contract"):
+        att(q, kv, kv, cs, cs, ck, ck, cks, cks, 3, n_heads=3, n_kv_heads=2, head_dim=D,
+            max_len=T)
+
+    cfg = LlamaConfig(vocab_size=64, hidden_size=256, intermediate_size=512, num_layers=1,
+                      num_heads=2, num_kv_heads=1, head_dim=128, max_seq_len=256)
+    blk = build_quantized_llama(cfg, dtype=torch.float32, device="cpu")["layers"][0]
+    tabs = [t for n in ("gate_proj", "up_proj", "down_proj")
+            for t in (blk[n].packed, *dequant_matmul.zero_tables(blk[n]))]
+    mkw = dict(bits=4, k_group=128, i_group=128, qmin=0, inter=512, hidden=256)
+    x = torch.zeros(3, 256)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mlp_fused._fused_mlp_cuda(x.to(torch.float64), *tabs, **mkw)
+    with pytest.raises(ValueError, match="down words"):
+        mlp_fused._fused_mlp_cuda(x, *tabs[:6], tabs[6][:8].contiguous(), *tabs[7:], **mkw)
+    with pytest.raises(ValueError, match="unsupported"):
+        mlp_fused._fused_mlp_cuda(x, *tabs, **dict(mkw, inter=480))
+
+    lin = blk["q_proj"]
+    st, zt = dequant_matmul.zero_tables(lin)
+    xi = torch.zeros(40, 256, dtype=torch.int8)
+    w4 = w4a8_matmul._w4a8_matmul_int_cuda
+    with pytest.raises(ValueError, match="multiples"):
+        w4(xi, lin.packed, st, zt, bits=4, groupsize=16, qmin=0)
+    with pytest.raises(TypeError, match="int8"):
+        w4(xi.to(torch.int32), lin.packed, st, zt, bits=4, groupsize=128, qmin=0)
+    with pytest.raises(ValueError, match="scales"):
+        w4(xi, lin.packed, st[:1], zt, bits=4, groupsize=128, qmin=0)
