@@ -10,9 +10,7 @@ CPU and the GPU. A Python number as the divisor is another matter on the GPU:
 there PyTorch multiplies by its f32 reciprocal, which can be one ulp off the
 quotient (1/127 is not exact). `exact_div` hands the divisor over as a 0-dim
 tensor on x's device, which gives the reference's `exact_div` (the true
-quotient) everywhere; the W4A8 activation grid uses it. `find_qparams` still
-divides by Python numbers, one ulp off the reference on the GPU for some
-scales (ROADMAP.md C).
+quotient) everywhere; `find_qparams` and the W4A8 activation grid use it.
 """
 from __future__ import annotations
 
@@ -59,11 +57,11 @@ def find_qparams(x_min, x_max, rng: QRange, symmetric: bool) -> Tuple[torch.Tens
     x_max = torch.as_tensor(x_max, dtype=torch.float32)
     if symmetric:
         max_abs = torch.maximum(x_max.abs(), x_min.abs())
-        scale = torch.clamp(max_abs / float((rng.qmax - rng.qmin) // 2), min=_EPS)
+        scale = torch.clamp(exact_div(max_abs, float((rng.qmax - rng.qmin) // 2)), min=_EPS)
         zp_val = 0 if rng.qmin < 0 else (1 << (rng.bits - 1))
         zero = torch.full_like(scale, float(zp_val))
     else:
-        scale = torch.clamp((x_max - x_min) / float(rng.qmax - rng.qmin), min=_EPS)
+        scale = torch.clamp(exact_div(x_max - x_min, float(rng.qmax - rng.qmin)), min=_EPS)
         zero = rng.qmin - div_round(x_min, scale)
     return scale, zero
 

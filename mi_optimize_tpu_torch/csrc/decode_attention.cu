@@ -90,7 +90,7 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(DecodeAttnArgs a) 
   }
   const float kam = fmaxf(block_max(d < D ? fabsf(kr) : 0.f, red), 1e-8f);
   const float vam = fmaxf(block_max(d < D ? fabsf(vr) : 0.f, red), 1e-8f);
-  const float ksc = __fmul_rn(kam, 1.f / 127.f), vsc = __fmul_rn(vam, 1.f / 127.f);
+  const float ksc = __fmul_rn(kam, KV_RCP), vsc = __fmul_rn(vam, KV_RCP);
   if (d < D) {
     const float kq = fminf(fmaxf(rintf(__fdiv_rn(kr, ksc)), -127.f), 127.f);
     const float vq = fminf(fmaxf(rintf(__fdiv_rn(vr, vsc)), -127.f), 127.f);

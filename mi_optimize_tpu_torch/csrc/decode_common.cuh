@@ -42,6 +42,10 @@ constexpr int RED_FLOATS = NW * 33;  // tile_dot partials; block_sum uses the fi
 // kernel to 80 registers for a third block the grid never launches and lose
 // the GEMV loops' loads in flight.
 constexpr int COOP_PER_SM = 2;
+// The int8 KV scale is amax * KV_RCP: the reference writes amax / 127.0, which
+// XLA lowers to a multiply by the f32 reciprocal (models/llama.py KV_RCP),
+// 1/127 rounded to f32.
+constexpr float KV_RCP = 0x1.020408p-7f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -376,7 +380,7 @@ __device__ __forceinline__ void attention_item(const float* qkv, const float* co
   }
   const float kam = fmaxf(block_max(d < D ? fabsf(kr) : 0.f, red), 1e-8f);
   const float vam = fmaxf(block_max(d < D ? fabsf(vr) : 0.f, red), 1e-8f);
-  const float ksc = kam / 127.f, vsc = vam / 127.f;
+  const float ksc = __fmul_rn(kam, KV_RCP), vsc = __fmul_rn(vam, KV_RCP);
   if (d < D) {
     const float kq = fminf(fmaxf(rintf(kr / ksc), -127.f), 127.f);
     const float vq = fminf(fmaxf(rintf(vr / vsc), -127.f), 127.f);
@@ -409,7 +413,7 @@ __device__ __forceinline__ void chunk_kv_row(const float* qkv, const float* cos,
   }
   const float kam = fmaxf(block_max(d < D ? fabsf(kr) : 0.f, red), 1e-8f);
   const float vam = fmaxf(block_max(d < D ? fabsf(vr) : 0.f, red), 1e-8f);
-  const float ksc = kam / 127.f, vsc = vam / 127.f;
+  const float ksc = __fmul_rn(kam, KV_RCP), vsc = __fmul_rn(vam, KV_RCP);
   if (d < D) {
     krow[d] = (int8_t)fminf(fmaxf(rintf(kr / ksc), -127.f), 127.f);
     vrow[d] = (int8_t)fminf(fmaxf(rintf(vr / vsc), -127.f), 127.f);

@@ -7,20 +7,26 @@ mi_optimize_tpu/ops/dequant_matmul.py::_kernel (reached through
     y[M, N] = x[M, K] @ dequant(packed)^T,  dequant(q) = q*s + b,
     b = -(zero - qmin)*s  per (group, output column)
 
-What bounds it on an H100: at decode (M <= 8) every packed word is used M
-times, far below the ~295 operations per byte where the card stops being
-memory bound, so the time is the bytes of the packed words and scales over
-the memory rate. The GEMV-style kernel therefore gives each lane one output
-column (neighbouring lanes read neighbouring words of a words-major row, so
-the loads coalesce), splits K over the warps of a block, and never writes the
-dequantized weight anywhere. At prefill (M = 128) the work is 2*M*N*K
-operations on CUDA cores; the tiled kernel dequantizes a [32, 64] weight tile
-into shared memory once per block and reuses it for a 64-row x tile. Tensor
-cores (mma / wgmma) are later work.
+`route` picks one of its kernels for each call:
+  * "gemv16" (bf16 x, 4-bit words, M <= 16, group % 32 == 0): decode, the
+    lm_head in generate, the unfused model's linears. Bound by the bytes of
+    the packed words: every word is used M times, far below the ~295
+    operations a byte where the card stops being memory bound. The
+    reference's grouped rescale over centered codes on the tensor cores,
+    K split at group boundaries over enough blocks to fill the card, the
+    splits added in a fixed order (`gemv_splits`).
+  * "mma" (bf16 x, 4-bit words, any other M): prefill (M = 128) and PPL
+    (M = 2048). Bound by 2*M*N*K operations at M = 2048. Tensor cores on
+    weight tiles dequantized once a block to bf16 (`mma_plan` picks the
+    tile and how K is split).
+  * "cuda_core" (f32 x, or 2- and 8-bit words): CUDA-core kernels, a
+    GEMV at M <= 8 and a tiled kernel above. The f32 inputs stay off the
+    tensor cores: TF32 would not hold f32 results to the plain version.
 
 On CPU tensors the wrapper runs `dequant_matmul_ref`, which follows the
 reference path that M selects: the grouped rescale over centered codes for
-small M, and dequantize-to-x's-dtype-then-dot otherwise.
+small M, and dequantize-to-x's-dtype-then-dot otherwise (an f32 matmul of
+the rounded weights, on the card a CUDA-core product too).
 """
 from __future__ import annotations
 
@@ -32,7 +38,21 @@ from ..core.packing import unpack_words
 from ..core.qparams import qrange
 from ..models.quant_linear import group_size
 
-launches = 0  # kernel launches; chip_smoke.py resets and reads it
+# kernel launches by route; chip_smoke.py resets and reads them
+launches = 0          # "cuda_core" (f32 x, 2- and 8-bit words)
+launches_gemv16 = 0   # "gemv16"
+launches_mma = 0      # "mma"
+
+COUNTERS = {"cuda_core": "launches", "gemv16": "launches_gemv16", "mma": "launches_mma"}
+
+SMS = 132                     # an H100 SXM's SMs: what the tile and split choices fill
+GEMV_MAX_M = 16               # rows of the gemv16 kernel (its two mma row tiles)
+GEMV_COLS = 256               # columns a gemv16 block (4 warps of 64)
+GEMV_BLOCKS_PER_SM = 4        # gemv16 blocks to aim for: 16 warps an SM
+GEMV_SCRATCH = 64 << 20       # bytes of f32 split partials a gemv16 call may use
+MMA_TILES = ((64, 128), (128, 128))  # the mma kernel's tiles [BM, BN]: M <= 64, else
+MMA_STEP = 64                 # k a stage of the mma kernel (splits are whole steps)
+MMA_SCRATCH = 64 << 20        # bytes of f32 split partials an mma call may use
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -114,8 +134,69 @@ def dequant_matmul_ref(x, packed, scale_t, bias_t, bits: int, group: int):
     return y.to(x.dtype)
 
 
-def _packed_matmul_cuda(x, packed, scale_t, bias_t, bits: int, group: int):
-    global launches
+def route(M: int, dtype, bits: int, group: int) -> str:
+    """The kernel a call takes on the card: "gemv16" or "mma" for bf16 x
+    with 4-bit words (by M and the group), else "cuda_core"."""
+    if dtype == torch.bfloat16 and bits == 4:
+        return "gemv16" if M <= GEMV_MAX_M and group % 32 == 0 else "mma"
+    return "cuda_core"
+
+
+def gemv_splits(M: int, N: int, K: int, group: int) -> int:
+    """How many splits of K the gemv16 kernel takes: enough blocks to fill
+    the card, at most one split a group (split s covers groups [s*ng/S,
+    (s+1)*ng/S)), and at most GEMV_SCRATCH bytes of f32 partials."""
+    ng = K // group
+    cols = -(-N // GEMV_COLS)
+    want = -(-GEMV_BLOCKS_PER_SM * SMS // cols)
+    return max(1, min(ng, want, GEMV_SCRATCH // (4 * M * N)))
+
+
+def mma_plan(M: int, N: int, K: int):
+    """(tile [BM, BN], splits of K) of the mma kernel: the [64, 128] tile up
+    to 64 rows, else [128, 128]; where the tiles give fewer blocks than SMs,
+    K split into enough whole MMA_STEP steps for two blocks an SM (split s
+    covers steps [s*steps/S, (s+1)*steps/S)), within MMA_SCRATCH bytes of
+    f32 partials."""
+    tile = MMA_TILES[0] if M <= 64 else MMA_TILES[1]
+    tiles = -(-M // tile[0]) * -(-N // tile[1])
+    if tiles >= SMS:
+        return tile, 1
+    steps = -(-K // MMA_STEP)
+    return tile, max(1, min(steps, -(-2 * SMS // tiles), MMA_SCRATCH // (4 * M * N)))
+
+
+def fill_tile(M: int, N: int, tiles) -> int:
+    """Index of the first (largest) of `tiles` [BM, BN] that gives at least
+    two blocks an SM, else of the last."""
+    for i, (bm, bn) in enumerate(tiles[:-1]):
+        if -(-M // bm) * -(-N // bn) >= 2 * SMS:
+            return i
+    return len(tiles) - 1
+
+
+def aligned16(t):
+    """t, copied if its data does not start on 16 bytes (the kernels load
+    16 bytes a lane)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_counters = {}
+
+
+def _gemv_counters(dev, n: int):
+    """Zeroed int32 arrivals counters of the gemv16 kernel's column blocks on
+    dev (the kernel leaves them zero), kept for the next call."""
+    c = _counters.get(dev)
+    if c is None or c.numel() < n:
+        c = _counters[dev] = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+    return c
+
+
+def _packed_matmul_cuda(x, packed, scale_t, bias_t, bits: int, group: int, kernel=None):
+    """The card's product through `kernel` (a `route` name; by default the
+    route of the call's shape)."""
+    global launches, launches_gemv16, launches_mma
     from . import _build
 
     M, K = x.shape
@@ -134,26 +215,55 @@ def _packed_matmul_cuda(x, packed, scale_t, bias_t, bits: int, group: int):
     for t in (packed, scale_t, bias_t):
         if t.device != x.device:
             raise ValueError("dequant_matmul operands must share x's device")
-    x = x.contiguous()
-    packed = packed.contiguous()
-    scale_t = scale_t.to(torch.float32).contiguous()
-    bias_t = bias_t.to(torch.float32).contiguous()
+    kernel = kernel or route(M, x.dtype, bits, group)
+    if (kernel != "cuda_core" and (x.dtype, bits) != (torch.bfloat16, 4)
+            or kernel == "gemv16" and (M > GEMV_MAX_M or group % 32)):
+        raise ValueError(f"the {kernel} kernel does not take M={M} {x.dtype} {bits}-bit "
+                         f"group {group}")
+    x = aligned16(x.contiguous())
+    packed = aligned16(packed.contiguous())
+    scale_t = aligned16(scale_t.to(torch.float32).contiguous())
+    bias_t = aligned16(bias_t.to(torch.float32).contiguous())
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    fn = _build.load("dequant_matmul").mi_dequant_matmul
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(x.data_ptr(), packed.data_ptr(), scale_t.data_ptr(), bias_t.data_ptr(),
-             y.data_ptr(), M, N, K, bits, group, _DTYPES[x.dtype], _build.stream_ptr(x.device))
-    _build.check(err, "dequant_matmul")
-    launches += 1
+    lib = _build.load("dequant_matmul")
+    ptrs = [t.data_ptr() for t in (x, packed, scale_t, bias_t, y)]
+    stream = _build.stream_ptr(x.device)
+    if kernel == "gemv16":
+        splits = gemv_splits(M, N, K, group)
+        part = (torch.empty(splits, M, N, dtype=torch.float32, device=x.device) if splits > 1
+                else y)
+        cnt = _gemv_counters(x.device, -(-N // GEMV_COLS))
+        fn = lib.mi_dequant_matmul_gemv16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        err = fn(*ptrs, part.data_ptr(), cnt.data_ptr(), M, N, K, group, splits, stream)
+        launches_gemv16 += 1  # one launch counted, the last-block sum is inside it
+    elif kernel == "mma":
+        tile, splits = mma_plan(M, N, K)
+        part = (torch.empty(splits, M, N, dtype=torch.float32, device=x.device) if splits > 1
+                else y)
+        fn = lib.mi_dequant_matmul_mma
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        err = fn(*ptrs, part.data_ptr(), M, N, K, group, int(tile == MMA_TILES[1]), splits,
+                 stream)
+        launches_mma += 1  # one launch counted, with its split sum
+    else:
+        fn = lib.mi_dequant_matmul
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        err = fn(*ptrs, M, N, K, bits, group, _DTYPES[x.dtype], stream)
+        launches += 1
+    _build.check(err, f"dequant_matmul ({kernel})")
     return y
 
 
-def packed_matmul(x, packed, scale_t, bias_t, bits: int, group: int):
+def packed_matmul(x, packed, scale_t, bias_t, bits: int, group: int, kernel=None):
     """y = x @ dequant(packed) for a 2-D x: the CUDA kernel on GPU tensors,
-    the plain version on CPU tensors."""
+    the plain version on CPU tensors. `kernel` (a `route` name) launches
+    another kernel than the call's route, to time one against the other."""
     if x.is_cuda:
-        return _packed_matmul_cuda(x, packed, scale_t, bias_t, bits, group)
+        return _packed_matmul_cuda(x, packed, scale_t, bias_t, bits, group, kernel)
     return dequant_matmul_ref(x, packed, scale_t, bias_t, bits, group)
 
 

@@ -17,9 +17,11 @@ linears with dynamic symmetric signed int8 per-token or per-tensor
 activation quantization, with `MI_W4A8_INT=1` and at least 32 flattened rows.
 
 What bounds it on an H100: 2*M*N*K int8 operations against the bytes of the
-words, x and the tables; at M = 128 the bytes weigh the most. The kernel is
-the simple one: __dp4a on int8 codes staged in shared memory, a [64, 64]
-output tile a block.
+words, x and the tables; at M = 128 the bytes weigh the most, at M = 2048
+the operations. The kernel runs on the int8 tensor cores (mma.m16n8k32,
+int32 accumulators a group long) over a cp.async ring, with the words turned
+into int8 codes q - z once a block; `fill_tile` picks the largest of its
+tiles ([128, 64], [64, 64], [64, 32]) whose blocks fill the card.
 
 On CPU tensors `w4a8_matmul_int` runs the plain version, which computes
 each group's sum exactly in float64 (PyTorch has no int32 matmul on the GPU
@@ -35,11 +37,12 @@ import torch
 from ..core.packing import unpack_words
 from ..core.qparams import div_round, exact_div
 from .block_fused import _check_cuda
-from .dequant_matmul import f32_table, zero_tables
+from .dequant_matmul import aligned16, f32_table, fill_tile, zero_tables
 
 launches = 0  # kernel launches; chip_smoke.py resets and reads it
 
-_TK = 32  # csrc/w4a8_matmul.cu's k chunk: K and the group must be multiples
+_TK = 32                              # the mma's k step: K and the group must be multiples
+TILES = ((128, 64), (64, 64), (64, 32))  # csrc/w4a8_matmul.cu's tiles [BM, BN]
 
 
 def supports_w4a8(spec) -> bool:
@@ -84,18 +87,20 @@ def _w4a8_matmul_int_cuda(xi, packed_t, scales_t, zeros_t, *, bits, groupsize, q
     if bits != 4 or K % _TK or g % _TK or K % g:
         raise ValueError(f"w4a8 kernel takes 4-bit words with K and the group multiples of "
                          f"{_TK}: K={K} group={g} bits={bits}")
-    xi = xi.contiguous()
+    xi = aligned16(xi.contiguous())
     _check_cuda("xi", xi, dev, torch.int8)
     _check_cuda("packed", packed_t, dev, torch.int32, (K // 8, N))
+    packed_t = aligned16(packed_t)
     s, z = f32_table(scales_t), f32_table(zeros_t - qmin if qmin else zeros_t)
     _check_cuda("scales", s, dev, shape=(K // g, N))
     _check_cuda("zeros", z, dev, shape=(K // g, N))
     out = torch.empty(M, N, dtype=torch.float32, device=dev)
     fn = _build.load("w4a8_matmul").mi_w4a8_matmul
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     _build.check(fn(xi.data_ptr(), packed_t.data_ptr(), s.data_ptr(), z.data_ptr(),
-                    out.data_ptr(), M, N, K, g, _build.stream_ptr(dev)), "w4a8_matmul")
+                    out.data_ptr(), M, N, K, g, fill_tile(M, N, TILES), _build.stream_ptr(dev)),
+                 "w4a8_matmul")
     launches += 1
     return out
 

@@ -102,7 +102,8 @@ def test_batcher_refuses_more_slots_than_the_batched_kernel_takes():
     assert b._mega is None and b.cache[0]["k"].shape[0] == n
 
 
-_COUNTERS = ((dequant_matmul, "launches"), (block_fused, "launches"), (model_flat, "launches"),
+_COUNTERS = ((dequant_matmul, "launches"), (dequant_matmul, "launches_gemv16"),
+             (dequant_matmul, "launches_mma"), (block_fused, "launches"), (model_flat, "launches"),
              (model_fused, "launches"), (model_fused, "launches_batch"),
              (model_fused, "launches_paged"), (model_fused, "launches_chunk"),
              (model_fused, "launches_lm"), (model_flat_seg, "launches"),

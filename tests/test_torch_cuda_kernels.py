@@ -13,8 +13,11 @@ batchers against the CPU; the decode attention (codes and scales bitwise
 against its plain version), the fused MLP (M from 1 to 130, int2/4/8,
 per-group and per-channel, the same bits on every run), the W4A8 integer
 product (bitwise), the unfused path (generate, compute_ppl, int4 and W4A8)
-against the CPU, and the W4A8 activation and KV quantizers bitwise against
-the CPU.
+against the CPU, and the W4A8 activation and KV quantizers and
+`find_qparams` bitwise against the CPU; the bf16 int4 dequant_matmul
+kernels (gemv16 up to 16 rows, mma above) at M from 1 to 2048, the same
+bits on a second launch; and the new int8 KV rows of the per-layer, flat and
+batched decode kernels bitwise against their plain versions.
 
 Needs an NVIDIA GPU and nvcc; every test skips without one. On the card:
 
@@ -27,6 +30,7 @@ Tolerances: kernel and plain version sum in different orders in float32, so
 outputs agree to 1e-4 of their largest magnitude; int8 rows to one code on
 at most 0.1% of entries; greedy tokens exactly."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -112,11 +116,45 @@ def test_dequant_matmul(dev, dtype, bits, qtype, groupsize, symmetric, M):
     lin = _to(_linear(N, K, bits, qtype, groupsize, symmetric, seed=M + bits), dev)
     st, bt = dequant_matmul.kernel_tables(lin)
     x = torch.randn(M, K, generator=torch.Generator().manual_seed(M)).to(dtype).to(dev)
-    before = dequant_matmul.launches
+    counter = dequant_matmul.COUNTERS[dequant_matmul.route(M, dtype, bits, group_size(lin))]
+    before = getattr(dequant_matmul, counter)
     y = dequant_matmul.packed_matmul(x, lin.packed, st, bt, bits, group_size(lin))
-    assert dequant_matmul.launches == before + 1 and y.dtype == dtype
+    assert getattr(dequant_matmul, counter) == before + 1 and y.dtype == dtype
     ref = dequant_matmul.dequant_matmul_ref(x, lin.packed, st, bt, bits, group_size(lin))
     _close(y, ref, RTOL if dtype == torch.float32 else 2e-2)
+
+
+@functools.lru_cache(maxsize=None)
+def _int4_linear(N, K, qtype, groupsize, symmetric):
+    return _to(_linear(N, K, 4, qtype, groupsize, symmetric, seed=K + groupsize), "cuda")
+
+
+@pytest.mark.parametrize("qtype,groupsize,symmetric", [
+    ("per_group", 32, False), ("per_group", 64, True), ("per_group", 128, True),
+    ("per_group", 128, False), ("per_channel", -1, True)])
+@pytest.mark.parametrize("K,N", [(384, 200), (4096, 4096)])
+@pytest.mark.parametrize("M", [1, 2, 8, 9, 16, 17, 64, 65, 128, 2048])
+def test_dequant_matmul_bf16_int4(dev, M, K, N, qtype, groupsize, symmetric):
+    """bf16 x with 4-bit words, the served case: the gemv16 kernel at M <= 16
+    (grouped rescale, split K) and the tensor-core mma kernel above. Within
+    2e-2 of max|plain| (bf16 output; the f32 sums run in other orders), the
+    same bits on a second launch (fixed-order split sums, no atomics on
+    floats), and only the route's own counter moves."""
+    lin = _int4_linear(N, K, qtype, groupsize, symmetric)
+    st, bt = dequant_matmul.kernel_tables(lin)
+    g = group_size(lin)
+    x = torch.randn(M, K, generator=torch.Generator().manual_seed(M)).to(torch.bfloat16).to(dev)
+    kernel = dequant_matmul.route(M, torch.bfloat16, 4, g)
+    assert kernel == ("gemv16" if M <= 16 else "mma")
+    before = {c: getattr(dequant_matmul, c) for c in dequant_matmul.COUNTERS.values()}
+    y1 = dequant_matmul.packed_matmul(x, lin.packed, st, bt, 4, g)
+    y2 = dequant_matmul.packed_matmul(x, lin.packed, st, bt, 4, g)
+    torch.cuda.synchronize()
+    moved = {c: getattr(dequant_matmul, c) - n for c, n in before.items()}
+    assert moved == {c: 2 if c == dequant_matmul.COUNTERS[kernel] else 0 for c in moved}
+    assert y1.dtype == torch.bfloat16 and torch.equal(y1, y2)
+    ref = dequant_matmul.dequant_matmul_ref(x, lin.packed, st, bt, 4, g)
+    _close(y1, ref, 2e-2)
 
 
 def _small(device, bits=4, groupsize=128, head_dim=128, layers=2, seed=0, symmetric=True,
@@ -260,6 +298,98 @@ def test_model_decode_mega_batch(dev, bits, symmetric, head_dim, inter, group, B
     _rows_match(got[2], ref[2])
     _close(got[3], ref[3], 1e-5)
     _close(got[4], ref[4], 1e-5)
+
+
+def _exact_int4(codes, scale_exp, groupsize):
+    """A symmetric int4 per-group linear with the given centered codes [out,
+    in] (-8..7) and scales 2^-scale_exp [out, in/groupsize]."""
+    out_f, in_f = codes.shape
+    spec = QuantSpec(wbit=4, w_qtype="per_group", w_groupsize=groupsize, w_symmetric=True,
+                     w_packed=True)
+    ints = torch.as_tensor(codes + 8, dtype=torch.int32)
+    return QuantizedLinear(spec=spec, out_features=out_f, in_features=in_f,
+                           packed=packing.pack_weight_device(ints, 4, qrange(4, True)),
+                           w_scale=torch.as_tensor(2.0 ** -scale_exp, dtype=torch.float32),
+                           w_zero=torch.full(scale_exp.shape, 8.0))
+
+
+AMAX_CODE = 104  # 104 / 127 and 104 * f32(1/127) round to different f32 (an ulp apart)
+
+
+def _exact_rows_model(dev, seed=0):
+    """A 1-layer bf16 model on which the new k/v rows leave no room for sum
+    orders: x is all ones, so the normed activation is exactly 1 (bf16
+    rounding, norm weight 1); the q/k/v codes are small integers with
+    power-of-two scales, so every qkv dot is exact in f32 whatever its
+    order; the second half of each k head is zero, so RoPE rounds once,
+    x*cos or x'*sin, in the kernels and in the plain versions alike; and
+    every v head peaks at AMAX_CODE / 16, where amax / 127 (the kernels'
+    old scale) and amax * f32(1/127) (the reference's, llama.KV_RCP)
+    differ. Any difference in the rows is then the scale or code formula."""
+    cfg = LlamaConfig(vocab_size=160, hidden_size=512, intermediate_size=1024, num_layers=1,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    p = build_quantized_llama(cfg, dtype=torch.bfloat16, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    h, D, g = cfg.hidden_size, cfg.head_dim, 128
+    kv = cfg.num_kv_heads * D
+    blk = p["layers"][0]
+    blk["q_proj"] = _exact_int4(rng.integers(-8, 8, (cfg.num_heads * D, h)),
+                                rng.integers(4, 8, (cfg.num_heads * D, h // g)), g)
+    k = rng.integers(-1, 2, (kv, h))
+    k.reshape(cfg.num_kv_heads, D, h)[:, D // 2:] = 0
+    blk["k_proj"] = _exact_int4(k, rng.integers(4, 8, (kv, h // g)), g)
+    v = rng.integers(-1, 2, (kv, h))
+    v.reshape(cfg.num_kv_heads, D, h)[:, 0] = 0
+    v.reshape(cfg.num_kv_heads, D, h)[:, 0, :AMAX_CODE] = 1          # column 0 of each head
+    assert np.abs(v.sum(1)).reshape(cfg.num_kv_heads, D)[:, 1:].max() < AMAX_CODE
+    blk["v_proj"] = _exact_int4(v, np.full((kv, h // g), 4), g)
+    return cfg, fuse_for_serving(Model(config=cfg, params=_to(p, dev)))
+
+
+def test_new_kv_rows_bit_equal_to_the_plain_versions(dev):
+    """The int8 k/v rows and scales that the per-layer (B2), flat (B3) and
+    batched (B5 mode a) decode kernels append are the plain versions' bit for
+    bit, on inputs where only the quantization formula can differ
+    (`_exact_rows_model`): the scale is amax * f32(1/127) as in the
+    reference."""
+    old = torch.tensor(AMAX_CODE / 16, dtype=torch.float32) / 127
+    assert float(old) != float(torch.tensor(AMAX_CODE / 16) * llama.KV_RCP)
+    cfg, gpu = _exact_rows_model(dev)
+    h, T = cfg.hidden_size, 256
+
+    def same(got, ref):
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+    blk, pos = gpu.params["layers"][0], 130
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+    x = torch.ones(1, 1, h, dtype=torch.bfloat16, device=dev)
+    args = (blk, blk["mega"], x, cos.reshape(-1), sin.reshape(-1),
+            _to(_cache(cfg, T, pos, seed=1), dev), pos, cfg)
+    got, ref = block_fused.block_decode_rows(*args), block_fused.block_decode_ref(*args)
+    same(got[1:], ref[1:])
+    vs = ref[4].float()
+    assert torch.all(vs == torch.tensor(AMAX_CODE / 16, device=dev) * llama.KV_RCP)
+
+    fstack, fmeta = stack_flat(gpu)
+    pos = 150
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+    args = (fstack, x, torch.cat([cos.reshape(-1), sin.reshape(-1)]),
+            stack_cache_flat([_to(_cache(cfg, T, pos, seed=2), dev)]), pos, cfg, fmeta)
+    got, ref = model_flat.model_decode_flat(*args), model_flat.model_decode_flat_ref(*args)
+    same(got[2:], ref[2:])
+
+    stack, meta = megadecode.stack_serving(gpu)
+    positions = POSITIONS * 2
+    B = len(positions)
+    slots = [_cache(cfg, T_MEGA, p, seed=b) for b, p in enumerate(positions)]
+    cache = {f: torch.stack([c[f].transpose(1, 2) for c in slots], dim=1).contiguous().to(dev)
+             for f in slots[0]}
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    args = (stack, torch.ones(B, 1, h, dtype=torch.bfloat16, device=dev), cos.reshape(B, -1),
+            sin.reshape(B, -1), cache, positions, cfg, meta)
+    got = model_fused.model_decode_mega_batch(*args)
+    same(got[1:], model_fused.model_decode_mega_batch_ref(*args)[1:])
 
 
 def test_batcher_and_model_loop_match_the_cpu(dev):
@@ -685,7 +815,8 @@ def test_mlp_fused(dev, dtype, bits, groupsize, down_qtype, M):
 
 @pytest.mark.parametrize("M,N,K,groupsize", [
     (32, 128, 256, 32), (40, 200, 384, 128), (128, 96, 512, -1), (1, 64, 128, 128),
-    (130, 256, 11008 // 8, -1), (77, 64, 4096, 128)])
+    (130, 256, 11008 // 8, -1), (77, 64, 4096, 128), (33, 4096, 4096, 128),
+    (2048, 4096, 4096, 128), (2048, 11008, 4096, -1), (2048, 200, 11008, 128)])
 def test_w4a8_matmul(dev, M, N, K, groupsize):
     """The integer product bit-equal to its plain version (exact group sums,
     scaled and added in order), symmetric and asymmetric zeros."""
@@ -720,9 +851,6 @@ def test_quantizers_match_the_cpu(dev):
         assert torch.equal(a, b.cpu())
 
 
-@pytest.mark.xfail(strict=True, reason="open fault, ROADMAP.md C: find_qparams divides by "
-                   "Python numbers, which PyTorch on the GPU turns into a multiply by the "
-                   "f32 reciprocal; the reference divides exactly (the CPU's result)")
 @pytest.mark.parametrize("symmetric", [False, True])
 def test_find_qparams_matches_the_cpu(dev, symmetric):
     """int4 g128 weight scales and zeros made on the card equal the CPU's
