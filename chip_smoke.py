@@ -5,7 +5,9 @@
 
 Phases:
   1. build the CUDA kernels under mi_optimize_tpu_torch/csrc/ with nvcc
-     (one nvcc per source, all at once) into build/torch_kernels/;
+     (one nvcc per source, all at once) into build/torch_kernels/, and
+     report ptxas's registers and spills of every batch_kernel instance
+     from the build's own -Xptxas -v log;
   2. hold each kernel against its plain PyTorch version on the card at the
      Llama-2-7B shapes of the paths below in bf16, and time both: the
      dequant matmul (the gemv16 kernel at M = 1, the tensor-core mma kernel
@@ -13,7 +15,9 @@ Phases:
      the same operands, which keeps the f32 inputs: M = 1 and 128 in f32),
      the per-layer and flat decode kernels, the whole-model
      kernel on an asymmetric grid (bias tables streamed), the batched
-     whole-model kernel at B = 8 (and B = 2 on the asymmetric grid), in its
+     whole-model kernel at B = 8 (and B = 2 on the asymmetric grid, and B = 8
+     with every slot at position 0: its GEMVs and barriers with next to no
+     attention), in its
      paged mode on a pool that mirrors the B = 8 state (bitwise equal to the
      dense mode), in its chunk mode (8 tokens after a 256-row paged prefix;
      two slots of 4 tokens at prefixes 0 and 300), its terminal lm rows
@@ -143,6 +147,46 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     """(least ms the card could take, what bounds it)."""
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def ptxas_report() -> list:
+    """Registers and spill bytes of each batch_kernel instance, from ptxas's
+    report of model_fused.cu's build: [{"instance": "batch_kernel<T, BITS,
+    NB, GEN, LM>", "registers", "spill_stores", "spill_loads"}], logged one
+    a line."""
+    import re
+
+    from mi_optimize_tpu_torch.ops import _build
+
+    log_text = _build.ptxas_log("model_fused")
+    rows, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"batch_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb(\d)ELb(\d)E",
+                          m.group(1))
+            cur = None
+            if k:
+                t = "float" if k.group(1) == "f" else "bf16"
+                cur = {"instance": f"batch_kernel<{t}, {k.group(2)}, {k.group(3)}, "
+                                   f"GEN={k.group(4)}, LM={k.group(5)}>",
+                       "spill_stores": 0, "spill_loads": 0}
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    for r in rows:
+        log(f"  ptxas: {r['instance']}: {r.get('registers')} registers, {r['spill_stores']} "
+            f"bytes spill stores, {r['spill_loads']} bytes spill loads")
+    if not rows:
+        raise AssertionError("ptxas reported no batch_kernel instance")
+    return rows
 
 
 def nbytes(*ts) -> int:
@@ -2370,6 +2414,7 @@ def main() -> int:
     _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"  built {', '.join(_build.SOURCES)} in {report['build_s']:.1f} s")
+    report["ptxas_batch_kernel"] = ptxas_report()
 
     cfg = LlamaConfig.llama2_7b()
 
@@ -2428,6 +2473,8 @@ def main() -> int:
     sstack, smeta = stack_serving(model)  # the layers' stack the flat one extends, not a copy
     dense_positions = [0, 17, 64, 127, 128, 200, 383, 510]
     rows += check_mega_batch(model, sstack, smeta, cfg, dev, flush, 5, dense_positions)
+    rows += check_mega_batch(model, sstack, smeta, cfg, dev, flush, 5, [0] * 8,
+                             label="every slot at position 0, ")
     log("phase 2b: the batched kernel's bf16 gate against three planted faults")
     report["planted_faults"] = planted_faults(model, sstack, smeta, cfg, dev, dense_positions)
     rows += check_mega_batch_paged(model, sstack, smeta, cfg, dev, flush, 5, dense_positions)

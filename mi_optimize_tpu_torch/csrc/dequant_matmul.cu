@@ -205,16 +205,6 @@ int dispatch_bits(const void* x, const int32_t* W, const float* S, const float* 
 // bf16 x, 4-bit words: tensor-core kernels
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t bits_of(__nv_bfloat162 h) { return *(uint32_t*)&h; }
-
-// Fields j and j+4 of a 4-bit word as bf16x2 (q_j - 8, q_{j+4} - 8): the
-// fields sit 16 bits apart, so one mask lays both into the mantissas of
-// bf16 128.0 (0x4300 | q = 128 + q, exact), and one sub removes 136.
-__device__ __forceinline__ uint32_t centered_pair(uint32_t w, int j) {
-  const uint32_t p = ((w >> (4 * j)) & 0x000F000Fu) | 0x43004300u, c = 0x43084308u;  // 136
-  return bits_of(__hsub2(*(const __nv_bfloat162*)&p, *(const __nv_bfloat162*)&c));
-}
-
 // A 4-bit field as an exact float: 2^23 + q has q in its low mantissa bits.
 __device__ __forceinline__ float field_f(uint32_t w, int i) {
   return __int_as_float(((w >> (4 * i)) & 15u) | 0x4B000000u) - 8388608.f;

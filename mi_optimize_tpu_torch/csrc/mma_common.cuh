@@ -1,6 +1,8 @@
-// Tensor-core building blocks shared by the packed-int4 linear kernels
-// (dequant_matmul.cu, w4a8_matmul.cu): cp.async copies into a shared-memory
-// ring, ldmatrix fragment loads and mma.sync on sm_90a.
+// Tensor-core building blocks shared by the packed-int4 kernels
+// (dequant_matmul.cu, w4a8_matmul.cu, and the batched whole-model kernel's
+// GEMV in batch_gemv.cuh): cp.async copies into a shared-memory ring,
+// ldmatrix fragment loads, 4-bit fields as centered bf16 pairs and
+// mma.sync on sm_90a.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 / m16n8k32, lane = 4*gq + t):
 //   A (16 x k, row):  a0 (row gq,   k slots 2t..), a1 (row gq+8, same),
@@ -46,6 +48,16 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(smem)));
+}
+
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat162 h) { return *(uint32_t*)&h; }
+
+// Fields j and j+4 of a 4-bit word as bf16x2 (q_j - 8, q_{j+4} - 8): the
+// fields sit 16 bits apart, so one mask lays both into the mantissas of
+// bf16 128.0 (0x4300 | q = 128 + q, exact), and one sub removes 136.
+__device__ __forceinline__ uint32_t centered_pair(uint32_t w, int j) {
+  const uint32_t p = ((w >> (4 * j)) & 0x000F000Fu) | 0x43004300u, c = 0x43084308u;  // 136
+  return bits_of(__hsub2(*(const __nv_bfloat162*)&p, *(const __nv_bfloat162*)&c));
 }
 
 // d += a * b, bf16 inputs, f32 accumulators.

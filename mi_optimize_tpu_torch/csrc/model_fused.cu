@@ -18,18 +18,25 @@
 // scales; otherwise the bias is -zc*s in registers.
 //
 // The batched kernel reads each packed word ONCE per step and applies it to
-// all B rows: a lane loads a word and its scale once, dequantizes each value
-// once and keeps NB (>= B) accumulators. The B activation rows are staged in
-// shared memory KC columns at a time (NB x KC floats, 32 KB at NB = 8), not
-// whole: at B = 8 the down projection's input alone would be 352 KB, more
-// than a block may have. Attention runs one (slot, q head) work item per
-// block, over the slot's head-transposed cache [L, B, Hkv, T, D] up to its
-// own position (a free slot at position 0 has no history). New int8 rows and
-// scales go out for the caller to scatter.
+// all B rows. With 4-bit words (every served model) its GEMV phases run on
+// the tensor cores (batch_gemv.cuh): the reference's grouped rescale over
+// centered codes, mma.m16n8k16 with the rows as an n8 operand, rows staged
+// as exact bf16 planes a window of K at a time, each GEMV cut into (column
+// tile x K split) items by the host's plan with the partials added in
+// split order by each tile's last block. With 2- and 8-bit words a lane
+// loads a word and its scale once, dequantizes each value once and keeps
+// NB (>= B) accumulators; the B activation rows are staged in shared memory
+// KC columns at a time (NB x KC floats, 32 KB at NB = 8). Either way the
+// rows are staged a window at a time, not whole: at B = 8 the down
+// projection's input alone would be 352 KB, more than a block may have.
+// Attention runs one (slot, q head) work item per block, over the slot's
+// head-transposed cache [L, B, Hkv, T, D] up to its own position (a free
+// slot at position 0 has no history). New int8 rows and scales go out for
+// the caller to scatter.
 //
 // Terminal lm rows (d), with any of the modes above: after the last layer,
 // every row's final rmsnorm, its f32 logits over the packed lm_head (each
-// word read once for all rows, like the layers' GEMVs) and a first-index
+// word read once for all rows, by the layers' GEMV) and a first-index
 // argmax: per-block (max, index) pairs a row, which block 0 reduces after
 // one more grid barrier (model_flat.cu's lm phase, NB rows wide). It adds
 // the lm_head's words and scales to the step's bytes. Launches with lm rows
@@ -48,6 +55,7 @@
 // the single P2 and its barrier count. Paged and chunk launches take a
 // second instance of the kernel (GEN = true, NB = 8 only, to bound the
 // build), so the dense instances compile as before.
+#include "batch_gemv.cuh"
 #include "decode_common.cuh"
 
 // Host-side argument blocks, mirrored field by field by the ctypes
@@ -100,6 +108,14 @@ struct BatchArgs {
   float* part_val; int* part_idx;                         // [max_blocks, 8] (block, row)
   int vocab, g_ue, max_blocks;                            // max_blocks caps the grid
   float zc_ue;
+  // 4-bit words (batch_gemv.cuh): the plan of the GEMVs qkv, o, gate/up,
+  // down, lm_head (warp strips a tile, K splits), the splits' f32 partials
+  // (n_part floats), one counter a tile (n_counters; the kernel zeroes them)
+  // and the tiles' row sums of squares [n_counters, 8]
+  int plan_ws[mi::BG_GEMVS], plan_splits[mi::BG_GEMVS];
+  float* part; int* counters;
+  int n_counters, n_part;
+  float* ssq;
 };
 
 namespace {
@@ -178,16 +194,21 @@ constexpr int KC = 1024;  // activation columns staged in shared memory per chun
 
 constexpr int MAX_NC = 2;  // weight columns a lane computes from one staging (gate and up)
 
-// Shared memory floats of the batched kernel: the staged chunk (or the
-// attention buffers), the warps' MAX_NC x NB x 32 partial sums, NB row norms.
-__host__ __device__ inline int batch_xs_floats(int nb, int head_dim) {
-  int v = nb * KC;
+// Shared memory floats of the batched kernel: the staged rows (4-bit: the
+// tensor-core GEMV's planes and word sums; else the NB x KC chunk) or the
+// attention buffers, the reductions' floats (4-bit: block sums and the lm
+// rows' argmax; else the warps' MAX_NC x NB x 32 partial sums), NB row norms.
+__host__ __device__ inline int batch_xs_floats(int bits, int nb, int head_dim) {
+  int v = bits == 4 ? bg_smem_floats() : nb * KC;
   const int att = 3 * head_dim + NW * (head_dim + 2);
   if (att > v) v = att;
   return (v + 3) & ~3;
 }
-__host__ __device__ inline int batch_smem_floats(int nb, int head_dim) {
-  return batch_xs_floats(nb, head_dim) + NW * MAX_NC * nb * 33 + nb;
+__host__ __device__ inline int batch_red_floats(int bits, int nb) {
+  return bits == 4 ? RED_FLOATS : NW * MAX_NC * nb * 33;
+}
+__host__ __device__ inline int batch_smem_floats(int bits, int nb, int head_dim) {
+  return batch_xs_floats(bits, nb, head_dim) + batch_red_floats(bits, nb) + nb;
 }
 
 // rstd[m] = 1/sqrt(mean(x[m]^2) + eps) for rows m < B of x [B, h] (f32 scratch).
@@ -202,6 +223,12 @@ __device__ __forceinline__ void row_rstd(float* rstd, const float* x, int B, int
     ss = block_sum(ss, red);
     if (threadIdx.x == 0) rstd[m] = 1.f / sqrtf(ss / (float)h + eps);
   }
+}
+
+// The tiles of plan p's GEMV over an h-wide output (o_proj, down_proj): the
+// tiles of its sums of squares.
+__device__ __forceinline__ int plan_tiles(const BatchArgs& f, int p) {
+  return bg_tiles(f.hidden, 1, f.plan_ws[p]);
 }
 
 // Sources of the activation rows a batched GEMV stages: row m, columns
@@ -392,18 +419,18 @@ __device__ __forceinline__ PagedChunkHist chunk_hist(const BatchArgs& f, int l, 
   return h;
 }
 
-// Mode (d): the final rmsnorm of every row, its logits and its first-index
-// argmax into f.tokens, after the last layer's residual rows (the caller's
-// grid barrier) are complete. Only the LM instances compile it: inside the
-// other instances it raised the paged/chunk instance's spills (80 -> 96
-// bytes) and made those launches 3-5% slower; as a call it made every
-// instance 17% slower.
+// (max, first index) of two candidates.
+__device__ __forceinline__ void arg_best(float& bv, int& bi, float v, int i) {
+  if (v > bv || (v == bv && i < bi)) { bv = v; bi = i; }
+}
+
+// Mode (d)'s logits with 2- and 8-bit words: the CUDA-core tile_dot_b over
+// 32-column tiles, and this block's (max, first index) of each row into
+// f.part_val / f.part_idx.
 template <class T, int BITS, int NB>
-__device__ __forceinline__ void lm_rows(const BatchArgs& f, const float* xres, float* xs,
-                                        float* red, float* rstd) {
-  cg::grid_group grid = cg::this_grid();
+__device__ __forceinline__ void lm_logits_cuda_core(const BatchArgs& f, const float* xres,
+                                                    float* xs, float* red, const float* rstd) {
   const int B = f.batch, h = f.hidden, V = f.vocab;
-  row_rstd(rstd, xres, B, h, f.eps, red);
   float best[NB];
   int best_i[NB];
 #pragma unroll
@@ -441,6 +468,67 @@ __device__ __forceinline__ void lm_rows(const BatchArgs& f, const float* xres, f
       f.part_idx[(long)blockIdx.x * 8 + m] = best_i[m];
     }
   }
+}
+
+// Mode (d)'s logits with 4-bit words: the tensor-core GEMV. A lane's
+// outputs are rows 2t and 2t + 1 (t = lane % 4); it keeps the best of each
+// over the columns it finishes, then the warp's lanes and the block's warps
+// (in order) reduce them into f.part_val / f.part_idx.
+template <class T>
+__device__ __forceinline__ void lm_logits_mma(const BatchArgs& f, const float* xres, float* xs,
+                                              float* red, const float* rstd) {
+  static_assert(RED_FLOATS >= 2 * NW * 8, "the warps' (max, index) pairs fit in red");
+  const int B = f.batch, h = f.hidden, V = f.vocab;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float bv[2] = {-INFINITY, -INFINITY};
+  int bi[2] = {0x7fffffff, 0x7fffffff};
+  bg_gemv<NormPlanes<T>::n, 1>(
+      xs, B, h, RowsNorm<T>{xres, h, (const T*)f.fnorm, rstd}, f.ue, f.ues, nullptr, f.zc_ue, V,
+      f.g_ue, V, 0, f.plan_ws[4], f.plan_splits[4], f.part, f.counters, nullptr,
+      [&](int m, int n, const float* v) {
+        f.logits[(long)m * V + n] = v[0];
+        if (m & 1) arg_best(bv[1], bi[1], v[0], n);
+        else arg_best(bv[0], bi[0], v[0], n);
+        return 0.f;
+      });
+  int* red_i = reinterpret_cast<int*>(red) + NW * 8;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+      arg_best(bv[e], bi[e], __shfl_xor_sync(0xffffffffu, bv[e], o),
+               __shfl_xor_sync(0xffffffffu, bi[e], o));
+    if (lane < 4) {
+      red[warp * 8 + 2 * lane + e] = bv[e];
+      red_i[warp * 8 + 2 * lane + e] = bi[e];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 8) {
+    const int m = threadIdx.x;
+    float b = -INFINITY;
+    int i = 0x7fffffff;
+    for (int w = 0; w < NW; ++w) arg_best(b, i, red[w * 8 + m], red_i[w * 8 + m]);
+    f.part_val[(long)blockIdx.x * 8 + m] = b;
+    f.part_idx[(long)blockIdx.x * 8 + m] = i;
+  }
+}
+
+// Mode (d): the final rmsnorm of every row, its logits and its first-index
+// argmax into f.tokens, after the last layer's residual rows (the caller's
+// grid barrier) are complete. Only the LM instances compile it: inside the
+// other instances it raised the paged/chunk instance's spills (80 -> 96
+// bytes) and made those launches 3-5% slower; as a call it made every
+// instance 17% slower.
+template <class T, int BITS, int NB>
+__device__ __forceinline__ void lm_rows(const BatchArgs& f, const float* xres, float* xs,
+                                        float* red, float* rstd) {
+  cg::grid_group grid = cg::this_grid();
+  const int B = f.batch;
+  if (BITS == 4) bg_rstd(rstd, f.ssq, plan_tiles(f, 3), B, f.hidden, f.eps);
+  else row_rstd(rstd, xres, B, f.hidden, f.eps, red);
+  if constexpr (BITS == 4) lm_logits_mma<T>(f, xres, xs, red, rstd);
+  else lm_logits_cuda_core<T, BITS, NB>(f, xres, xs, red, rstd);
   grid.sync();
   if (blockIdx.x == 0 && threadIdx.x < B) {
     const int m = threadIdx.x;
@@ -455,13 +543,29 @@ __device__ __forceinline__ void lm_rows(const BatchArgs& f, const float* xres, f
   }
 }
 
+// A GEMV phase of batch_kernel: with 4-bit words the tensor-core GEMV (NP
+// bf16 planes a row, plan `p` of f), else the CUDA-core gemv_b. Static: a
+// 4-bit instance never compiles gemv_b.
+template <int BITS, int NB, int NP, int NC, class Src, class Epi>
+__device__ __forceinline__ void phase_gemv(const BatchArgs& f, int p, float* xs, float* red,
+                                           int B, int K, const Src& src, const int32_t* W,
+                                           const float* S, const float* Bt, float zc, int ldw,
+                                           int g, int ncols, int cstride, float* ssq, Epi epi) {
+  if constexpr (BITS == 4)
+    bg_gemv<NP, NC>(xs, B, K, src, W, S, Bt, zc, ldw, g, ncols, cstride, f.plan_ws[p],
+                    f.plan_splits[p], f.part, f.counters, ssq, epi);
+  else
+    gemv_b<BITS, NB, NC>(xs, B, K, src, W, S, Bt, zc, ldw, g, ncols, cstride, red, epi);
+}
+
 template <class T, int BITS, int NB, bool GEN, bool LM>
 __global__ void __launch_bounds__(NT, COOP_PER_SM) batch_kernel(BatchArgs f) {
   extern __shared__ float smem[];
   const int D = f.head_dim;
-  float* xs = smem;  // [NB][KC] staged chunk, or the attention buffers
-  float* red = smem + batch_xs_floats(NB, D);
-  float* rstd = red + NW * MAX_NC * NB * 33;
+  float* xs = smem;  // the staged rows, or the attention buffers
+  float* red = smem + batch_xs_floats(BITS, NB, D);
+  float* rstd = red + batch_red_floats(BITS, NB);
+  constexpr int NPN = NormPlanes<T>::n;  // bf16 planes of a normed row (an f32 row: BG_PLANES)
   cg::grid_group grid = cg::this_grid();
 
   const int B = f.batch, h = f.hidden, I = f.inter, L = f.n_layers, T_ = f.max_len;
@@ -477,6 +581,9 @@ __global__ void __launch_bounds__(NT, COOP_PER_SM) batch_kernel(BatchArgs f) {
 
   for (long i = (long)blockIdx.x * NT + threadIdx.x; i < (long)B * h; i += (long)gridDim.x * NT)
     xres[i] = to_f(x[i]);
+  if constexpr (BITS == 4)
+    for (int i = blockIdx.x * NT + threadIdx.x; i < f.n_counters; i += gridDim.x * NT)
+      f.counters[i] = 0;
   grid.sync();
 
   const long tq = (long)(h / f.g_qkv) * nqkv, to = (long)(qdim / f.g_o) * h;
@@ -485,13 +592,18 @@ __global__ void __launch_bounds__(NT, COOP_PER_SM) batch_kernel(BatchArgs f) {
     const T* n1 = (const T*)f.n1 + (long)l * h;
     const T* n2 = (const T*)f.n2 + (long)l * h;
 
-    // P1: rmsnorm of every row (model-dtype rounding points) -> qkv
-    row_rstd(rstd, xres, B, h, f.eps, red);
-    gemv_b<BITS, NB, 1>(
-        xs, B, h, RowsNorm<T>{xres, h, n1, rstd},
+    // P1: rmsnorm of every row (model-dtype rounding points) -> qkv; with
+    // 4-bit words past layer 0 the rows' squares come from P5's tiles
+    if (BITS == 4 && l > 0) bg_rstd(rstd, f.ssq, plan_tiles(f, 3), B, h, f.eps);
+    else row_rstd(rstd, xres, B, h, f.eps, red);
+    phase_gemv<BITS, NB, NPN, 1>(
+        f, 0, xs, red, B, h, RowsNorm<T>{xres, h, n1, rstd},
         f.qkv + (long)l * words<BITS>(h) * nqkv, f.qs + l * tq, layer_tab(f.qb, tq, l),
-        f.zc_qkv, nqkv, f.g_qkv, nqkv, 0, red,
-        [&](int m, int n, const float* v) { qkvb[(long)m * nqkv + n] = v[0]; });
+        f.zc_qkv, nqkv, f.g_qkv, nqkv, 0, nullptr,
+        [&](int m, int n, const float* v) {
+          qkvb[(long)m * nqkv + n] = v[0];
+          return 0.f;
+        });
     grid.sync();
 
     // P2: one (slot, q head) per block: RoPE, new rows, attention over the
@@ -545,36 +657,41 @@ __global__ void __launch_bounds__(NT, COOP_PER_SM) batch_kernel(BatchArgs f) {
     grid.sync();
 
     // P3: o_proj + residual
-    gemv_b<BITS, NB, 1>(
-        xs, B, qdim, RowsCopy{attn, qdim},
+    phase_gemv<BITS, NB, BG_PLANES, 1>(
+        f, 1, xs, red, B, qdim, RowsCopy{attn, qdim},
         f.o + (long)l * words<BITS>(qdim) * h, f.os + l * to, layer_tab(f.ob, to, l), f.zc_o,
-        h, f.g_o, h, 0, red,
+        h, f.g_o, h, 0, f.ssq,
         [&](int m, int n, const float* v) {
-          xmid[(long)m * h + n] = __ldcg(xres + (long)m * h + n) + v[0];
+          const float r = __ldcg(xres + (long)m * h + n) + v[0];
+          xmid[(long)m * h + n] = r;
+          return r;
         });
     grid.sync();
 
     // P4: rmsnorm, gate and up columns n and I + n from one staging, silu(g) * u
-    row_rstd(rstd, xmid, B, h, f.eps, red);
-    gemv_b<BITS, NB, 2>(
-        xs, B, h, RowsNorm<T>{xmid, h, n2, rstd},
+    if (BITS == 4) bg_rstd(rstd, f.ssq, plan_tiles(f, 1), B, h, f.eps);
+    else row_rstd(rstd, xmid, B, h, f.eps, red);
+    phase_gemv<BITS, NB, NPN, 2>(
+        f, 2, xs, red, B, h, RowsNorm<T>{xmid, h, n2, rstd},
         f.gu + (long)l * words<BITS>(h) * 2 * I, f.gus + l * tgu, layer_tab(f.gub, tgu, l),
-        f.zc_gu, 2L * I, f.g_gu, I, I, red,
+        f.zc_gu, 2 * I, f.g_gu, I, I, nullptr,
         [&](int m, int n, const float* v) {
           act[(long)m * I + n] = v[0] * (1.f / (1.f + expf(-v[0]))) * v[1];
+          return 0.f;
         });
     grid.sync();
 
     // P5: down_proj + residual; the last layer also writes x_out
     const bool last = l == L - 1;
-    gemv_b<BITS, NB, 1>(
-        xs, B, I, RowsCopy{act, I},
+    phase_gemv<BITS, NB, BG_PLANES, 1>(
+        f, 3, xs, red, B, I, RowsCopy{act, I},
         f.dn + (long)l * words<BITS>(I) * h, f.ds + l * td, layer_tab(f.db, td, l), f.zc_d, h,
-        f.g_d, h, 0, red,
+        f.g_d, h, 0, f.ssq,
         [&](int m, int n, const float* v) {
           const float r = __ldcg(xmid + (long)m * h + n) + v[0];
           xres[(long)m * h + n] = r;
           if (last) x_out[(long)m * h + n] = from_f<T>(r);
+          return r;
         });
     if (!last || LM) grid.sync();
   }
@@ -602,7 +719,7 @@ cudaError_t launch_mega(const MegaArgs& f, cudaStream_t stream) {
 template <class T, int BITS, int NB, bool GEN, bool LM>
 cudaError_t launch_batch(const BatchArgs& f, cudaStream_t stream) {
   auto kern = batch_kernel<T, BITS, NB, GEN, LM>;
-  const size_t smem = sizeof(float) * (size_t)batch_smem_floats(NB, f.head_dim);
+  const size_t smem = sizeof(float) * (size_t)batch_smem_floats(BITS, NB, f.head_dim);
   int grid = 0;
   cudaError_t e = coop_grid(kern, smem, f.max_blocks, &grid);
   if (e != cudaSuccess) return e;
@@ -616,13 +733,32 @@ template <class T, int BITS>
 cudaError_t dispatch_nb(const BatchArgs& f, cudaStream_t s) {
   if (f.batch < 1 || f.batch > 8 || f.chunk < 1 || f.batch % f.chunk)
     return cudaErrorInvalidValue;
+  if (BITS == 4) {  // the tensor-core GEMV's plan, and its scratch against the plan's needs
+    if (!f.part || !f.counters || !f.ssq || f.n_counters < 1 || f.n_part < 0)
+      return cudaErrorInvalidValue;
+    const int qdim = f.n_heads * f.head_dim, nqkv = qdim + 2 * f.n_kv_heads * f.head_dim;
+    // (output columns, columns a pair, K, group) of qkv, o, gate/up, down, lm_head
+    const int shape[BG_GEMVS][4] = {{nqkv, 1, f.hidden, f.g_qkv}, {f.hidden, 1, qdim, f.g_o},
+                                    {f.inter, 2, f.hidden, f.g_gu}, {f.hidden, 1, f.inter, f.g_d},
+                                    {f.ue ? f.vocab : 0, 1, f.hidden, f.g_ue}};
+    for (int p = 0; p < BG_GEMVS; ++p) {
+      const int ws = f.plan_ws[p], sp = f.plan_splits[p], n = shape[p][0], nc = shape[p][1];
+      if (sp < 1 || (ws != 1 && ws != 2 && ws != 4 && ws != 8)) return cudaErrorInvalidValue;
+      if (n == 0) continue;
+      if (sp > shape[p][2] / shape[p][3] || bg_tiles(n, nc, ws) > f.n_counters ||
+          bg_part_floats(n, nc, ws, sp) > f.n_part)
+        return cudaErrorInvalidValue;
+    }
+  }
   const bool gen = f.table || f.chunk > 1;
   if (f.ue)  // the lm rows take NB = 8 instances of their own
     return gen ? launch_batch<T, BITS, 8, true, true>(f, s)
                : launch_batch<T, BITS, 8, false, true>(f, s);
   if (gen) return launch_batch<T, BITS, 8, true, false>(f, s);
-  if (f.batch <= 2) return launch_batch<T, BITS, 2, false, false>(f, s);
-  if (f.batch <= 4) return launch_batch<T, BITS, 4, false, false>(f, s);
+  if constexpr (BITS != 4) {  // 4-bit: the GEMV's n8 fragments hold 8 rows whatever B is
+    if (f.batch <= 2) return launch_batch<T, BITS, 2, false, false>(f, s);
+    if (f.batch <= 4) return launch_batch<T, BITS, 4, false, false>(f, s);
+  }
   return launch_batch<T, BITS, 8, false, false>(f, s);
 }
 

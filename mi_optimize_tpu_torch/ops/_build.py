@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` becomes one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds). Libraries go to
 `build/torch_kernels/` at the repository root; the file name carries a hash of
 the sources and flags, so an edited source is rebuilt and a stale library is
-never loaded. Building happens at first use; `build_all` starts one nvcc per
-source, all at once.
+never loaded. Beside each library lies ptxas's report of its kernels
+(`-Xptxas -v`: registers and spill bytes), read by `ptxas_log`. Building
+happens at first use; `build_all` starts one nvcc per source, all at once.
 
 Every C entry point returns `cudaGetLastError()` after its launch; `check`
 raises on anything but 0, since a refused launch never runs and a later
@@ -25,7 +26,7 @@ from typing import Dict
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "torch_kernels")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
-         "-Xcompiler", "-fPIC"]
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("dequant_matmul", "block_fused", "model_flat", "model_fused", "paged_attention",
            "decode_attention", "mlp_fused", "w4a8_matmul")
 
@@ -54,6 +55,11 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
+def _log_path(lib: str) -> str:
+    """ptxas's report beside the library at `lib`."""
+    return lib[:-len(".so")] + ".ptxas.txt"
+
+
 def _start(name: str):
     """Start nvcc for one source unless its library exists. Returns
     (process, temp path, final path) or None."""
@@ -76,6 +82,10 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    fd, tmp_log = tempfile.mkstemp(suffix=".txt", dir=BUILD_DIR)
+    with os.fdopen(fd, "w") as f:
+        f.write(log)
+    os.replace(tmp_log, _log_path(out))  # before the library: a library has its report
     os.replace(tmp, out)
 
 
@@ -96,6 +106,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
         return lib
+
+
+def ptxas_log(name: str) -> str:
+    """ptxas's report from the build of csrc/<name>.cu, building it first if
+    needed."""
+    with _lock:
+        _finish(name, _start(name))
+    with open(_log_path(_lib_path(name))) as f:
+        return f.read()
 
 
 def check(err: int, what: str) -> None:

@@ -18,10 +18,14 @@ Llama-2-7B, int4 g128) read once per step over the memory rate, plus every
 slot's live KV history. The one-token kernel runs the layers of the
 per-layer decode kernel back to back with the residual in f32 across all of
 them. The batched kernel reads each packed word once per step for all B
-rows (B accumulators per lane, the activations staged a chunk at a time),
-so a step costs about one weight read however many rows it decodes. Paging
-changes only the history rows' addresses, so the paged step moves the
-dense step's bytes. The lm rows add the lm_head's words and scales.
+rows, so a step costs about one weight read however many rows it decodes.
+With 4-bit words its GEMVs run on the tensor cores (csrc/batch_gemv.cuh:
+the reference's grouped rescale, the rows as an n8 mma operand in exact
+bf16 planes), each cut into (column tile x K split) items by `gemv_plan`
+so that one wave fills the card; with 2- and 8-bit words a lane keeps B
+accumulators on the CUDA cores. Paging changes only the history rows'
+addresses, so the paged step moves the dense step's bytes. The lm rows add
+the lm_head's words and scales.
 
 Grids: a linear whose zero is one constant across the model computes its
 bias -zc*s in-kernel; otherwise `serving.megadecode.stack_serving` stacks
@@ -33,6 +37,7 @@ and `model_decode_mega_batch_ref`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -48,6 +53,23 @@ launches_lm = 0     # ... with the terminal lm rows, mode (d) (also counted in i
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 8  # rows (slots x chunk tokens): the batched kernel keeps one accumulator a row
 _MAX_BLOCKS = 1024  # cap on the cooperative grid (the lm rows' per-block argmax slots)
+# The 4-bit GEMV's geometry (csrc/batch_gemv.cuh): k a staged window holds,
+# m16 tiles a warp strip, output columns a strip (NC = 2: half gate, half
+# up), warps a block, f32 partials of a strip, GEMVs a plan (qkv, o,
+# gate/up, down, lm_head). The plan and the scratch sizes below follow
+# them; the kernel's dispatch counts each plan's tiles and partials with its
+# own (bg_tiles, bg_part_floats) and refuses a scratch they do not fit.
+GEMV_KC, GEMV_TILES, GEMV_WARPS, GEMV_PHASES = 1024, 2, 8, 5
+GEMV_STRIP, GEMV_PART = 16 * GEMV_TILES, 32 * 4 * GEMV_TILES
+# The plan's cost model, in word rows a warp streams (32 columns x 4 bytes
+# each): an item's fixed cost (its barriers within the block, partials and
+# counter), a split's partials read back; a staged window costs a word row
+# for each of its word rows (on the H100 staging a window took about as long
+# a block as streaming as many word rows: PERF.md). And the share of a
+# wave's blocks a plan may leave idle.
+GEMV_ITEM_ROWS, GEMV_SPLIT_ROWS, GEMV_IDLE = 32, 0.5, 0.05
+COOP_PER_SM = 2     # blocks an SM of the cooperative grid (decode_common.cuh)
+H100_SMS = 132      # the plan's SM count on the CPU
 # (stack key of the words, of the scale table, of the bias table, meta index of the group)
 _STACKED = (("qkv", "qs", "qz", 1), ("o", "os", "oz", 2), ("gu", "gus", "guz", 3),
             ("d", "ds", "dz", 4))
@@ -169,7 +191,10 @@ class _BatchArgs(ctypes.Structure):
         (n, ctypes.c_int) for n in ("chunk", "page_size", "pps", "n_pages")] + [
         (n, ctypes.c_void_p) for n in ("ue", "ues", "fnorm", "logits", "tokens", "part_val",
                                        "part_idx")] + [
-        (n, ctypes.c_int) for n in ("vocab", "g_ue", "max_blocks")] + [("zc_ue", ctypes.c_float)]
+        (n, ctypes.c_int) for n in ("vocab", "g_ue", "max_blocks")] + [("zc_ue", ctypes.c_float),
+        ("plan_ws", ctypes.c_int * GEMV_PHASES), ("plan_splits", ctypes.c_int * GEMV_PHASES),
+        ("part", ctypes.c_void_p), ("counters", ctypes.c_void_p), ("n_counters", ctypes.c_int),
+        ("n_part", ctypes.c_int), ("ssq", ctypes.c_void_p)]
 
 
 def _check_stack(stack, cfg, meta, dev, dt):
@@ -278,6 +303,83 @@ def _check_lm(lm, lm_meta, cfg, meta, dev, dt):
     return fnorm, g_ue, float(zc_ue), vocab
 
 
+@functools.lru_cache(maxsize=None)
+def gemv_plan(ncols: int, K: int, g: int, nc: int = 1, blocks: int = COOP_PER_SM * H100_SMS):
+    """The work plan of one 4-bit GEMV of the batched kernel: (ws, splits).
+
+    Output columns (gate columns when nc = 2, each with its up column) go
+    in strips of 32 // nc a warp; a tile is `ws` strips; K is cut into
+    `splits` ranges of whole groups, split s covering groups [s*ng/S,
+    (s+1)*ng/S); the items are tiles x splits, dealt out over the grid.
+    The block's 8 // ws warps of a strip split an item's groups again, so
+    an item then fits one staged window (GEMV_KC). The plan fills the grid
+    first (at most GEMV_IDLE of the blocks idle in its last wave, where any
+    plan can), then takes the least time of the slowest warp, counted in
+    word rows streamed: waves times (its share of an item, GEMV_ITEM_ROWS,
+    and the item's staged window), plus GEMV_SPLIT_ROWS a split for the
+    last block's read of the partials; then the fewest waves, idle blocks
+    and partials. It depends on shapes only, so every mode of a
+    step (dense, paged, with or without the lm rows) takes the same plan
+    and gives the same bits."""
+    ng, wpg = K // g, g // 8
+    nstrips = -(-ncols // (GEMV_STRIP // nc))
+    best = None
+    for ws in (8, 4, 2, 1):
+        ks = GEMV_WARPS // ws
+        ntiles = -(-nstrips // ws)
+        for splits in range(1, ng + 1):
+            most = -(-ng // splits)  # groups of the largest split
+            if ks > 1 and most * g > GEMV_KC:
+                continue
+            items = ntiles * splits
+            waves = -(-items // blocks)
+            idle = waves * blocks - items
+            # a warp's word rows, an item's fixed cost, its staged window
+            cost = waves * (-(-most // ks) * wpg + GEMV_ITEM_ROWS + min(most * g, GEMV_KC) // 8)
+            if splits > 1:
+                cost += GEMV_SPLIT_ROWS * splits
+            key = (idle > GEMV_IDLE * waves * blocks, cost, waves, idle,
+                   splits * ws if splits > 1 else 0)
+            if best is None or key < best[0]:
+                best = (key, ws, splits)
+    return best[1], best[2]
+
+
+def gemv_scratch(plans) -> tuple:
+    """(f32 partials, counters) the plans [(ncols, nc, ws, splits)] need:
+    splits x tiles x ws strips of GEMV_PART floats for the largest GEMV
+    that splits K, and one counter a tile of the GEMV with the most tiles
+    (the wrapper also gives each counter 8 f32 row sums of squares)."""
+    part, tiles = 0, 1
+    for ncols, nc, ws, splits in plans:
+        nt = -(-ncols // (ws * GEMV_STRIP // nc))
+        tiles = max(tiles, nt)
+        if splits > 1:
+            part = max(part, splits * nt * ws * GEMV_PART)
+    return part, tiles
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def batch_plans(cfg, meta, lm_meta=None, sms: int = H100_SMS):
+    """The batched kernel's 4-bit work plan: [(ncols, nc, ws, splits)] for
+    qkv, o, gate/up, down and the lm_head (the lm rows' entry is (0, 1, 1,
+    1) without them)."""
+    h, I = cfg.hidden_size, cfg.intermediate_size
+    qdim, kvdim = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    blocks = COOP_PER_SM * sms
+    shapes = [(qdim + 2 * kvdim, h, meta[1], 1), (h, qdim, meta[2], 1), (I, h, meta[3], 2),
+              (h, I, meta[4], 1)]
+    plans = [(n, nc) + gemv_plan(n, K, g, nc, blocks) for n, K, g, nc in shapes]
+    if lm_meta is None:
+        return plans + [(0, 1, 1, 1)]
+    g_ue, _, vocab = lm_meta[:3]
+    return plans + [(vocab, 1) + gemv_plan(vocab, h, g_ue, 1, blocks)]
+
+
 def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta, table=None,
                                   chunk: int = 1, lm=None, lm_meta=None):
     global launches_batch, launches_paged, launches_chunk, launches_lm
@@ -339,12 +441,26 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
         lm_ptrs = [p(lm["ue"]), p(lm["ues"]), p(fnorm), p(logits), p(tokens), p(part_val),
                    p(part_idx)]
         lm_ints = [vocab, g_ue]
+    plan_ws, plan_splits = [1] * GEMV_PHASES, [1] * GEMV_PHASES
+    part, counters, n_part = None, None, 0
+    if meta[0] == 4:  # the tensor-core GEMV's plan, partials, tile counters, row squares
+        plans = batch_plans(cfg, meta, lm_meta if lm is not None else None, _sms(dev))
+        plan_ws, plan_splits = [pl[2] for pl in plans], [pl[3] for pl in plans]
+        n_part, n_counters = gemv_scratch(plans)
+        part = torch.empty(n_counters * 8 + n_part, dtype=torch.float32, device=dev)
+        counters = torch.empty(n_counters, dtype=torch.int32, device=dev)
     args = _BatchArgs(p(xr), p(n1), p(n2), *ptrs, p(cos), p(sin), p(pos),
                       p(cache["k"]), p(cache["v"]), p(cache["k_scale"]), p(cache["v_scale"]),
                       p(x_out), p(krows), p(vrows), p(ksr), p(vsr), p(scratch),
                       B, L, h, H, Hkv, D, inter, T, *groups, *floats,
                       None if tbl is None else p(tbl), chunk, P, pps, n_pages,
-                      *lm_ptrs, *lm_ints, _MAX_BLOCKS, zc_ue)
+                      *lm_ptrs, *lm_ints, _MAX_BLOCKS, zc_ue,
+                      (ctypes.c_int * GEMV_PHASES)(*plan_ws),
+                      (ctypes.c_int * GEMV_PHASES)(*plan_splits),
+                      None if part is None else p(part) + 4 * 8 * counters.numel(),
+                      None if counters is None else p(counters),
+                      0 if counters is None else counters.numel(), n_part,
+                      None if part is None else p(part))
     _call("mi_model_decode_mega_batch", args, _BatchArgs, meta[0], dt, dev)
     if chunk > 1:
         launches_chunk += 1

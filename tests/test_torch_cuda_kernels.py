@@ -31,6 +31,7 @@ outputs agree to 1e-4 of their largest magnitude; int8 rows to one code on
 at most 0.1% of entries; greedy tokens exactly."""
 import dataclasses
 import functools
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -245,9 +246,14 @@ def test_generate_and_flat_decode_match_the_cpu(dev):
 # (bits, symmetric, head_dim, intermediate, group): int4/int8, both grids,
 # head_dim 64 and 128, and I = 1000 (not a multiple of 32; group 8 divides it)
 WHOLE_MODEL = [(4, True, 128, 1024, 128), (4, False, 128, 1024, 128), (8, False, 64, 1024, 128),
-               (8, True, 64, 1024, 128), (4, False, 128, 1000, 8)]
+               (8, True, 64, 1024, 128), (4, False, 128, 1000, 8), (4, True, 128, 1024, 32),
+               (2, False, 128, 1024, 64)]
+# the batched kernel's modes: 4-bit (the tensor-core GEMV) at g128 on both
+# grids and at g32, and 8-bit (the CUDA-core tile_dot_b)
+BATCH_MODES = WHOLE_MODEL[:3] + WHOLE_MODEL[5:6]
 T_MEGA = 256
 POSITIONS = [0, 127, 128, T_MEGA - 1]
+BF16_TOL = 2e-2  # bf16 models: the x_out rounding, and a normed value a sum order may round apart
 
 
 def _stacked(dev, bits, symmetric, head_dim, inter, group, seed):
@@ -277,27 +283,116 @@ def test_model_decode_mega(dev, bits, symmetric, head_dim, inter, group, pos):
     _close(got[4], ref[4], 1e-5)
 
 
+def _same_bits(a, b):
+    """Two launches' outputs, bit for bit."""
+    assert len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _plain(ref_fn, got):
+    """The plain version's outputs `ref_fn()` for a float32 launch `got`.
+    Where the kernel's int8 k/v rows flip a tie (one code on at most 0.1%,
+    as `_rows_match` allows), the plain version runs again with the
+    kernel's codes in place of its own (its own scales kept), so that only
+    the tie is forgiven and not the drift it causes in later layers."""
+    ref = ref_fn()
+    _rows_match(got[1], ref[1])
+    _rows_match(got[2], ref[2])
+    if torch.equal(got[1].cpu(), ref[1].cpu()) and torch.equal(got[2].cpu(), ref[2].cpu()):
+        return ref
+    calls = iter(range(2 * got[1].shape[0]))  # layer l's k rows, then its v rows
+    own = []  # the plain version's own codes on the kernel's path
+
+    def forced(x):
+        q, s = llama.quantize_kv(x)
+        l, kv = divmod(next(calls), 2)
+        own.append(q)
+        return got[1 + kv][l][:, None].to(q.device, q.dtype), s
+
+    with mock.patch.object(block_fused, "quantize_kv", forced):
+        ref = ref_fn()
+    assert torch.equal(got[1].cpu(), ref[1].cpu()) and torch.equal(got[2].cpu(), ref[2].cpu())
+    _rows_match(got[1], torch.stack(own[0::2])[:, :, 0])
+    _rows_match(got[2], torch.stack(own[1::2])[:, :, 0])
+    return ref
+
+
+def _batch_close(got, ref_fn, dtype):
+    """A batched launch's (x_out, krows, vrows, kscales, vscales) against its
+    plain version `ref_fn()`: float32 to RTOL and scales to 1e-5 (against
+    the plain version on the kernel's codes where a tie flips: `_plain`),
+    int8 rows up to one-code tie flips on at most 0.1%; bf16 to BF16_TOL,
+    scales to 1e-3 and rows within one code (chip_smoke's hold_rows for
+    the layers whose inputs carry a bf16 layer output: a normed value that
+    two sum orders round to neighbouring bf16 values moves a row by a code,
+    on small models more than 0.1% of it)."""
+    if dtype == torch.float32:
+        ref = _plain(ref_fn, got)
+        _close(got[0], ref[0])
+        _close(got[3], ref[3], 1e-5)
+        _close(got[4], ref[4], 1e-5)
+        return
+    ref = ref_fn()
+    _close(got[0], ref[0], BF16_TOL)
+    for i in (1, 2):
+        assert int((got[i].int() - ref[i].int()).abs().max()) <= 1
+    _close(got[3], ref[3], 1e-3)
+    _close(got[4], ref[4], 1e-3)
+
+
 @pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", WHOLE_MODEL)
-@pytest.mark.parametrize("B", [1, 2, 5, 8])
-def test_model_decode_mega_batch(dev, bits, symmetric, head_dim, inter, group, B):
+@pytest.mark.parametrize("B", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_decode_mega_batch(dev, bits, symmetric, head_dim, inter, group, B, dtype):
+    """Mode (a) against its plain version in both model dtypes (4-bit: the
+    tensor-core GEMV; 2- and 8-bit: the CUDA-core one), and a second launch
+    bit for bit."""
     cfg, _, stack, meta = _stacked(dev, bits, symmetric, head_dim, inter, group, B + bits)
     positions = [POSITIONS[b % len(POSITIONS)] for b in range(B)]
     slots = [_cache(cfg, T_MEGA, p, layers=cfg.num_layers, seed=b)
              for b, p in enumerate(positions)]
     cache = {f: torch.stack([c[f].transpose(1, 2) for c in slots], dim=1).contiguous().to(dev)
              for f in slots[0]}                                     # [L, B, Hkv, T(, D)]
-    x = torch.randn(B, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(B)).to(dev)
+    x = torch.randn(B, 1, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(B)).to(dev, dtype)
     cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
     args = (stack, x, cos.reshape(B, -1), sin.reshape(B, -1), cache, positions, cfg, meta)
     before = model_fused.launches_batch
     got = model_fused.model_decode_mega_batch(*args)
     assert model_fused.launches_batch == before + 1
-    ref = model_fused.model_decode_mega_batch_ref(*args)
-    _close(got[0], ref[0])
-    _rows_match(got[1], ref[1])
-    _rows_match(got[2], ref[2])
-    _close(got[3], ref[3], 1e-5)
-    _close(got[4], ref[4], 1e-5)
+    _same_bits(got, model_fused.model_decode_mega_batch(*args))
+    _batch_close(got, lambda: model_fused.model_decode_mega_batch_ref(*args), dtype)
+
+
+@pytest.mark.parametrize("short", [None, "partials", "counters"])
+def test_model_decode_mega_batch_scratch(dev, monkeypatch, short):
+    """The 4-bit GEMV's scratch is sized on the host (`gemv_scratch`) and
+    counted again by the kernel's dispatch: with o_proj's K split in two,
+    the launch matches its plain version, and one float of partials or one
+    tile counter short of the plan's is refused before anything runs."""
+    cfg, _, stack, meta = _stacked(dev, *WHOLE_MODEL[5], seed=7)
+    B, positions = 3, [0, 127, 200]
+    plans, sizes = model_fused.batch_plans, model_fused.gemv_scratch
+    monkeypatch.setattr(model_fused, "batch_plans", lambda *a: [
+        pl[:3] + (2,) if i == 1 else pl for i, pl in enumerate(plans(*a))])
+    n_part, n_counters = sizes(model_fused.batch_plans(cfg, meta))
+    assert n_part > 0 and n_counters > 1
+    cut = {None: (0, 0), "partials": (1, 0), "counters": (0, 1)}[short]
+    monkeypatch.setattr(model_fused, "gemv_scratch",
+                        lambda pl: tuple(n - c for n, c in zip(sizes(pl), cut)))
+    cache = _slot_caches(cfg, positions, T_MEGA)
+    cache = _to(cache, dev)
+    x = torch.randn(B, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(B)).to(dev)
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    args = (stack, x, cos.reshape(B, -1), sin.reshape(B, -1), cache, positions, cfg, meta)
+    before = model_fused.launches_batch
+    if short is not None:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            model_fused.model_decode_mega_batch(*args)
+        assert model_fused.launches_batch == before
+        return
+    got = model_fused.model_decode_mega_batch(*args)
+    assert model_fused.launches_batch == before + 1
+    _batch_close(got, lambda: model_fused.model_decode_mega_batch_ref(*args), torch.float32)
 
 
 def _exact_int4(codes, scale_exp, groupsize):
@@ -461,19 +556,21 @@ def _mirror_pool(cache, seed, spare=1):
     return pool, table
 
 
-@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", WHOLE_MODEL[:3])
+@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", BATCH_MODES)
 @pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_model_decode_mega_batch_paged_equals_dense(dev, bits, symmetric, head_dim, inter,
-                                                    group, B):
+                                                    group, B, dtype):
     """Mode (b) on a pool that mirrors the dense cache: every output bitwise
-    equal to mode (a)'s (only the history addresses differ), and within
-    tolerance of the plain version."""
+    equal to mode (a)'s (only the history addresses differ) and to a second
+    paged launch, and within tolerance of the plain version."""
     cfg, _, stack, meta = _stacked(dev, bits, symmetric, head_dim, inter, group, B + 20)
     positions = [POSITIONS[b % len(POSITIONS)] for b in range(B)]
     cache = _slot_caches(cfg, positions, T_MEGA)
     pool, table = _mirror_pool(cache, seed=B)
     cache, pool = _to(cache, dev), _to(pool, dev)
-    x = torch.randn(B, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(B)).to(dev)
+    x = torch.randn(B, 1, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(B)).to(dev, dtype)
     cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
     args = (stack, x, cos.reshape(B, -1), sin.reshape(B, -1))
     dense = model_fused.model_decode_mega_batch(*args, cache, positions, cfg, meta)
@@ -482,10 +579,10 @@ def test_model_decode_mega_batch_paged_equals_dense(dev, bits, symmetric, head_d
     assert model_fused.launches_paged == before + 1
     for d, p in zip(dense, paged):
         assert torch.equal(d, p)
-    ref = model_fused.model_decode_mega_batch_ref(*args, pool, positions, cfg, meta, table)
-    _close(paged[0], ref[0])
-    _rows_match(paged[1], ref[1])
-    _rows_match(paged[2], ref[2])
+    _same_bits(paged, model_fused.model_decode_mega_batch(*args, pool, positions, cfg, meta,
+                                                          table=table))
+    _batch_close(paged, lambda: model_fused.model_decode_mega_batch_ref(
+        *args, pool, positions, cfg, meta, table), dtype)
 
 
 # (slots, chunk, prefixes, paged)
@@ -493,13 +590,14 @@ CHUNK_CASES = [(1, 8, [0], False), (1, 8, [130], True), (2, 4, [0, 127], False),
                (2, 4, [126, 250], True), (4, 2, [5, 0, 128, 200], False), (1, 3, [255 - 3], True)]
 
 
-@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", WHOLE_MODEL[:3])
+@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", BATCH_MODES)
 @pytest.mark.parametrize("n_slots,C,prefixes,paged", CHUNK_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_model_decode_mega_batch_chunk(dev, bits, symmetric, head_dim, inter, group, n_slots, C,
-                                       prefixes, paged):
+                                       prefixes, paged, dtype):
     """Mode (c), dense and paged: C consecutive tokens a slot, each row
     attending to its slot's history and the chunk's earlier rows, against
-    the plain version."""
+    the plain version, and a second launch bit for bit."""
     cfg, _, stack, meta = _stacked(dev, bits, symmetric, head_dim, inter, group, C + 30)
     B = n_slots * C
     cache = _slot_caches(cfg, prefixes, T_MEGA, seed=C)
@@ -508,18 +606,15 @@ def test_model_decode_mega_batch_chunk(dev, bits, symmetric, head_dim, inter, gr
         cache, table = _mirror_pool(cache, seed=C)
     cache = _to(cache, dev)
     positions = [p + i for p in prefixes for i in range(C)]
-    x = torch.randn(B, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(C)).to(dev)
+    x = torch.randn(B, 1, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(C)).to(dev, dtype)
     cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
     args = (stack, x, cos.reshape(B, -1), sin.reshape(B, -1), cache, positions, cfg, meta)
     before = model_fused.launches_chunk
     got = model_fused.model_decode_mega_batch(*args, table=table, chunk=C)
     assert model_fused.launches_chunk == before + 1
-    ref = model_fused.model_decode_mega_batch_ref(*args, table, C)
-    _close(got[0], ref[0])
-    _rows_match(got[1], ref[1])
-    _rows_match(got[2], ref[2])
-    _close(got[3], ref[3], 1e-5)
-    _close(got[4], ref[4], 1e-5)
+    _same_bits(got, model_fused.model_decode_mega_batch(*args, table=table, chunk=C))
+    _batch_close(got, lambda: model_fused.model_decode_mega_batch_ref(*args, table, C), dtype)
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.float32, torch.float32),
@@ -595,14 +690,16 @@ LM_CASES = [(1, 1, [0], False), (2, 1, [127, 128], False), (8, 1, POSITIONS * 2,
             (1, 5, [130], True), (2, 3, [126, 250], True)]
 
 
-@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", WHOLE_MODEL[:3])
+@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group", BATCH_MODES)
 @pytest.mark.parametrize("n_slots,C,prefixes,paged", LM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_model_decode_mega_batch_lm_rows(dev, bits, symmetric, head_dim, inter, group, n_slots,
-                                         C, prefixes, paged):
+                                         C, prefixes, paged, dtype):
     """Mode (d) with each mode it composes with: the base outputs bitwise
-    equal to the same launch without the lm rows; logits against the plain
-    version; tokens equal to the plain version's and the first index of the
-    kernel's own maximum."""
+    equal to the same launch without the lm rows; a second launch bit for
+    bit; logits against the plain version; tokens the first index of the
+    kernel's own maximum, and equal to the plain version's (in bf16 where
+    the plain top-2 gap exceeds the tolerance)."""
     cfg, _, stack, meta = _stacked(dev, bits, symmetric, head_dim, inter, group, C + 40)
     lm, lm_meta = _lm_rows(dev, bits, seed=n_slots + C)
     B = n_slots * C
@@ -612,7 +709,8 @@ def test_model_decode_mega_batch_lm_rows(dev, bits, symmetric, head_dim, inter, 
         cache, table = _mirror_pool(cache, seed=C)
     cache = _to(cache, dev)
     positions = [p + i for p in prefixes for i in range(C)]
-    x = torch.randn(B, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(B)).to(dev)
+    x = torch.randn(B, 1, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(B)).to(dev, dtype)
     cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
     args = (stack, x, cos.reshape(B, -1), sin.reshape(B, -1), cache, positions, cfg, meta)
     base = model_fused.model_decode_mega_batch(*args, table=table, chunk=C)
@@ -621,9 +719,21 @@ def test_model_decode_mega_batch_lm_rows(dev, bits, symmetric, head_dim, inter, 
     assert model_fused.launches_lm == before + 1
     for b, g in zip(base, got[:5]):
         assert torch.equal(b, g)
-    ref = model_fused.model_decode_mega_batch_ref(*args, table, C, lm, lm_meta)
-    _close(got[5], ref[5])
-    assert got[6].tolist() == ref[6].tolist() == torch.argmax(got[5], -1).tolist()
+    _same_bits(got, model_fused.model_decode_mega_batch(*args, table=table, chunk=C, lm=lm,
+                                                        lm_meta=lm_meta))
+    ref_fn = lambda: model_fused.model_decode_mega_batch_ref(*args, table, C, lm, lm_meta)
+    assert got[6].tolist() == torch.argmax(got[5], -1).tolist()
+    if dtype == torch.float32:
+        ref = _plain(ref_fn, got)
+        _close(got[5], ref[5])
+        assert got[6].tolist() == ref[6].tolist()
+        return
+    ref = ref_fn()
+    _close(got[5], ref[5], BF16_TOL)
+    top2 = torch.topk(ref[5].float(), 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1] > BF16_TOL * float(ref[5].abs().max())).tolist()
+    assert [t for t, c in zip(got[6].tolist(), clear) if c] == \
+        [t for t, c in zip(ref[6].tolist(), clear) if c]
 
 
 @pytest.mark.parametrize("bits,head_dim", [(4, 128), (8, 64)])
