@@ -6,14 +6,18 @@
 Phases:
   1. build the CUDA kernels under mi_optimize_tpu_torch/csrc/ with nvcc
      (one nvcc per source, all at once) into build/torch_kernels/, and
-     report ptxas's registers and spills of every batch_kernel instance
-     from the build's own -Xptxas -v log;
+     report ptxas's registers and spills of every batch_kernel and
+     model_flat_kernel instance and of gemv16_kernel from the build's own
+     -Xptxas -v log;
   2. hold each kernel against its plain PyTorch version on the card at the
      Llama-2-7B shapes of the paths below in bf16, and time both: the
      dequant matmul (the gemv16 kernel at M = 1, the tensor-core mma kernel
      at M = 128 and 2048, each also timed against the CUDA-core kernel on
      the same operands, which keeps the f32 inputs: M = 1 and 128 in f32),
-     the per-layer and flat decode kernels, the whole-model
+     the per-layer and flat decode kernels (the flat one at position 200,
+     at position 0 held by `hold_rows` over its first 2 layers and the
+     lm_head, and on a planted 2-layer draft with its logits held to the
+     off-peak scale; the same bits on a second launch), the whole-model
      kernel on an asymmetric grid (bias tables streamed), the batched
      whole-model kernel at B = 8 (and B = 2 on the asymmetric grid, and B = 8
      with every slot at position 0: its GEMVs and barriers with next to no
@@ -149,43 +153,57 @@ def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def _bits_dtype(m) -> str:
+    return "float" if m.group(1) == "f" else "bf16"
+
+
+# (source, mangled-name pattern, label) of the kernels whose registers and
+# spills phase 1 reports: every batch_kernel instance (model_fused.cu), every
+# model_flat_kernel instance (model_flat.cu; its 4-bit instances run
+# flat_gemv.cuh) and gemv16_kernel (dequant_matmul.cu)
+PTXAS_KERNELS = (
+    ("model_fused", r"batch_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb(\d)ELb(\d)E",
+     lambda m: f"batch_kernel<{_bits_dtype(m)}, {m.group(2)}, {m.group(3)}, GEN={m.group(4)}, "
+               f"LM={m.group(5)}>"),
+    ("model_flat", r"model_flat_kernelI(f|13__nv_bfloat16)Li(\d)E",
+     lambda m: f"model_flat_kernel<{_bits_dtype(m)}, {m.group(2)}>"),
+    ("dequant_matmul", r"gemv16_kernelILi(\d)E", lambda m: f"gemv16_kernel<{m.group(1)}>"))
+
+
 def ptxas_report() -> list:
-    """Registers and spill bytes of each batch_kernel instance, from ptxas's
-    report of model_fused.cu's build: [{"instance": "batch_kernel<T, BITS,
-    NB, GEN, LM>", "registers", "spill_stores", "spill_loads"}], logged one
-    a line."""
+    """Registers and spill bytes of each kernel instance of PTXAS_KERNELS,
+    from ptxas's report of its source's build: [{"instance", "registers",
+    "spill_stores", "spill_loads"}], logged one a line."""
     import re
 
     from mi_optimize_tpu_torch.ops import _build
 
-    log_text = _build.ptxas_log("model_fused")
-    rows, cur = [], None
-    for line in log_text.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            k = re.search(r"batch_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb(\d)ELb(\d)E",
-                          m.group(1))
-            cur = None
-            if k:
-                t = "float" if k.group(1) == "f" else "bf16"
-                cur = {"instance": f"batch_kernel<{t}, {k.group(2)}, {k.group(3)}, "
-                                   f"GEN={k.group(4)}, LM={k.group(5)}>",
-                       "spill_stores": 0, "spill_loads": 0}
-                rows.append(cur)
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
+    rows = []
+    for source, pattern, label in PTXAS_KERNELS:
+        cur, found = None, 0
+        for line in _build.ptxas_log(source).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                k = re.search(pattern, m.group(1))
+                cur = None
+                if k:
+                    cur = {"instance": label(k), "spill_stores": 0, "spill_loads": 0}
+                    rows.append(cur)
+                    found += 1
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+        if not found:
+            raise AssertionError(f"ptxas reported no instance of {pattern} in {source}.cu")
     for r in rows:
         log(f"  ptxas: {r['instance']}: {r.get('registers')} registers, {r['spill_stores']} "
             f"bytes spill stores, {r['spill_loads']} bytes spill loads")
-    if not rows:
-        raise AssertionError("ptxas reported no batch_kernel instance")
     return rows
 
 
@@ -222,8 +240,10 @@ def max_err(got, ref):
     return float((g - r).abs().max()), float(r.abs().max())
 
 
-def check_close(what, got, ref, tol=TOL):
-    err, scale = max_err(got, ref)
+def check_close(what, got, ref, tol=TOL, scale=None):
+    """max|got - ref| within tol times `scale` (max|ref| by default)."""
+    err, peak = max_err(got, ref)
+    scale = peak if scale is None else scale
     ok = err <= tol * scale
     log(f"  {what}: max|diff| {err:.3e} vs bound {tol * scale:.3e} -> {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -400,7 +420,37 @@ def check_block(model, cfg, dev, flush, reps, T=384, pos=200):
                  bytes=nb, flops=fl)]
 
 
-def check_flat(model, fstack, fmeta, cfg, dev, flush, reps, T=384, pos=200):
+# the flat stack's per-layer entries (the rest are the lm_head's and the final norm)
+FLAT_LAYER_KEYS = ("qkv", "qs", "o", "os", "gu", "gus", "d", "ds", "n1", "n2")
+
+
+def check_flat(model, fstack, fmeta, cfg, dev, flush, reps, T=384, pos=200, name="",
+               gate="full", cut=2):
+    """The flat kernel (B3) at full width over a random int8 history of pos
+    rows, against its plain version; a second launch gives the same bits.
+    Bound: the stack's weights and tables, the live history and the logits.
+
+    gate="full": the logits within TOL of max|plain|, the token and the new
+    k/v rows within TOL, at full depth.
+    gate="cut" (position 0): attention returns the new v row itself, so a
+    one-code flip at a rounding tie that the sum orders break differently
+    moves the next layer's input directly, and over 32 layers in bf16 the
+    logits, rows and scales drift as check_whole_model's x_out does (on
+    these inputs the kernel's earlier CUDA-core GEMV failed the full-depth
+    row check by 3%, a correct kernel). Held
+    as that holds it (`hold_rows`): the first `cut` layers with the final
+    norm and the lm_head, launched on their own (the same plan, so layer 0
+    is the full launch's), give logits within TOL, the token, layer 0's rows
+    one-code on at most 0.1% with every scale within SCALE_RTOL, the later
+    layers' rows within one code and scales within TOL; at full depth the
+    logits are finite, and their drift, the token and the rows' codes are
+    reported.
+    gate="planted" (a planted draft): its lm_head puts one logit near 80
+    and the rest near 1, so the logits are held within TOL of the largest
+    off-peak plain logit; its o_proj and down_proj are zero, so this row
+    holds qkv, the rows and the lm_head, and times the launch."""
+    import dataclasses
+
     import torch
 
     from mi_optimize_tpu_torch.models import llama
@@ -413,28 +463,61 @@ def check_flat(model, fstack, fmeta, cfg, dev, flush, reps, T=384, pos=200):
     x = llama.embed(model.params, torch.tensor([[7]], device=dev))
     cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
     cossin = torch.cat([cos.reshape(-1), sin.reshape(-1)])
-    run = lambda: mf.model_decode_flat(fstack, x, cossin, cache, pos, cfg, fmeta)
-    plain = lambda: mf.model_decode_flat_ref(fstack, x, cossin, cache, pos, cfg, fmeta)
-    got, ref = run(), plain()
+    run = lambda st=fstack, ca=cache, c=cfg: mf.model_decode_flat(st, x, cossin, ca, pos, c, fmeta)
+    plain = lambda st=fstack, ca=cache, c=cfg: mf.model_decode_flat_ref(st, x, cossin, ca, pos,
+                                                                        c, fmeta)
+    got, got2, ref = run(), run(), plain()
     torch.cuda.synchronize()
-    err = check_close(f"model_decode_flat logits ({cfg.num_layers} layers, T={T}, pos={pos})",
-                      got[1], ref[1])
-    check_token("model_decode_flat token", got[0], ref[0], ref[1],
-                TOL * float(ref[1].abs().max()))
-    check_close("model_decode_flat k/v rows (dequantized)",
-                got[2].float() * got[3].reshape(cfg.num_layers, 2, -1, 1),
-                ref[2].float() * ref[3].reshape(cfg.num_layers, 2, -1, 1))
+    if not all(torch.equal(a, b) for a, b in zip(got, got2)):
+        raise AssertionError("model_decode_flat: two launches on the same inputs differ")
+    what = f"model_decode_flat logits ({name}{cfg.num_layers} layers, T={T}, pos={pos})"
+    L = cfg.num_layers
+    rows = lambda o: (o[1], o[2][:, 0], o[2][:, 1], o[3][:, 0, 0], o[3][:, 1, 0])
+    extra = {}
+    if gate == "cut":
+        if not bool(torch.isfinite(got[1]).all()):
+            raise AssertionError(f"{what}: non-finite logits")
+        e, peak = max_err(got[1], ref[1])
+        extra["full_depth_logits_rel"] = e / peak
+        log(f"  {what}, reported: max|diff| {e:.3e} = {e / peak:.2e} of max|plain|; token "
+            f"kernel {int(got[0])} plain {int(ref[0])}")
+        for i, f in ((1, "k"), (2, "v")):
+            code_diff(f"model_decode_flat new {f} rows (bf16, all layers, reported)",
+                      rows(got)[i], rows(ref)[i])
+        c = dataclasses.replace(cfg, num_layers=cut)
+        head = ({k: v[:cut] if k in FLAT_LAYER_KEYS else v for k, v in fstack.items()},
+                {k: v[:cut] for k, v in cache.items()})
+        hg, hr = run(*head, c), plain(*head, c)
+        torch.cuda.synchronize()
+        err, extra["codes"] = hold_rows("model_decode_flat", rows(hg), rows(hr), TOL,
+                                        f"bf16, first {cut} layers and the lm_head", strict=1,
+                                        out="logits")
+        check_token(f"model_decode_flat token (first {cut} layers)", hg[0], hr[0], hr[1],
+                    TOL * float(hr[1].abs().max()))
+    else:
+        scale = None
+        if gate == "planted":
+            off = ref[1].float().reshape(-1).clone()
+            off[int(ref[0])] = 0
+            scale = float(off.abs().max())
+        err = check_close(what, got[1], ref[1], scale=scale)
+        check_token("model_decode_flat token", got[0], ref[0], ref[1],
+                    TOL * float(ref[1].abs().max()))
+        check_close("model_decode_flat k/v rows (dequantized)",
+                    got[2].float() * got[3].reshape(L, 2, -1, 1),
+                    ref[2].float() * ref[3].reshape(L, 2, -1, 1))
     ms = time_ms(run, reps, flush)
     plain_ms = time_ms(plain, 2, flush)
-    nb = nbytes(*fstack.values()) + cfg.num_layers * 2 * pos * cfg.num_kv_heads * (
+    nb = nbytes(*fstack.values()) + L * 2 * pos * cfg.num_kv_heads * (
         cfg.head_dim + 4) + fmeta[-1] * 4
-    fl = cfg.num_layers * decode_block_flops(cfg, pos) + 2.0 * cfg.hidden_size * fmeta[-1]
+    fl = L * decode_block_flops(cfg, pos) + 2.0 * cfg.hidden_size * fmeta[-1]
     b_ms, b_by = bound(nb, fl)
-    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
+        "same bits twice")
     return [dict(name="model_decode_flat",
-                 shape=f"{cfg.num_layers} layers + lm_head T={T} pos={pos}",
+                 shape=f"{name}{L} layers + lm_head T={T} pos={pos}",
                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 bytes=nb, flops=fl)]
+                 bytes=nb, flops=fl, gate=gate, **extra)]
 
 
 def code_diff(what, got, ref, first=0):
@@ -449,7 +532,7 @@ def code_diff(what, got, ref, first=0):
     return st
 
 
-def hold_rows(name, got, ref, tol, what, strict=None):
+def hold_rows(name, got, ref, tol, what, strict=None, out="x_out"):
     """The gate on a whole-model kernel's outputs (x_out, krows, vrows,
     kscales, vscales) against its plain version's: x_out within tol of
     max|plain|; over the first `strict` layers (all by default) the int8
@@ -458,8 +541,8 @@ def hold_rows(name, got, ref, tol, what, strict=None):
     127/128 is off by 7.9e-3); over the later layers, whose inputs carry
     the earlier layers' bf16 roundings, the rows within one code and the
     scales within tol of max|plain|. Raises AssertionError. Returns (x_out
-    max|diff|, stats)."""
-    err = check_close(f"{name} x_out ({what})", got[0], ref[0], tol)
+    max|diff|, stats). `out` names the first output in the log."""
+    err = check_close(f"{name} {out} ({what})", got[0], ref[0], tol)
     n = got[1].shape[0] if strict is None else strict
     stats = {}
     for i, f in ((1, "k"), (2, "v")):
@@ -2414,7 +2497,7 @@ def main() -> int:
     _build.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"  built {', '.join(_build.SOURCES)} in {report['build_s']:.1f} s")
-    report["ptxas_batch_kernel"] = ptxas_report()
+    report["ptxas"] = ptxas_report()
 
     cfg = LlamaConfig.llama2_7b()
 
@@ -2470,6 +2553,9 @@ def main() -> int:
     rows = check_dequant_matmul(model, cfg, dev, flush, reps=20)
     rows += check_block(model, cfg, dev, flush, reps=20)
     rows += check_flat(model, fstack, fmeta, cfg, dev, flush, reps=5)
+    rows += check_flat(model, fstack, fmeta, cfg, dev, flush, reps=5, pos=0, gate="cut")
+    rows += check_flat(draft, *dfl, dcfg, dev, flush, reps=20, name="planted 2-layer draft, ",
+                       gate="planted")
     sstack, smeta = stack_serving(model)  # the layers' stack the flat one extends, not a copy
     dense_positions = [0, 17, 64, 127, 128, 200, 383, 510]
     rows += check_mega_batch(model, sstack, smeta, cfg, dev, flush, 5, dense_positions)

@@ -7,11 +7,16 @@ TPU kernel mi_optimize_tpu/ops/model_flat.py::_kernel_flat
 
 What bounds it on an H100: the whole packed model plus the lm_head, read
 once per token (about 3.5 GB at Llama-2-7B, int4 g128) over the memory rate.
-The kernel is one cooperative launch that runs the layers of the per-layer
-decode kernel back to back, keeping the residual in f32 across all of them,
-with grid barriers in place of launches; the logits and the argmax follow
-after one more barrier. Symmetric grids only: the dequant bias is -zc*s from
-one constant per linear, so no bias table is streamed.
+The kernel is one cooperative launch that runs the layers back to back,
+keeping the residual in f32 across all of them, with grid barriers in place
+of launches; the logits and the argmax follow after one more barrier.
+Symmetric grids only: the dequant bias is -zc*s from one constant per
+linear, so no bias table is streamed. With 4-bit words the GEMVs run on the
+tensor cores (csrc/flat_gemv.cuh: the reference's grouped rescale, the row
+as exact bf16 planes of an n8 mma operand), each cut into (column tile x K
+split) items by `flat_plan` so that every phase fills the card, the splits'
+partials added in split order by the phase that reads them; 2- and 8-bit
+words keep decode_common.cuh's CUDA-core dot.
 
 Layout: the port's `serving.megadecode.stack_serving` stacks the natural
 words-major per-layer arrays into [L, KW, N] with f32 scales [L, K/g, N];
@@ -23,17 +28,28 @@ model_flat.cu; ops/model_flat_seg.py launches the multi-token one.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..models.quant_linear import group_size
 from .block_fused import _check_cuda, layer_ref, norm_row
+from .coop_plan import COOP_PER_SM, H100_SMS, best_plan, sm_count
 from .dequant_matmul import kernel_tables, qdot_ref
 
 launches = 0  # kernel launches; chip_smoke.py resets and reads it
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BLOCKS = 1024  # cap on the cooperative grid (per-block argmax slots)
+# The 4-bit GEMV's geometry (csrc/flat_gemv.cuh): output columns a warp
+# strip, warps a block, word rows a chunk, the largest staged window (k),
+# GEMVs a plan (qkv, o_proj, gate/up, down_proj, lm_head). The plan and the
+# scratch sizes below follow them; the kernel's launch checks the plan
+# against the scratch it is given (check_plan). FLAT_SPLITS: the most K
+# splits a plan takes to keep a wider tile (every block reads each split's
+# partials back after the barrier).
+FLAT_STRIP, FLAT_WARPS, FLAT_CHUNK_ROWS, FLAT_KC_MAX, FLAT_GEMVS = 32, 8, 8, 8192, 5
+FLAT_SPLITS = 8
 
 
 def stack_flat_params(model, base_stack, base_meta):
@@ -112,14 +128,63 @@ class _FlatArgs(ctypes.Structure):
         (n, ctypes.c_int) for n in (
             "n_layers", "hidden", "n_heads", "n_kv_heads", "head_dim", "inter", "vocab",
             "max_len", "pos", "g_qkv", "g_o", "g_gu", "g_d", "g_ue", "max_blocks", "kseg")] + [
-        (n, ctypes.c_float) for n in ("zc_qkv", "zc_o", "zc_gu", "zc_d", "zc_ue", "eps")]
+        (n, ctypes.c_float) for n in ("zc_qkv", "zc_o", "zc_gu", "zc_d", "zc_ue", "eps")] + [
+        ("plan_ws", ctypes.c_int * FLAT_GEMVS), ("plan_splits", ctypes.c_int * FLAT_GEMVS),
+        ("plan_kc", ctypes.c_int), ("n_part", ctypes.c_int), ("part", ctypes.c_void_p)]
 
 
-def flat_launch(entry, stack, x, cos, sin, cache, pos: int, cfg, meta, kseg=1, emb=None):
+@functools.lru_cache(maxsize=None)
+def flat_plan(ncols: int, K: int, g: int, blocks: int = COOP_PER_SM * H100_SMS,
+              split: bool = True):
+    """The work plan of one 4-bit GEMV of the flat kernel: (ws, splits),
+    searched by `coop_plan.best_plan`.
+
+    Output columns go in strips of 32 a warp; the 8 // ws warps of a strip
+    split an item's chunks (8 word rows of one group) again, in order. With
+    split=False the GEMV takes no K split (the lm_head, whose argmax needs
+    whole logits). Among the plans that fill the grid it takes the fewest
+    waves (each costs every block an item's fixed work and a staged
+    window), then the fewest chunks a warp streams, then at most
+    FLAT_SPLITS splits, then the widest tile (a block streams a longer run
+    of each word row), then the fewest idle blocks and splits."""
+    cpg = -(-(g // 8) // FLAT_CHUNK_ROWS)
+
+    def rank(ws, splits, most, waves, idle):
+        return (waves, -(-most * cpg // (FLAT_WARPS // ws)), splits > FLAT_SPLITS, -ws, idle,
+                splits)
+
+    return best_plan(-(-ncols // FLAT_STRIP), K // g, blocks, rank, split)
+
+
+def flat_plans(cfg, meta, sms: int = H100_SMS):
+    """The 4-bit flat kernel's plan: [(ncols, K, g, ws, splits)] for qkv,
+    o_proj, gate/up (gate and up columns side by side), down_proj and the
+    lm_head."""
+    h, I = cfg.hidden_size, cfg.intermediate_size
+    qdim, kvdim = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    blocks = COOP_PER_SM * sms
+    shapes = [(qdim + 2 * kvdim, h, meta[1], True), (h, qdim, meta[2], True),
+              (2 * I, h, meta[3], True), (h, I, meta[4], True), (meta[11], h, meta[9], False)]
+    return [(n, K, g) + flat_plan(n, K, g, blocks, split) for n, K, g, split in shapes]
+
+
+def flat_scratch(plans) -> tuple:
+    """(f32 partials, staged window k) the plans need: splits x columns for
+    qkv, o_proj, gate/up and down_proj (the lm_head takes no split), and the
+    largest split's k rounded up to 64, at most FLAT_KC_MAX (a longer split
+    is staged a window at a time)."""
+    n_part = sum(ncols * splits for ncols, _, _, _, splits in plans[:4])
+    kc = max(-(-(K // g) // splits) * g for _, K, g, _, splits in plans)
+    return n_part, min(FLAT_KC_MAX, -(-kc // 64) * 64)
+
+
+def flat_launch(entry, stack, x, cos, sin, cache, pos: int, cfg, meta, kseg=1, emb=None,
+                lib=None):
     """Check the inputs of the flat kernels (model_flat.cu), launch `entry`
     for kseg tokens from position pos (cos/sin [kseg, D]) and return (tokens
     [kseg] int32, logits [V] f32 of the last token, kvrows [kseg, L, 2, Hkv,
-    D] int8, kvscales [kseg, L, 2, Hkv] f32)."""
+    D] int8, kvscales [kseg, L, 2, Hkv] f32). `lib`: another build of
+    model_flat.cu to launch (scripts/torch_flat_phases.py's timed copy)."""
     from . import _build
 
     (bits, g_qkv, g_o, g_gu, g_d, zc_qkv, zc_o, zc_gu, zc_d, g_ue, zc_ue, vocab) = meta
@@ -163,6 +228,12 @@ def flat_launch(entry, stack, x, cos, sin, cache, pos: int, cfg, meta, kseg=1, e
     scratch = torch.empty(h + qdim + 2 * kvdim + qdim + h + inter + _MAX_BLOCKS,
                           dtype=torch.float32, device=dev)
     part_idx = torch.empty(_MAX_BLOCKS, dtype=torch.int32, device=dev)
+    plan_ws, plan_splits, kc, n_part, part = [0] * FLAT_GEMVS, [0] * FLAT_GEMVS, 0, 0, None
+    if bits == 4 and entry == "mi_model_decode_flat":  # the tensor-core GEMV's plan, partials
+        plans = flat_plans(cfg, meta, sm_count(dev))
+        plan_ws, plan_splits = [pl[3] for pl in plans], [pl[4] for pl in plans]
+        n_part, kc = flat_scratch(plans)
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
     p = lambda t: t.data_ptr()
     args = _FlatArgs(
         p(xr), p(n1), p(n2), p(stack["qkv"]), p(stack["qs"]), p(stack["o"]), p(stack["os"]),
@@ -172,8 +243,10 @@ def flat_launch(entry, stack, x, cos, sin, cache, pos: int, cfg, meta, kseg=1, e
         p(token), p(logits), p(kvrows), p(kvsc), p(scratch), p(part_idx),
         None if emb is None else p(emb),
         L, h, H, Hkv, D, inter, vocab, T, pos, g_qkv, g_o, g_gu, g_d, g_ue, _MAX_BLOCKS, kseg,
-        zc_qkv, zc_o, zc_gu, zc_d, zc_ue, cfg.rms_eps)
-    fn = getattr(_build.load("model_flat"), entry)
+        zc_qkv, zc_o, zc_gu, zc_d, zc_ue, cfg.rms_eps,
+        (ctypes.c_int * FLAT_GEMVS)(*plan_ws), (ctypes.c_int * FLAT_GEMVS)(*plan_splits), kc,
+        n_part, None if part is None else p(part))
+    fn = getattr(lib or _build.load("model_flat"), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(_FlatArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     _build.check(fn(ctypes.byref(args), bits, _DTYPES[dt], _build.stream_ptr(dev)), entry)

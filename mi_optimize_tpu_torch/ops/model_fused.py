@@ -42,6 +42,7 @@ import functools
 import torch
 
 from .block_fused import _check_cuda, layer_rows_ref, norm_row
+from .coop_plan import COOP_PER_SM, H100_SMS, best_plan, sm_count
 from .dequant_matmul import qdot_ref
 
 launches = 0        # model_decode_mega kernel launches; chip_smoke.py resets and reads it
@@ -65,11 +66,8 @@ GEMV_STRIP, GEMV_PART = 16 * GEMV_TILES, 32 * 4 * GEMV_TILES
 # each): an item's fixed cost (its barriers within the block, partials and
 # counter), a split's partials read back; a staged window costs a word row
 # for each of its word rows (on the H100 staging a window took about as long
-# a block as streaming as many word rows: PERF.md). And the share of a
-# wave's blocks a plan may leave idle.
-GEMV_ITEM_ROWS, GEMV_SPLIT_ROWS, GEMV_IDLE = 32, 0.5, 0.05
-COOP_PER_SM = 2     # blocks an SM of the cooperative grid (decode_common.cuh)
-H100_SMS = 132      # the plan's SM count on the CPU
+# a block as streaming as many word rows: PERF.md).
+GEMV_ITEM_ROWS, GEMV_SPLIT_ROWS = 32, 0.5
 # (stack key of the words, of the scale table, of the bias table, meta index of the group)
 _STACKED = (("qkv", "qs", "qz", 1), ("o", "os", "oz", 2), ("gu", "gus", "guz", 3),
             ("d", "ds", "dz", 4))
@@ -305,44 +303,32 @@ def _check_lm(lm, lm_meta, cfg, meta, dev, dt):
 
 @functools.lru_cache(maxsize=None)
 def gemv_plan(ncols: int, K: int, g: int, nc: int = 1, blocks: int = COOP_PER_SM * H100_SMS):
-    """The work plan of one 4-bit GEMV of the batched kernel: (ws, splits).
+    """The work plan of one 4-bit GEMV of the batched kernel: (ws, splits),
+    searched by `coop_plan.best_plan`.
 
     Output columns (gate columns when nc = 2, each with its up column) go
-    in strips of 32 // nc a warp; a tile is `ws` strips; K is cut into
-    `splits` ranges of whole groups, split s covering groups [s*ng/S,
-    (s+1)*ng/S); the items are tiles x splits, dealt out over the grid.
-    The block's 8 // ws warps of a strip split an item's groups again, so
-    an item then fits one staged window (GEMV_KC). The plan fills the grid
-    first (at most GEMV_IDLE of the blocks idle in its last wave, where any
-    plan can), then takes the least time of the slowest warp, counted in
-    word rows streamed: waves times (its share of an item, GEMV_ITEM_ROWS,
-    and the item's staged window), plus GEMV_SPLIT_ROWS a split for the
-    last block's read of the partials; then the fewest waves, idle blocks
-    and partials. It depends on shapes only, so every mode of a
-    step (dense, paged, with or without the lm rows) takes the same plan
-    and gives the same bits."""
-    ng, wpg = K // g, g // 8
-    nstrips = -(-ncols // (GEMV_STRIP // nc))
-    best = None
-    for ws in (8, 4, 2, 1):
+    in strips of 32 // nc a warp. The block's 8 // ws warps of a strip
+    split an item's groups again, so an item then fits one staged window
+    (GEMV_KC). Among the plans that fill the grid it takes the least time
+    of the slowest warp, counted in word rows streamed: waves times (its
+    share of an item, GEMV_ITEM_ROWS, and the item's staged window), plus
+    GEMV_SPLIT_ROWS a split for the last block's read of the partials;
+    then the fewest waves, idle blocks and partials. Every mode of a step
+    (dense, paged, with or without the lm rows) takes the same plan and
+    gives the same bits."""
+    wpg = g // 8
+
+    def rank(ws, splits, most, waves, idle):
         ks = GEMV_WARPS // ws
-        ntiles = -(-nstrips // ws)
-        for splits in range(1, ng + 1):
-            most = -(-ng // splits)  # groups of the largest split
-            if ks > 1 and most * g > GEMV_KC:
-                continue
-            items = ntiles * splits
-            waves = -(-items // blocks)
-            idle = waves * blocks - items
-            # a warp's word rows, an item's fixed cost, its staged window
-            cost = waves * (-(-most // ks) * wpg + GEMV_ITEM_ROWS + min(most * g, GEMV_KC) // 8)
-            if splits > 1:
-                cost += GEMV_SPLIT_ROWS * splits
-            key = (idle > GEMV_IDLE * waves * blocks, cost, waves, idle,
-                   splits * ws if splits > 1 else 0)
-            if best is None or key < best[0]:
-                best = (key, ws, splits)
-    return best[1], best[2]
+        if ks > 1 and most * g > GEMV_KC:
+            return None
+        # a warp's word rows, an item's fixed cost, its staged window
+        cost = waves * (-(-most // ks) * wpg + GEMV_ITEM_ROWS + min(most * g, GEMV_KC) // 8)
+        if splits > 1:
+            cost += GEMV_SPLIT_ROWS * splits
+        return cost, waves, idle, splits * ws if splits > 1 else 0
+
+    return best_plan(-(-ncols // (GEMV_STRIP // nc)), K // g, blocks, rank)
 
 
 def gemv_scratch(plans) -> tuple:
@@ -357,11 +343,6 @@ def gemv_scratch(plans) -> tuple:
         if splits > 1:
             part = max(part, splits * nt * ws * GEMV_PART)
     return part, tiles
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def batch_plans(cfg, meta, lm_meta=None, sms: int = H100_SMS):
@@ -444,7 +425,7 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
     plan_ws, plan_splits = [1] * GEMV_PHASES, [1] * GEMV_PHASES
     part, counters, n_part = None, None, 0
     if meta[0] == 4:  # the tensor-core GEMV's plan, partials, tile counters, row squares
-        plans = batch_plans(cfg, meta, lm_meta if lm is not None else None, _sms(dev))
+        plans = batch_plans(cfg, meta, lm_meta if lm is not None else None, sm_count(dev))
         plan_ws, plan_splits = [pl[2] for pl in plans], [pl[3] for pl in plans]
         n_part, n_counters = gemv_scratch(plans)
         part = torch.empty(n_counters * 8 + n_part, dtype=torch.float32, device=dev)

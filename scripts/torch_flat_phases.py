@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""Where the port's flat decode kernel (B3, 4-bit words) spends its time, phase by
+phase, on one NVIDIA GPU.
+
+    python3 scripts/torch_flat_phases.py [--sass]
+
+Copies mi_optimize_tpu_torch/csrc/ to build/flat_phases/, where thread 0 of
+every block of model_flat_kernel<T, 4> (flat4_model in model_flat.cu) stamps
+%globaltimer at each step of its phase loop: before and after the residual,
+after the GEMV, after priming the next GEMV, after the grid barrier, and in P1
+after attention and its barrier. It builds the copy with the package's nvcc
+flags, times the package's own build and the stamped copy with CUDA events at
+Llama-2-7B (random int4 g128 weights, bf16, T = 384, positions 200 and 0), and
+prints, over layers 1..L-1, the mean and the slowest block's microseconds of
+each segment (a barrier's is the wait of the blocks that reached it first).
+`--sass` also counts, in cuobjdump's SASS of the package's build, the
+instructions of model_flat_kernel<bf16, 4> and of its chunk loop (the
+innermost loop holding its mma instructions: static size, every path).
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+STAMPS = """
+__device__ unsigned long long g_ft[136][8][272];
+__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long t; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); return t; }
+#define FT(l, k) if (threadIdx.x == 0) g_ft[l][k][blockIdx.x] = gtime();
+extern "C" int mi_flat_timers(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_ft, sizeof(g_ft));
+}
+"""
+# (line of flat4_model, the same line with its stamp)
+STAMP_AT = [
+    ("    const bool lm = st == 4 * L;\n", "    const bool lm = st == 4 * L;\n    FT(st, 0)\n"),
+    ("    float* out = lm ? f.logits", "    FT(st, 1)\n    float* out = lm ? f.logits"),
+    ("    if (lm) break;\n", "    FT(st, 2)\n    if (lm) break;\n"),
+    ("    fg_prime(fc, gemv(st + 1), sm);\n    grid.sync();\n",
+     "    fg_prime(fc, gemv(st + 1), sm);\n    FT(st, 3)\n    grid.sync();\n    FT(st, 4)\n"),
+    ("      grid.sync();\n    }\n  }\n",
+     "      FT(st, 5)\n      grid.sync();\n      FT(st, 6)\n    }\n  }\n")]
+# (step of the loop: 0 qkv, 1 o_proj, 2 gate/up, 3 down_proj; decoder phase,
+# segment, first stamp, last stamp)
+SEGMENTS = [(0, "P1", "residual", 0, 1), (0, "P1", "qkv GEMV", 1, 2), (0, "P1", "prime", 2, 3),
+            (0, "P1", "barrier", 3, 4), (0, "P2", "attention", 4, 5), (0, "P2", "barrier", 5, 6),
+            (1, "P3", "o_proj GEMV", 1, 2), (1, "P3", "prime", 2, 3), (1, "P3", "barrier", 3, 4),
+            (2, "P4", "residual", 0, 1), (2, "P4", "gate/up GEMV", 1, 2), (2, "P4", "prime", 2, 3),
+            (2, "P4", "barrier", 3, 4), (3, "P5", "down_proj GEMV", 1, 2), (3, "P5", "prime", 2, 3),
+            (3, "P5", "barrier", 3, 4)]
+
+
+def stamped_copy():
+    """A copy of csrc/ under build/flat_phases/ with the stamps in
+    model_flat.cu."""
+    from mi_optimize_tpu_torch.ops import _build
+
+    dst = os.path.join(HERE, "build", "flat_phases")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(_build.CSRC, dst)
+    p = os.path.join(dst, "model_flat.cu")
+    inc = '#include "flat_gemv.cuh"\n'
+    s = open(p).read().replace(inc, inc + STAMPS)
+    for old, new in STAMP_AT:
+        if s.count(old) != 1:
+            raise SystemExit(f"model_flat.cu changed: no single line {old.strip()!r} to stamp")
+        s = s.replace(old, new)
+    open(p, "w").write(s)
+    return p
+
+
+def ptxas_line(log):
+    """Registers and spills of model_flat_kernel<bf16, 4> from an nvcc log."""
+    for line in log.splitlines():
+        if "Compiling entry" in line and "model_flat_kernelI13__nv_bfloat16Li4E" in line:
+            info = log.split(line, 1)[1].splitlines()[1:3]
+            return "; ".join(x.split(":", 1)[-1].strip() for x in info)
+    raise SystemExit("ptxas reported no model_flat_kernel<bf16, 4>")
+
+
+def sass_counts(lib, cuobjdump):
+    """Print the SASS instructions of model_flat_kernel<bf16, 4> in `lib` and
+    of the smallest loop (a backward branch) around its first mma."""
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if "model_flat_kernelI13__nv_bfloat16Li4E" in f.split("\n", 1)[0])
+    ins = [(int(m.group(1), 16), m.group(2)) for m in
+           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    first = next(a for a, op in ins if "HMMA" in op)
+    loops = [(t, a) for a, op in ins for t in [int(x, 16) for x in
+                                               re.findall(r"BRA[^;]*?0x([0-9a-f]+)", op)]
+             if t <= first <= a]
+    lo, hi = min(loops, key=lambda x: x[1] - x[0])
+    n = sum(lo <= a <= hi for a, _ in ins)
+    print(f"SASS: model_flat_kernel<bf16, 4> {len(ins)} instructions; its chunk loop {n} "
+          f"({sum('HMMA' in op for a, op in ins if lo <= a <= hi)} mma)")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sass", action="store_true", help="count the kernel's SASS instructions")
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_flat_phases: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
+    from mi_optimize_tpu_torch.ops import _build, coop_plan
+    from mi_optimize_tpu_torch.ops import model_flat as mf
+    from mi_optimize_tpu_torch.serving.flatdecode import stack_cache_flat, stack_flat
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+
+    print(f"gpu: {cs.nvidia_smi_line()}")
+    src = stamped_copy()
+    out = src[:-len(".cu")] + ".so"
+    proc = subprocess.Popen([_build.nvcc_path(), *_build.FLAGS, "-o", out, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    plain = _build.load("model_flat")  # the package's build, meanwhile
+    log, _ = proc.communicate()
+    if proc.returncode:
+        print(log[-4000:])
+        return 1
+    print(f"ptxas (package): {ptxas_line(_build.ptxas_log('model_flat'))}")
+    print(f"ptxas (stamped): {ptxas_line(log)}")
+    stamped = ctypes.CDLL(out)
+    if args.sass:
+        sass_counts(plain._name, os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump"))
+    cfg = LlamaConfig.llama2_7b()
+    dev = "cuda"
+    model = fuse_for_serving(Model(config=cfg, params=build_quantized_llama(
+        cfg, bits=4, groupsize=128, dtype=torch.bfloat16, seed=0, device=dev, symmetric=True)))
+    fstack, fmeta = stack_flat(model)
+    plans = mf.flat_plans(cfg, fmeta, coop_plan.sm_count(torch.device(dev)))
+    print("plan (ws, splits):", [pl[3:] for pl in plans])
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
+    L = cfg.num_layers
+    for pos in (200, 0):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        cache = stack_cache_flat([cs.random_int8_cache(cfg, 384, pos, dev, gen) for _ in range(L)])
+        x = llama.embed(model.params, torch.tensor([[7]], device=dev))
+        cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+        cos, sin = cos.reshape(-1), sin.reshape(-1)
+        ms = {lib: cs.time_ms(lambda: mf.flat_launch("mi_model_decode_flat", fstack, x, cos, sin,
+                                                      cache, pos, cfg, fmeta, lib=lib), 10, flush)
+              for lib in (plain, stamped)}  # the stamps are the last timed launch's
+        buf = np.zeros((136, 8, 272), np.uint64)
+        if stamped.mi_flat_timers(buf.ctypes.data_as(ctypes.c_void_p)) != 0:
+            raise RuntimeError("reading the stamps failed")
+        t = buf[:, :, :264].astype(np.float64) / 1e3
+        layer = np.mean([t[4 * (l + 1), 0, 0] - t[4 * l, 0, 0] for l in range(1, L - 1)])
+        lm = t[4 * L, 2] - t[4 * L, 1]
+        print(f"T=384 pos={pos}: {ms[plain]:.4f} ms package build, {ms[stamped]:.4f} ms stamped; "
+              f"a layer {layer:.2f} us; lm_head GEMV mean {lm.mean():.2f}, "
+              f"slowest {lm.max():.2f} us")
+        for p, phase, name, a, b in SEGMENTS:
+            d = np.stack([t[4 * l + p, b] - t[4 * l + p, a] for l in range(1, L)])
+            print(f"  {phase} {name:15s} mean {d.mean():7.2f}  "
+                  f"slowest block {d.max(axis=1).mean():7.2f} us")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

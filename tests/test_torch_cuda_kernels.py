@@ -16,8 +16,12 @@ product (bitwise), the unfused path (generate, compute_ppl, int4 and W4A8)
 against the CPU, and the W4A8 activation and KV quantizers and
 `find_qparams` bitwise against the CPU; the bf16 int4 dequant_matmul
 kernels (gemv16 up to 16 rows, mma above) at M from 1 to 2048, the same
-bits on a second launch; and the new int8 KV rows of the per-layer, flat and
-batched decode kernels bitwise against their plain versions.
+bits on a second launch; the flat decode kernel with 4-bit words (its
+tensor-core GEMV, csrc/flat_gemv.cuh) in float32 and bfloat16 at g32 and g128
+with a ragged vocab, the same bits on a second launch, and its plan refused
+when the scratch it is given falls short; and the new int8 KV rows of the
+per-layer, flat and batched decode kernels bitwise against their plain
+versions.
 
 Needs an NVIDIA GPU and nvcc; every test skips without one. On the card:
 
@@ -159,12 +163,12 @@ def test_dequant_matmul_bf16_int4(dev, M, K, N, qtype, groupsize, symmetric):
 
 
 def _small(device, bits=4, groupsize=128, head_dim=128, layers=2, seed=0, symmetric=True,
-           inter=1024):
+           inter=1024, vocab=160, dtype=torch.float32):
     heads = 512 // head_dim
-    cfg = LlamaConfig(vocab_size=160, hidden_size=512, intermediate_size=inter, num_layers=layers,
-                      num_heads=heads, num_kv_heads=heads // 2, head_dim=head_dim,
-                      max_seq_len=512)
-    p = build_quantized_llama(cfg, bits=bits, groupsize=groupsize, dtype=torch.float32,
+    cfg = LlamaConfig(vocab_size=vocab, hidden_size=512, intermediate_size=inter,
+                      num_layers=layers, num_heads=heads, num_kv_heads=heads // 2,
+                      head_dim=head_dim, max_seq_len=512)
+    p = build_quantized_llama(cfg, bits=bits, groupsize=groupsize, dtype=dtype,
                               seed=seed, device="cpu", symmetric=symmetric)
     gen = torch.Generator().manual_seed(seed)
     for blk in p["layers"]:
@@ -203,20 +207,110 @@ def test_block_decode(dev, bits, head_dim, T, pos):
     _close(got[4], ref[4], 1e-5)
 
 
-@pytest.mark.parametrize("bits,head_dim", [(4, 128), (8, 64)])
-def test_model_decode_flat(dev, bits, head_dim):
-    cfg, _, gpu = _small(dev, bits=bits, head_dim=head_dim, layers=3, seed=7)
+# (bits, head_dim, group, vocab, dtype): int4 (the tensor-core GEMV of
+# csrc/flat_gemv.cuh) and int8 (the CUDA-core dot) as before, then int4 in
+# both model dtypes at g32 and g128, with a vocab of 200 (not a multiple of
+# a 32-column strip)
+FLAT_CASES = [(4, 128, 128, 160, torch.float32), (8, 64, 128, 160, torch.float32),
+              (4, 128, 32, 160, torch.float32), (4, 128, 128, 200, torch.float32),
+              (4, 64, 32, 200, torch.float32), (4, 128, 128, 160, torch.bfloat16),
+              (4, 128, 32, 200, torch.bfloat16)]
+
+
+def _flat_args(dev, bits, head_dim, group=128, vocab=160, dtype=torch.float32, seed=7):
+    cfg, _, gpu = _small(dev, bits=bits, groupsize=group, head_dim=head_dim, layers=3, seed=seed,
+                         vocab=vocab, dtype=dtype)
     fstack, fmeta = stack_flat(gpu)
     T, pos = 256, 150
     cache = stack_cache_flat([_to(_cache(cfg, T, pos, seed=l), dev) for l in range(3)])
     x = llama.embed(gpu.params, torch.tensor([[9]], device=dev))
     cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
     cossin = torch.cat([cos.reshape(-1), sin.reshape(-1)])
-    got = model_flat.model_decode_flat(fstack, x, cossin, cache, pos, cfg, fmeta)
-    ref = model_flat.model_decode_flat_ref(fstack, x, cossin, cache, pos, cfg, fmeta)
-    _close(got[1], ref[1])
-    assert int(got[0][0]) == int(ref[0][0]) == int(torch.argmax(got[1][0]))
+    return (fstack, x, cossin, cache, pos, cfg, fmeta)
+
+
+def _flat_plain(args, got):
+    """The plain version's outputs for a float32 flat launch `got` on
+    `args`. Where the kernel's int8 k/v rows flip a tie (one code on at most
+    0.1% of them, as `_rows_match` allows), the plain version runs again
+    with the kernel's codes in place of its own (its own scales kept), as
+    `_plain` does for the batched kernel: only the tie is forgiven, not the
+    drift it causes in later layers."""
+    ref = model_flat.model_decode_flat_ref(*args)
     _rows_match(got[2], ref[2])
+    if torch.equal(got[2].cpu(), ref[2].cpu()):
+        return ref
+    calls = iter(range(2 * got[2].shape[0]))  # layer l's k rows, then its v rows
+
+    def forced(x):
+        q, s = llama.quantize_kv(x)
+        l, kv = divmod(next(calls), 2)
+        return got[2][l, kv][None, None].to(q.device, q.dtype), s
+
+    with mock.patch.object(block_fused, "quantize_kv", forced):
+        ref = model_flat.model_decode_flat_ref(*args)
+    assert torch.equal(got[2].cpu(), ref[2].cpu())
+    return ref
+
+
+@pytest.mark.parametrize("bits,head_dim,group,vocab,dtype", FLAT_CASES)
+def test_model_decode_flat(dev, bits, head_dim, group, vocab, dtype):
+    """The flat kernel against its plain version, and a second launch bit
+    for bit. float32: logits to RTOL against the plain version (run on the
+    kernel's int8 codes where a tie flips one: `_plain`), the token equal,
+    the scales to 1e-5; bfloat16: logits to BF16_TOL, rows within one code,
+    scales to 1e-3 (`_batch_close`'s bf16 bounds), the token equal unless
+    the plain version's top two logits lie within BF16_TOL."""
+    args = _flat_args(dev, bits, head_dim, group, vocab, dtype)
+    before = model_flat.launches
+    got = model_flat.model_decode_flat(*args)
+    _same_bits(got, model_flat.model_decode_flat(*args))
+    assert model_flat.launches == before + 2
+    assert int(got[0][0]) == int(torch.argmax(got[1][0]))
+    if dtype == torch.float32:
+        ref = _flat_plain(args, got)
+        _close(got[1], ref[1])
+        assert int(got[0][0]) == int(ref[0][0])
+        _close(got[3], ref[3], 1e-5)
+        return
+    ref = model_flat.model_decode_flat_ref(*args)
+    _close(got[1], ref[1], BF16_TOL)
+    assert int((got[2].int() - ref[2].int()).abs().max()) <= 1
+    _close(got[3], ref[3], 1e-3)
+    top2 = torch.topk(ref[1][0].float(), 2).values
+    if float(top2[0] - top2[1]) > BF16_TOL * float(ref[1].abs().max()):
+        assert int(got[0][0]) == int(ref[0][0])
+
+
+@pytest.mark.parametrize("short", [None, "partials", "splits", "lm_head"])
+def test_model_decode_flat_plan(dev, monkeypatch, short):
+    """The 4-bit flat kernel's plan is made on the host (`flat_plans`,
+    `flat_scratch`) and checked again by its launch (check_plan): with
+    o_proj split in 4, gate/up in 2 and down_proj in 3 the launch matches
+    its plain version and repeats its bits; partials one float short of the
+    plan's, a split with no group (o_proj in groups + 1) or a split lm_head
+    (the argmax needs whole logits) are refused before anything runs, and
+    no launch is counted."""
+    plans, sizes = model_flat.flat_plans, model_flat.flat_scratch
+    force = {None: {1: 4, 2: 2, 3: 3}, "partials": {1: 4, 2: 2, 3: 3}, "splits": {1: 5},
+             "lm_head": {4: 2}}
+    monkeypatch.setattr(model_flat, "flat_plans", lambda *a: [
+        pl[:4] + (force[short].get(i, pl[4]),) for i, pl in enumerate(plans(*a))])
+    cut = 1 if short == "partials" else 0
+    monkeypatch.setattr(model_flat, "flat_scratch", lambda pl: (sizes(pl)[0] - cut, sizes(pl)[1]))
+    args = _flat_args(dev, 4, 128, group=128)  # 512 inputs of o_proj: 4 groups
+    before = model_flat.launches
+    if short is not None:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            model_flat.model_decode_flat(*args)
+        assert model_flat.launches == before
+        return
+    got = model_flat.model_decode_flat(*args)
+    _same_bits(got, model_flat.model_decode_flat(*args))
+    assert model_flat.launches == before + 2
+    ref = _flat_plain(args, got)
+    _close(got[1], ref[1])
+    assert int(got[0][0]) == int(ref[0][0])
     _close(got[3], ref[3], 1e-5)
 
 
