@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--baseline PATH]
 
 Phases:
   1. build the CUDA kernels under mi_optimize_tpu_torch/csrc/ with nvcc
      (one nvcc per source, all at once) into build/torch_kernels/, and
      report ptxas's registers and spills of every batch_kernel and
-     model_flat_kernel instance and of gemv16_kernel from the build's own
-     -Xptxas -v log;
+     model_flat_kernel instance, of gemv16_kernel and of the fused MLP's
+     tensor-core kernels from the build's own -Xptxas -v log;
   2. hold each kernel against its plain PyTorch version on the card at the
      Llama-2-7B shapes of the paths below in bf16, and time both: the
      dequant matmul (the gemv16 kernel at M = 1, the tensor-core mma kernel
@@ -32,8 +32,11 @@ Phases:
      2-layer draft; timed against 5 model_decode_flat launches), the
      paged flash decode of one layer (4 slots, pages of 16), the decode
      attention of one layer (T=384 at pos 200, T=2048 at pos 2047; new
-     int8 rows and scales bit-equal), the fused MLP (M = 1, 128, 2048; also
-     timed against the unfused route) and the W4A8 integer product (M = 128:
+     int8 rows and scales bit-equal), the fused MLP (M = 1 on its "gemv"
+     instance, 128 and 2048 on its "mma" instance, with the P1/P2 split of
+     the latter's time from torch.profiler; also timed against the unfused
+     route and against the first port's CUDA-core kernels on the same
+     inputs) and the W4A8 integer product (M = 128:
      q, gate and down per group, gate per channel; M = 2048: q, down and the
      per-channel gate; bit-equal) on the unfused model; the whole-model
      kernels' gate (`hold_rows` in bf16 and f32 over the first 2 layers at
@@ -111,7 +114,9 @@ SwiGLU MLP) and bound;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 2 and prints no result. `--report PATH` also writes
 the whole report (per-kernel bytes and flops, per-request latencies)
-there as JSON.
+there as JSON. `--baseline PATH` reads such a report of another tree's run
+in the same call (a parent commit's) and prints its kernel times, phase 5
+device times and ptxas registers and spills beside this run's.
 """
 from __future__ import annotations
 
@@ -160,14 +165,20 @@ def _bits_dtype(m) -> str:
 # (source, mangled-name pattern, label) of the kernels whose registers and
 # spills phase 1 reports: every batch_kernel instance (model_fused.cu), every
 # model_flat_kernel instance (model_flat.cu; its 4-bit instances run
-# flat_gemv.cuh) and gemv16_kernel (dequant_matmul.cu)
+# flat_gemv.cuh), gemv16_kernel (dequant_matmul.cu) and the fused MLP's
+# tensor-core kernels (mlp_fused.cu: the M <= 8 kernel, P1 and P2 above)
 PTXAS_KERNELS = (
     ("model_fused", r"batch_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb(\d)ELb(\d)E",
      lambda m: f"batch_kernel<{_bits_dtype(m)}, {m.group(2)}, {m.group(3)}, GEN={m.group(4)}, "
                f"LM={m.group(5)}>"),
     ("model_flat", r"model_flat_kernelI(f|13__nv_bfloat16)Li(\d)E",
      lambda m: f"model_flat_kernel<{_bits_dtype(m)}, {m.group(2)}>"),
-    ("dequant_matmul", r"gemv16_kernelILi(\d)E", lambda m: f"gemv16_kernel<{m.group(1)}>"))
+    ("dequant_matmul", r"gemv16_kernelILi(\d)E", lambda m: f"gemv16_kernel<{m.group(1)}>"),
+    ("mlp_fused", r"mlp_gemv_mma_kernel", lambda m: "mlp_gemv_mma_kernel"),
+    ("mlp_fused",
+     r"mlp_mma_kernelINS_7MlpTileILi(\d+)ELi(\d)ELi(\d)ELi(\d)ELi\d+ELi\d+EEELb([01])E",
+     lambda m: f"mlp_mma_kernel<{'P1' if m.group(5) == '1' else 'P2'}, [{m.group(1)}, 128] on "
+               f"{m.group(2)} x {m.group(3)} warps, {m.group(4)} plane(s)>"))
 
 
 def ptxas_report() -> list:
@@ -1244,49 +1255,98 @@ def mlp_bytes(lins, M, dtype_bytes=2) -> int:
             + M * K * dtype_bytes * 2)
 
 
+def kernel_ms_by_name(run, reps=3) -> dict:
+    """Device ms a call of `run` spends in each kernel, by name: torch.profiler
+    over `reps` calls (warm L2), divided by reps."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
 def check_mlp_fused(blk, cfg, dev, flush, reps, Ms=(1, 128, 2048)):
     """The fused MLP (B7) on the unfused 7B model's layer 0, bf16 x, held
     within TOL of max|plain| and timed against its plain version and
     against the unfused route (gate and up through dequant_matmul, SiLU *
-    up, down through dequant_matmul). No single PyTorch call computes it:
-    library_ms is null."""
+    up, down through dequant_matmul) and against PR 5's CUDA-core kernels on
+    the same inputs (`kernel="cuda_core"`: the parent's B7). Prints the instance each M takes
+    and, for the two-launch "mma" route, the split of its time between P1
+    (gate/up) and P2 (down) from torch.profiler. No single PyTorch call
+    computes it: library_ms is null."""
     import torch
 
     from mi_optimize_tpu_torch.models.quant_linear import group_size
     from mi_optimize_tpu_torch.ops import mlp_fused as mf
-    from mi_optimize_tpu_torch.ops.dequant_matmul import dequant_matmul, zero_tables
+    from mi_optimize_tpu_torch.ops.coop_plan import sm_count
+    from mi_optimize_tpu_torch.ops.dequant_matmul import dequant_matmul, kernel_tables, zero_tables
 
     lins = (blk["gate_proj"], blk["up_proj"], blk["down_proj"])
     if not mf.mlp_supported(*lins, cfg.hidden_size, cfg.intermediate_size):
         raise AssertionError("the 7B MLP should meet the fused MLP's routing predicate")
     tabs = [t for l in lins for t in (l.packed, *zero_tables(l))]
-    kw = dict(bits=4, k_group=group_size(lins[0]), i_group=group_size(lins[2]), qmin=0,
-              inter=cfg.intermediate_size, hidden=cfg.hidden_size)
+    K, I = cfg.hidden_size, cfg.intermediate_size
+    gk, ik = group_size(lins[0]), group_size(lins[2])
+    kw = dict(bits=4, k_group=gk, i_group=ik, qmin=0, inter=I, hidden=K)
     gen = torch.Generator(device=dev).manual_seed(13)
     rows = []
     for M in Ms:
-        x = torch.randn(M, cfg.hidden_size, generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
         run = lambda: mf.mlp_apply_fused(x, *lins, cfg)
         plain = lambda: mf.fused_mlp_ref(x, *tabs, **kw)
         unfused = lambda: dequant_matmul(torch.nn.functional.silu(dequant_matmul(x, lins[0]))
                                          * dequant_matmul(x, lins[1]), lins[2])
+        r = mf.route(M, x.dtype, 4, gk, ik)
+        if r == "gemv":
+            s1, s2 = mf.gemv_plans(M, K, I, K, gk, ik, mf.COOP_PER_SM * sm_count(dev))
+            inst = (f"gemv: one cooperative mlp_gemv_mma_kernel, {s1} splits of K in P1, "
+                    f"{s2} of I in P2")
+        elif r == "mma":
+            big, splits = mf.mma_plan(M, K, I, ik, sm_count(dev))
+            inst = (f"mma: P1 + P2 mlp_mma_kernel, [{mf.MMA_TILES[big][0]}, 128] tiles, "
+                    f"{splits} split(s) of I in P2")
+        else:
+            raise AssertionError(f"the bf16 int4 MLP took the {r} route")
+        before = getattr(mf, mf.COUNTERS[r])
         got, ref = run(), plain()
         torch.cuda.synchronize()
-        err = check_close(f"mlp_fused M={M}", got, ref)
+        if getattr(mf, mf.COUNTERS[r]) != before + 1:
+            raise AssertionError(f"mlp_fused M={M} did not launch its {r} kernels")
+        err = check_close(f"mlp_fused M={M} ({inst})", got, ref)
         check_close(f"  unfused route M={M}", unfused(), ref)
         ms = time_ms(run, reps, flush)
         plain_ms = time_ms(plain, max(2, reps // 10), flush)
         unfused_ms = time_ms(unfused, reps, flush)
+        biases = tuple(kernel_tables(l)[1] for l in lins)
+        cuda_core = lambda: mf.fused_mlp(x, *tabs, **kw, biases=biases, kernel="cuda_core")
+        check_close(f"  the CUDA-core kernels (PR 5's) M={M}", cuda_core(), ref)
+        cuda_core_ms = time_ms(cuda_core, max(2, reps // 2), flush)
+        by_name = kernel_ms_by_name(run)
+        phases = {"P1": sum(v for k, v in by_name.items() if "mlp_mma_kernel" in k and
+                            "true>" in k),
+                  "P2": sum(v for k, v in by_name.items() if "mlp_mma_kernel" in k and
+                            "false>" in k)} if r == "mma" else None
         nb = mlp_bytes(lins, M)
-        fl = 2.0 * M * cfg.intermediate_size * (2 * cfg.hidden_size + cfg.hidden_size)
+        fl = 2.0 * M * I * (2 * K + K)
         b_ms, b_by = bound(nb, fl)
-        log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  unfused route {unfused_ms:.4f} ms "
-            f"library none  bound {b_ms:.4f} ms ({b_by}), {nb / 1e6:.2f} MB, "
-            f"{fl / 1e9:.2f} GFLOP")
-        rows.append(dict(name="mlp_fused", shape=f"M={M} K={cfg.hidden_size} "
-                         f"I={cfg.intermediate_size} int4 g128 bf16", max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, bytes=nb, flops=fl))
+        log(f"    kernel {ms:.4f} ms  PR 5's CUDA-core kernels {cuda_core_ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  unfused route {unfused_ms:.4f} ms  library none  bound "
+            f"{b_ms:.4f} ms ({b_by}), {nb / 1e6:.2f} MB, {fl / 1e9:.2f} GFLOP")
+        log("    profiler (warm L2): " + (f"P1 {phases['P1']:.4f} ms, P2 {phases['P2']:.4f} ms"
+                                          if phases else
+                                          f"{sum(by_name.values()):.4f} ms in one launch"))
+        rows.append(dict(name="mlp_fused", shape=f"M={M} K={K} I={I} int4 g128 bf16",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=nb, flops=fl,
+                         instance=inst, phase_ms=phases, cuda_core_ms=cuda_core_ms))
     return rows
 
 
@@ -2401,6 +2461,12 @@ KERNELS = {
     "decode_attention": ("mi_optimize_tpu_torch/csrc/decode_attention.cu",
                          "mi_optimize_tpu/ops/decode_attention.py:37"),
     "mlp_fused": ("mi_optimize_tpu_torch/csrc/mlp_fused.cu", "mi_optimize_tpu/ops/mlp_fused.py:44"),
+    "mlp_fused_gemv": ("mi_optimize_tpu_torch/csrc/mlp_fused.cu",
+                       "mi_optimize_tpu/ops/mlp_fused.py:44"),
+    "mlp_fused_mma": ("mi_optimize_tpu_torch/csrc/mlp_fused.cu",
+                      "mi_optimize_tpu/ops/mlp_fused.py:44"),
+    "mlp_fused_cuda_core": ("mi_optimize_tpu_torch/csrc/mlp_fused.cu",
+                            "mi_optimize_tpu/ops/mlp_fused.py:44"),
     "w4a8_matmul": ("mi_optimize_tpu_torch/csrc/w4a8_matmul.cu",
                     "mi_optimize_tpu/ops/w4a8_matmul.py:49"),
 }
@@ -2426,14 +2492,17 @@ def counters():
             "model_decode_flat_seg": (model_flat_seg, "launches"),
             "decode_attention": (decode_attention, "launches"),
             "mlp_fused": (mlp_fused, "launches"),
+            "mlp_fused_gemv": (mlp_fused, "launches_gemv"),
+            "mlp_fused_mma": (mlp_fused, "launches_mma"),
+            "mlp_fused_cuda_core": (mlp_fused, "launches_cuda_core"),
             "w4a8_matmul": (w4a8_matmul, "launches")}
 
 
 def run_path(name, needs, fn):
     """Drive one path with every launch counter at 0 just before it and read
     just after; fail unless each kernel in `needs` launched, and if the CUDA-core
-    dequant_matmul kernels launched (every served linear is bf16 int4: the
-    gemv16 and mma kernels' inputs). Returns (the path's result with its
+    dequant_matmul or mlp_fused kernels launched (every served linear is bf16
+    int4: the tensor-core kernels' inputs). Returns (the path's result with its
     peak memory, its counts)."""
     import torch
 
@@ -2449,15 +2518,55 @@ def run_path(name, needs, fn):
     missing = [k for k in needs if counts[k] == 0]
     if missing:
         raise AssertionError(f"{name} launched no {missing} kernel")
-    if counts["dequant_matmul"]:
-        raise AssertionError(f"{name} took the CUDA-core dequant_matmul kernels for bf16 "
-                             "int4 linears")
+    if counts["dequant_matmul"] or counts["mlp_fused_cuda_core"]:
+        raise AssertionError(f"{name} took the CUDA-core dequant_matmul or mlp_fused kernels "
+                             "for bf16 int4 linears")
     return res, counts
+
+
+def compare_baseline(report, path) -> dict:
+    """This run's kernel rows (by name and shape), phase 5 windows and ptxas
+    instances beside those of the report at `path` (another tree's run in the
+    same call), logged one a line: {"kernels": [[name, shape, ms, its ms]],
+    "profile": [[window, device ms, its device ms]], "ptxas": [[instance,
+    registers, spill stores, its registers, its spill stores]]}."""
+    with open(path) as f:
+        base = json.load(f)
+    log(f"comparison with {path} (same call)")
+    out = {"kernels": [], "profile": [], "ptxas": []}
+    theirs = {(k["name"], k["shape"]): k["ms"] for k in base.get("kernels", [])}
+    for k in report["kernels"]:
+        b = theirs.get((k["name"], k["shape"]))
+        if b is not None:
+            out["kernels"].append([k["name"], k["shape"], k["ms"], b])
+            log(f"  {k['name']} {k['shape']}: {k['ms']:.4f} ms, baseline {b:.4f} ms "
+                f"({b / k['ms']:.3f}x, {100 * (k['ms'] / b - 1):+.1f}%)")
+    for w, v in report.get("profile", {}).items():
+        b = base.get("profile", {}).get(w, {}).get("device_ms")
+        if b and v.get("device_ms"):
+            out["profile"].append([w, v["device_ms"], b])
+            log(f"  phase 5 {w}: device {v['device_ms']:.3f} ms, baseline {b:.3f} ms "
+                f"({b / v['device_ms']:.3f}x)")
+    theirs = {r["instance"]: r for r in base.get("ptxas", [])}
+    for r in report.get("ptxas", []):
+        b = theirs.get(r["instance"])
+        if b is not None:
+            out["ptxas"].append([r["instance"], r.get("registers"), r["spill_stores"],
+                                 b.get("registers"), b["spill_stores"]])
+            same = (r.get("registers"), r["spill_stores"], r["spill_loads"]) == (
+                b.get("registers"), b["spill_stores"], b["spill_loads"])
+            log(f"  ptxas {r['instance']}: {r.get('registers')} registers, {r['spill_stores']}/"
+                f"{r['spill_loads']} bytes spilled; baseline {b.get('registers')}, "
+                f"{b['spill_stores']}/{b['spill_loads']} ({'same' if same else 'DIFFERENT'})")
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port's main path on one GPU.")
     ap.add_argument("--report", help="also write the whole report as JSON to this path")
+    ap.add_argument("--baseline", help="a report (--report) of another tree's run in the same "
+                    "call: print its kernel times, phase 5 device times and registers beside "
+                    "this run's")
     args = ap.parse_args()
     try:
         import torch
@@ -2711,14 +2820,15 @@ def main() -> int:
     ptarget = Model(config=cfg, params=build_planted_llama(cfg, m_t, device=dev))
     report["generate_unfused"], c = run_path(
         "generate_unfused", ("dequant_matmul_gemv16", "dequant_matmul_mma", "decode_attention",
-                             "mlp_fused"),
+                             "mlp_fused", "mlp_fused_gemv", "mlp_fused_mma"),
         lambda: serve_generate_unfused(ptarget, m_t, cfg, dev))
     tally(c)
     if c["block_decode_mega"] or c["model_decode_flat"]:
         raise AssertionError("generate_unfused launched a fused-model decode kernel")
     log(" l. compute_ppl on the unfused random-weight Llama-2-7B, 2 x 2048 tokens")
     rmodel = unfused()
-    report["ppl_unfused"], c = run_path("ppl_unfused", ("dequant_matmul_mma", "mlp_fused"),
+    report["ppl_unfused"], c = run_path("ppl_unfused", ("dequant_matmul_mma", "mlp_fused",
+                                                        "mlp_fused_mma"),
                                         lambda: serve_ppl_unfused(rmodel, cfg))
     tally(c)
     log(" m. the W4A8 spec on every decoder linear, MI_W4A8_INT=1")
@@ -2731,8 +2841,9 @@ def main() -> int:
 
     log("phase 4: small f32 model on the card vs the plain versions on the CPU")
     cs = counters()
-    core = cs["dequant_matmul"]
+    core, mcore = cs["dequant_matmul"], cs["mlp_fused_cuda_core"]
     setattr(core[0], core[1], 0)
+    setattr(mcore[0], mcore[1], 0)
     small_reference_check(dev)
     small_serving_check(dev)
     small_paged_check(dev)
@@ -2742,7 +2853,9 @@ def main() -> int:
     # the CUDA-core dequant_matmul kernels serve the f32 models: their launches are
     # these paths' (the bf16 served paths above must launch none)
     counts["dequant_matmul"] = getattr(*core)
-    log(f"  CUDA-core dequant_matmul kernels (f32 x): {counts['dequant_matmul']} launches")
+    counts["mlp_fused_cuda_core"] = getattr(*mcore)
+    log(f"  CUDA-core dequant_matmul kernels (f32 x): {counts['dequant_matmul']} launches; "
+        f"CUDA-core mlp_fused kernels: {counts['mlp_fused_cuda_core']}")
     if not counts["dequant_matmul"]:
         raise AssertionError("the f32 paths launched no CUDA-core dequant_matmul kernel")
 
@@ -2765,6 +2878,8 @@ def main() -> int:
                               library_max_abs_err=r.get("library_max_abs_err"),
                               codes=r.get("codes"), cuda_core_ms=r.get("cuda_core_ms"))
                          for k, r in zip(kernels, rows)]
+    if args.baseline:
+        report["baseline"] = compare_baseline(report, args.baseline)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:

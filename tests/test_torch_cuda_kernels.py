@@ -990,31 +990,61 @@ def _mlp_lins(dev, bits, groupsize, down_qtype, K=256, inter=512, seed=0):
             mk(K, inter, down_qtype if down_qtype else qtype, 2))
 
 
+def _check_mlp(dev, lins, M, K, inter, dtype, seed):
+    """Two calls of mlp_apply_fused on the same x: one launch each on the
+    route `mlp_fused.route` names, the same bits, within RTOL (f32) or 2e-2
+    (bf16) of max|plain| of the plain version."""
+    cfg = LlamaConfig(hidden_size=K, intermediate_size=inter)
+    x = torch.randn(M, K, generator=torch.Generator().manual_seed(seed)).to(dtype).to(dev)
+    gk, ik = group_size(lins[0]), group_size(lins[2])
+    counter = mlp_fused.COUNTERS[mlp_fused.route(M, dtype, lins[0].spec.wbit, gk, ik)]
+    before = (mlp_fused.launches, getattr(mlp_fused, counter))
+    y = mlp_fused.mlp_apply_fused(x, *lins, cfg)
+    y2 = mlp_fused.mlp_apply_fused(x, *lins, cfg)
+    assert (mlp_fused.launches, getattr(mlp_fused, counter)) == tuple(b + 2 for b in before)
+    assert y.dtype == dtype and y.shape == (M, K)
+    assert torch.equal(y, y2)
+    tabs = [t for lin in lins for t in (lin.packed, *dequant_matmul.zero_tables(lin))]
+    ref = mlp_fused.fused_mlp_ref(x, *tabs, bits=lins[0].spec.wbit, k_group=gk, i_group=ik,
+                                  qmin=0, inter=inter, hidden=K)
+    _close(y, ref, RTOL if dtype == torch.float32 else 2e-2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits,groupsize,down_qtype", [
     (4, 128, None), (4, 64, None), (8, 128, None), (2, 64, None), (4, -1, None),
     (4, 128, "per_channel")])
-@pytest.mark.parametrize("M", [1, 3, 8, 9, 64, 130])
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 16, 64, 130, 2048])
 def test_mlp_fused(dev, dtype, bits, groupsize, down_qtype, M):
     """The fused MLP against its plain version (asymmetric grids: a zero per
-    group); two launches give the same bits."""
+    group); two launches give the same bits. bf16 int4 takes the
+    tensor-core routes ("gemv" at M <= 8, "mma" above), the rest the
+    CUDA-core kernels."""
     K, inter = 256, 512
     lins = _mlp_lins(dev, bits, groupsize, down_qtype, K, inter, seed=M + bits)
-    cfg = LlamaConfig(hidden_size=K, intermediate_size=inter)
     # the reference's predicate: per-channel down groups are wider than its tile
     assert mlp_fused.mlp_supported(*lins, K, inter) == (down_qtype is None and groupsize > 0)
-    x = torch.randn(M, K, generator=torch.Generator().manual_seed(M)).to(dtype).to(dev)
-    before = mlp_fused.launches
-    y = mlp_fused.mlp_apply_fused(x, *lins, cfg)
-    y2 = mlp_fused.mlp_apply_fused(x, *lins, cfg)
-    assert mlp_fused.launches == before + 2 and y.dtype == dtype and y.shape == (M, K)
-    assert torch.equal(y, y2)
-    tabs = [t for lin in lins for t in (lin.packed, *dequant_matmul.zero_tables(lin))]
-    gk = groupsize if groupsize > 0 else K
-    ik = group_size(lins[2])
-    ref = mlp_fused.fused_mlp_ref(x, *tabs, bits=bits, k_group=gk, i_group=ik, qmin=0,
-                                  inter=inter, hidden=K)
-    _close(y, ref, RTOL if dtype == torch.float32 else 2e-2)
+    _check_mlp(dev, lins, M, K, inter, dtype, M)
+
+
+@pytest.mark.parametrize("M,K,inter,groupsize", [(200, 1024, 1408, 128), (40, 1024, 1408, 128)])
+def test_mlp_fused_ragged_split(dev, M, K, inter, groupsize):
+    """bf16 int4 "mma" route whose down phase splits I's 11 groups into 8
+    splits of one or two groups (M = 200, [128, 128] tiles), and into 11
+    (M = 40, [64, 128] tiles)."""
+    assert mlp_fused.mma_plan(M, K, inter, groupsize) == ((True, 8) if M > 128 else (False, 11))
+    lins = _mlp_lins(dev, 4, groupsize, None, K, inter, seed=M)
+    _check_mlp(dev, lins, M, K, inter, torch.bfloat16, M)
+
+
+@pytest.mark.parametrize("M", [1, 128])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_mlp_fused_7b_widths(dev, M, symmetric):
+    """The tensor-core routes at Llama-2-7B's MLP widths, int4 g128, bf16."""
+    K, inter = 4096, 11008
+    lins = tuple(_to(_linear(o, i, 4, "per_group", 128, symmetric, seed=s), dev)
+                 for s, (o, i) in enumerate(((inter, K), (inter, K), (K, inter))))
+    _check_mlp(dev, lins, M, K, inter, torch.bfloat16, M)
 
 
 @pytest.mark.parametrize("M,N,K,groupsize", [
