@@ -6,9 +6,10 @@
 Phases:
   1. build the CUDA kernels under mi_optimize_tpu_torch/csrc/ with nvcc
      (one nvcc per source, all at once) into build/torch_kernels/, and
-     report ptxas's registers and spills of every batch_kernel and
-     model_flat_kernel instance, of gemv16_kernel and of the fused MLP's
-     tensor-core kernels from the build's own -Xptxas -v log;
+     report ptxas's registers and spills of every batch_kernel,
+     model_flat_kernel and mega4_kernel instance, of gemv16_kernel and of
+     the fused MLP's tensor-core kernels from the build's own -Xptxas -v
+     log;
   2. hold each kernel against its plain PyTorch version on the card at the
      Llama-2-7B shapes of the paths below in bf16, and time both: the
      dequant matmul (the gemv16 kernel at M = 1, the tensor-core mma kernel
@@ -18,7 +19,9 @@ Phases:
      at position 0 held by `hold_rows` over its first 2 layers and the
      lm_head, and on a planted 2-layer draft with its logits held to the
      off-peak scale; the same bits on a second launch), the whole-model
-     kernel on an asymmetric grid (bias tables streamed), the batched
+     kernel on an asymmetric grid (bias tables streamed; its 4-bit route,
+     the tensor-core layer loop, at positions 200 and 0, the same bits on a
+     second launch), the batched
      whole-model kernel at B = 8 (and B = 2 on the asymmetric grid, and B = 8
      with every slot at position 0: its GEMVs and barriers with next to no
      attention), in its
@@ -56,7 +59,8 @@ Phases:
         different steps and requests join mid-flight) on the batched
         whole-model kernel;
      c. a 128-token prefill plus 128 tokens of `decode_loop_model` on an
-        asymmetric-grid model (the whole-model kernel with bias tables);
+        asymmetric-grid model (the whole-model kernel's tensor-core layer
+        loop with bias tables);
      d. the same 24 requests through `PagedMegaBatcher` (8 slots over a
         25-page pool, then 12 slots in waves of 8): the paged mode, tokens
         equal to the ContinuousBatcher's;
@@ -98,8 +102,9 @@ Phases:
      with the plain versions run on the CPU; these f32 paths are where the
      CUDA-core dequant_matmul kernels run, and their launches are counted;
   5. where the time goes: torch.profiler device time by kernel and the
-     device busy share over a prefill, flat decode, per-layer decode, 8
-     batcher steps and 8 paged batcher steps with 8 active slots, one
+     device busy share over a prefill, flat decode, per-layer decode, 16
+     tokens of decode_loop_model on the asymmetric grid, 8 batcher steps
+     and 8 paged batcher steps with 8 active slots, one
      k=4 speculative round on the planted 7B pair, 8 decode steps of the
      unfused planted model and one 2048-token perplexity batch.
 
@@ -110,7 +115,9 @@ over the pre-gathered pages for the paged flash decode and over the
 pre-dequantized history for the decode attention, torch._int_mm for the
 per-channel W4A8 row; none for the decode kernels and the fused MLP, since no
 single PyTorch call computes a decoder stack, its lm rows or a quantized
-SwiGLU MLP) and bound;
+SwiGLU MLP) and bound (model_decode_mega's launches count every
+whole-model one-token launch, of either route; model_decode_mega4's those of
+the 4-bit route);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 2 and prints no result. `--report PATH` also writes
 the whole report (per-kernel bytes and flops, per-request latencies)
@@ -165,14 +172,18 @@ def _bits_dtype(m) -> str:
 # (source, mangled-name pattern, label) of the kernels whose registers and
 # spills phase 1 reports: every batch_kernel instance (model_fused.cu), every
 # model_flat_kernel instance (model_flat.cu; its 4-bit instances run
-# flat_gemv.cuh), gemv16_kernel (dequant_matmul.cu) and the fused MLP's
-# tensor-core kernels (mlp_fused.cu: the M <= 8 kernel, P1 and P2 above)
+# flat_gemv.cuh), every mega4_kernel instance (model_mega4.cu, over
+# flat_gemv.cuh; BIAS=1 streams bias tables), gemv16_kernel
+# (dequant_matmul.cu) and the fused MLP's tensor-core kernels (mlp_fused.cu:
+# the M <= 8 kernel, P1 and P2 above)
 PTXAS_KERNELS = (
     ("model_fused", r"batch_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb(\d)ELb(\d)E",
      lambda m: f"batch_kernel<{_bits_dtype(m)}, {m.group(2)}, {m.group(3)}, GEN={m.group(4)}, "
                f"LM={m.group(5)}>"),
     ("model_flat", r"model_flat_kernelI(f|13__nv_bfloat16)Li(\d)E",
      lambda m: f"model_flat_kernel<{_bits_dtype(m)}, {m.group(2)}>"),
+    ("model_mega4", r"mega4_kernelI(f|13__nv_bfloat16)Lb([01])E",
+     lambda m: f"mega4_kernel<{_bits_dtype(m)}, BIAS={m.group(2)}>"),
     ("dequant_matmul", r"gemv16_kernelILi(\d)E", lambda m: f"gemv16_kernel<{m.group(1)}>"),
     ("mlp_fused", r"mlp_gemv_mma_kernel", lambda m: "mlp_gemv_mma_kernel"),
     ("mlp_fused",
@@ -749,40 +760,59 @@ def kv_history_bytes(cfg, positions) -> int:
     return cfg.num_layers * 2 * sum(positions) * cfg.num_kv_heads * (cfg.head_dim + 4)
 
 
-def check_mega(model, stack, meta, cfg, dev, flush, reps, T=384, pos=200):
-    """The one-token whole-model kernel on an asymmetric-grid model."""
+def check_mega(model, stack, meta, cfg, dev, flush, reps, T=384, positions=(200, 0)):
+    """The one-token whole-model kernel (B4) on an asymmetric-grid model, on
+    the route 4-bit words take ("mega4": the tensor-core layer loop of
+    csrc/model_mega4.cu, the bias tables streamed): at each position held by
+    check_whole_model's gates, a second launch giving the same bits, and
+    timed beside its plain version (position 0: the GEMVs and barriers with
+    next to no attention). Its rows carry the name of the kernel they
+    replace (`baseline_name`), so that a parent's report, which timed the
+    CUDA-core mega_kernel on the same inputs, lines up with them. Bound: the stack's
+    words and tables, the live history, x in and out and the new rows, read
+    or written once."""
     import torch
 
     from mi_optimize_tpu_torch.models import llama
     from mi_optimize_tpu_torch.ops import model_fused as mf
 
     L, h = cfg.num_layers, cfg.hidden_size
-    gen = torch.Generator(device=dev).manual_seed(7)
-    per_layer = [random_int8_cache(cfg, T, pos, dev, gen) for _ in range(L)]
-    cache = {f: torch.stack([c[f][0] for c in per_layer]) for f in per_layer[0]}
-    del per_layer
-    x = llama.embed(model.params, torch.tensor([[11]], device=dev))
-    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
-    cos, sin = cos.reshape(-1), sin.reshape(-1)
-    log(f"  model_decode_mega: asymmetric, {L} layers, T={T}, pos={pos}")
-    err, stats, _ = check_whole_model(
-        "model_decode_mega",
-        lambda st, ca, xx, c: mf.model_decode_mega(st, xx, cos, sin, ca, pos, c, meta),
-        lambda st, ca, xx, c: mf.model_decode_mega_ref(st, xx, cos, sin, ca, pos, c, meta),
-        stack, cache, x, cfg, [pos])
-    ms = time_ms(lambda: mf.model_decode_mega(stack, x, cos, sin, cache, pos, cfg, meta), reps,
-                 flush)
-    plain_ms = time_ms(lambda: mf.model_decode_mega_ref(stack, x, cos, sin, cache, pos, cfg,
-                                                        meta), 2, flush)
-    nb = (stacked_bytes(stack) + kv_history_bytes(cfg, [pos])
-          + 2 * h * 2 + L * 2 * cfg.num_kv_heads * (cfg.head_dim + 4))
-    fl = L * decode_block_flops(cfg, pos)
-    b_ms, b_by = bound(nb, fl)
-    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
-        f"bias tables streamed: {sorted(k for k in stack if k.endswith('z'))}")
-    return [dict(name="model_decode_mega", shape=f"{L} layers asymmetric T={T} pos={pos}",
-                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 bytes=nb, flops=fl, codes=stats)]
+    if mf.mega_route(meta) != "mega4":
+        raise AssertionError("the 4-bit whole-model decode should take the mega4 route")
+    name, rows = "model_decode_mega4", []
+    for pos in positions:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        per_layer = [random_int8_cache(cfg, T, pos, dev, gen) for _ in range(L)]
+        cache = {f: torch.stack([c[f][0] for c in per_layer]) for f in per_layer[0]}
+        del per_layer
+        x = llama.embed(model.params, torch.tensor([[11]], device=dev))
+        cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+        cos, sin = cos.reshape(-1), sin.reshape(-1)
+        run = lambda st, ca, xx, c: mf.model_decode_mega(st, xx, cos, sin, ca, pos, c, meta)
+        plain = lambda st, ca, xx, c: mf.model_decode_mega_ref(st, xx, cos, sin, ca, pos, c, meta)
+        log(f"  {name}: asymmetric, {L} layers, T={T}, pos={pos}")
+        before = mf.launches_mega4
+        err, stats, _ = check_whole_model(name, run, plain, stack, cache, x, cfg, [pos])
+        a, b = run(stack, cache, x, cfg), run(stack, cache, x, cfg)
+        torch.cuda.synchronize()
+        if mf.launches_mega4 == before:
+            raise AssertionError(f"{name} did not launch the mega4 kernel")
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        ms = time_ms(lambda: run(stack, cache, x, cfg), reps, flush)
+        plain_ms = time_ms(lambda: plain(stack, cache, x, cfg), 2, flush)
+        nb = (stacked_bytes(stack) + kv_history_bytes(cfg, [pos])
+              + 2 * h * 2 + L * 2 * cfg.num_kv_heads * (cfg.head_dim + 4))
+        fl = L * decode_block_flops(cfg, pos)
+        b_ms, b_by = bound(nb, fl)
+        log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
+            f"same bits twice; bias tables streamed: "
+            f"{sorted(k for k in stack if k.endswith('z'))}")
+        rows.append(dict(name=name, shape=f"{L} layers asymmetric T={T} pos={pos}",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, bytes=nb, flops=fl, codes=stats,
+                         baseline_name="model_decode_mega"))
+    return rows
 
 
 def random_slot_cache(cfg, positions, T, dev, gen):
@@ -2361,6 +2391,23 @@ def small_unfused_check(dev):
                                      "the CPU")
 
 
+def model_loop_window(model, stack, meta, cfg, dev, S=128, T=512, n=16):
+    """Path c's loop for phase 5: n tokens of decode_loop_model after an
+    S-token prefill, on the asymmetric-grid model (one B4 launch and the
+    lm_head through dequant_matmul a token)."""
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.megadecode import decode_loop_model, stack_cache
+
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(6))
+    logits, cache = engine.prefill(model.params, cfg, prompt.to(dev),
+                                   engine.init_cache(cfg, 1, T, torch.int8, device=dev))
+    tok = torch.argmax(logits, -1)[:, None]
+    scache = stack_cache(cache)
+    return lambda: decode_loop_model(model.params, stack, meta, cfg, tok, scache, S, n)
+
+
 def spec_round_window(target, draft, cfg, dev, k=4, S=128, T=512):
     """A window of one scan-flat speculative round (k draft proposals on the
     flat kernel plus the ingest step, one C = k+1 verify with the fused lm
@@ -2446,6 +2493,8 @@ KERNELS = {
                           "mi_optimize_tpu/ops/model_flat.py:149"),
     "model_decode_mega": ("mi_optimize_tpu_torch/csrc/model_fused.cu",
                           "mi_optimize_tpu/ops/model_fused.py:99"),
+    "model_decode_mega4": ("mi_optimize_tpu_torch/csrc/model_mega4.cu",
+                           "mi_optimize_tpu/ops/model_fused.py:99"),
     "model_decode_mega_batch": ("mi_optimize_tpu_torch/csrc/model_fused.cu",
                                 "mi_optimize_tpu/ops/model_fused.py:594"),
     "model_decode_mega_batch_paged": ("mi_optimize_tpu_torch/csrc/model_fused.cu",
@@ -2484,6 +2533,7 @@ def counters():
             "block_decode_mega": (block_fused, "launches"),
             "model_decode_flat": (model_flat, "launches"),
             "model_decode_mega": (model_fused, "launches"),
+            "model_decode_mega4": (model_fused, "launches_mega4"),
             "model_decode_mega_batch": (model_fused, "launches_batch"),
             "model_decode_mega_batch_paged": (model_fused, "launches_paged"),
             "model_decode_mega_batch_chunk": (model_fused, "launches_chunk"),
@@ -2525,7 +2575,8 @@ def run_path(name, needs, fn):
 
 
 def compare_baseline(report, path) -> dict:
-    """This run's kernel rows (by name and shape), phase 5 windows and ptxas
+    """This run's kernel rows (by name, or the name of the kernel a row
+    replaced where it gives one, and shape), phase 5 windows and ptxas
     instances beside those of the report at `path` (another tree's run in the
     same call), logged one a line: {"kernels": [[name, shape, ms, its ms]],
     "profile": [[window, device ms, its device ms]], "ptxas": [[instance,
@@ -2536,7 +2587,7 @@ def compare_baseline(report, path) -> dict:
     out = {"kernels": [], "profile": [], "ptxas": []}
     theirs = {(k["name"], k["shape"]): k["ms"] for k in base.get("kernels", [])}
     for k in report["kernels"]:
-        b = theirs.get((k["name"], k["shape"]))
+        b = theirs.get((k.get("baseline_name") or k["name"], k["shape"]))
         if b is not None:
             out["kernels"].append([k["name"], k["shape"], k["ms"], b])
             log(f"  {k['name']} {k['shape']}: {k['ms']:.4f} ms, baseline {b:.4f} ms "
@@ -2755,7 +2806,7 @@ def main() -> int:
     log(" c. decode_loop_model on the asymmetric grid")
     amodel, astack, ameta = asymmetric()
     report["model_loop"], c = run_path(
-        "decode_loop_model", ("dequant_matmul_mma", "model_decode_mega"),
+        "decode_loop_model", ("dequant_matmul_mma", "model_decode_mega", "model_decode_mega4"),
         lambda: serve_model_loop(amodel, astack, ameta, cfg, dev))
     tally(c)
     del amodel, astack, ameta
@@ -2860,11 +2911,14 @@ def main() -> int:
         raise AssertionError("the f32 paths launched no CUDA-core dequant_matmul kernel")
 
     log("phase 5: where the time goes (torch.profiler, Llama-2-7B, T=512)")
+    amodel, astack, ameta = asymmetric()
     report["profile"] = profile_windows(
         model, fstack, fmeta, cfg, dev,
-        extra={"spec_round": (spec_round_window(target, draft, cfg, dev), 1),
+        extra={"decode_loop_model_16": (model_loop_window(amodel, astack, ameta, cfg, dev), 16),
+               "spec_round": (spec_round_window(target, draft, cfg, dev), 1),
                "generate_unfused_8": (unfused_decode_window(ptarget, cfg, dev), 8),
                "ppl_2048": (ppl_window(rmodel, cfg, dev), 2048)})
+    del amodel, astack, ameta
 
     kernels = []
     for r in rows:
@@ -2876,7 +2930,8 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     report["kernels"] = [dict(k, bytes=r["bytes"], flops=r["flops"],
                               library_max_abs_err=r.get("library_max_abs_err"),
-                              codes=r.get("codes"), cuda_core_ms=r.get("cuda_core_ms"))
+                              codes=r.get("codes"), cuda_core_ms=r.get("cuda_core_ms"),
+                              baseline_name=r.get("baseline_name"))
                          for k, r in zip(kernels, rows)]
     if args.baseline:
         report["baseline"] = compare_baseline(report, args.baseline)

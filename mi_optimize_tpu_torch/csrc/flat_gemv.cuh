@@ -1,15 +1,20 @@
-// The flat whole-model kernel's GEMV for 4-bit words, on the tensor cores:
+// The one-row whole-model kernels' GEMV for 4-bit words, on the tensor cores:
 // phases P1 qkv, P3 o_proj, P4 gate/up and P5 down_proj of every layer and
-// the lm_head of model_flat_kernel<T, 4> (model_flat.cu), one row. Only
-// model_flat.cu includes it; its 2- and 8-bit instances and the multi-token
-// kernel keep decode_common.cuh's CUDA-core tile_dot.
+// the lm_head of model_flat_kernel<T, 4> (model_flat.cu), and the same four
+// phases of mega4_kernel (model_mega4.cu), one row. The 2- and 8-bit
+// instances of both and the multi-token kernel keep decode_common.cuh's
+// CUDA-core tile_dot.
 //
-// Replaces the `_qdot` calls of the TPU kernel
-// mi_optimize_tpu/ops/model_flat.py::_kernel_flat (block_fused.py::_qdot):
+// Replaces the `_qdot` calls of the TPU kernels
+// mi_optimize_tpu/ops/model_flat.py::_kernel_flat and
+// mi_optimize_tpu/ops/model_fused.py::_kernel (block_fused.py::_qdot):
 // the grouped rescale. Per group of g k, D[g] = sum_k x[k] * (q[k,n] - 8) on
 // the centered codes, then y[n] = sum_g s*D[g] + (b + 8s) * xsum[g], xsum the
 // f32 sum of x over the group, as the plain version
-// ops/dequant_matmul.py::qdot_ref computes it.
+// ops/dequant_matmul.py::qdot_ref computes it. b is -zc*s from one constant
+// zero a linear, or, in the BIAS instances (fg_gemv<T, true>: an asymmetric
+// grid's zero a group and column), the bias table's entry, copied beside
+// the scales; b + 8s rounds once either way (8s is exact).
 //
 // What bounds it: the packed words and scales of the whole model plus the
 // lm_head, read once a token: 3.56 GB at Llama-2-7B int4 g128, 1.06 ms at
@@ -76,6 +81,11 @@ constexpr int FG_PLANES = 3;      // bf16 planes of an f32 row
 constexpr int FG_GEMVS = 5;       // qkv, o_proj, gate/up, down_proj, lm_head
 constexpr int FG_KC_MAX = 8192;   // k a staged window may hold
 constexpr int FG_HROWS = 8;       // history rows a warp's attention ring holds (7 in flight)
+// The BIAS instances' ring of bias rows [NW][FG_STAGES][8] x 16 bytes, which
+// they place after fg_smem_floats' regions and pass to fg_prime and fg_gemv
+// beside the GEMV's bias table (FgSmem, FGemv and FgCursor leave both out, so
+// that the other instances compile as they did without them).
+constexpr int FG_BRING_FLOATS = NW * FG_STAGES * 8 * 4;
 
 __host__ __device__ constexpr int fg_align4(int n) { return (n + 3) & ~3; }
 
@@ -186,7 +196,9 @@ struct FgItem {
   }
 };
 
-__device__ __forceinline__ void fg_seek(FgCursor& c, int item) {
+// B: the GEMV's bias table [K/g, N] in a BIAS instance, or null.
+template <bool BIAS>
+__device__ __forceinline__ void fg_seek(FgCursor& c, int item, const float* B) {
   const int t = threadIdx.x & 3;
   for (; item < c.nitems; item += gridDim.x) {
     const FgItem it(c.d, c.cpg, c.ntiles, item);
@@ -199,8 +211,9 @@ __device__ __forceinline__ void fg_seek(FgCursor& c, int item) {
     c.off = (gi * c.wpg + FG_ROWS * c.q + t) * c.d.N + c.lcol;
     c.soff = gi * c.d.N + c.lcol;
     c.sdue = true;
-    const uintptr_t a = reinterpret_cast<uintptr_t>(c.d.W + c.lcol) |
-                        reinterpret_cast<uintptr_t>(c.d.S + c.lcol);
+    uintptr_t a = reinterpret_cast<uintptr_t>(c.d.W + c.lcol) |
+                  reinterpret_cast<uintptr_t>(c.d.S + c.lcol);
+    if (BIAS && B) a |= reinterpret_cast<uintptr_t>(B + c.lcol);
     c.fast = c.lcol + 3 < c.d.N && ((a | (uintptr_t)c.d.N * 4) & 15) == 0;
     return;
   }
@@ -209,12 +222,15 @@ __device__ __forceinline__ void fg_seek(FgCursor& c, int item) {
 }
 
 // Copy the cursor's next chunk (the lane's two word rows, and on the first
-// chunk of a group or of the warp's range the group's scales, lane t = 0)
-// into the next ring stage and commit; an empty group once the phase's
-// chunks are all copied. `ring`: this lane's slot of stage 0 (stage s, row
-// half u at + 64 s + 32 u); `sring`: its quad's scale slot of stage 0 (stage
-// s at + 8 s).
-__device__ __forceinline__ void fg_fetch(FgCursor& c, uint4* ring, float4* sring) {
+// chunk of a group or of the warp's range the group's scales, lane t = 0,
+// and in a BIAS instance, where the GEMV has a bias table B, its biases,
+// lane t = 1) into the next ring stage and commit; an empty group once the
+// phase's chunks are all copied. `ring`: this lane's slot of stage 0 (stage
+// s, row half u at + 64 s + 32 u); `sring` / `bring`: its quad's scale /
+// bias slot of stage 0 (stage s at + 8 s).
+template <bool BIAS>
+__device__ __forceinline__ void fg_fetch(FgCursor& c, uint4* ring, float4* sring, float4* bring,
+                                         const float* B) {
   if (c.left > 0) {
     const int t = threadIdx.x & 3, r = FG_ROWS * c.q + t;
     uint4* dst = ring + 64 * c.stage;
@@ -224,6 +240,8 @@ __device__ __forceinline__ void fg_fetch(FgCursor& c, uint4* ring, float4* sring
       fg_copy_lane(dst + 32, c.d.W, c.d.W + (c.off + 4 * c.d.N - c.lcol), c.lcol, c.d.N, c.fast);
     if (t == 0 && c.sdue)
       fg_copy_lane(sring + 8 * c.stage, c.d.S, c.d.S + (c.soff - c.lcol), c.lcol, c.d.N, c.fast);
+    if (BIAS && t == 1 && c.sdue && B)
+      fg_copy_lane(bring + 8 * c.stage, B, B + (c.soff - c.lcol), c.lcol, c.d.N, c.fast);
     c.sdue = false;
     c.off += FG_ROWS * c.d.N;
     if (++c.q == c.cpg) {  // the next group: its first word row, its scales
@@ -232,7 +250,7 @@ __device__ __forceinline__ void fg_fetch(FgCursor& c, uint4* ring, float4* sring
       c.soff += c.d.N;
       c.sdue = true;
     }
-    if (--c.left == 0) fg_seek(c, c.item + gridDim.x);
+    if (--c.left == 0) fg_seek<BIAS>(c, c.item + gridDim.x, B);
   }
   cp_async_commit();
   c.stage = c.stage + 1 == FG_STAGES ? 0 : c.stage + 1;
@@ -244,21 +262,30 @@ __device__ __forceinline__ uint4* fg_ring_lane(const FgSmem& sm) {
 __device__ __forceinline__ float4* fg_sring_lane(const FgSmem& sm) {
   return sm.sring + (threadIdx.x >> 5) * FG_STAGES * 8 + ((threadIdx.x & 31) >> 2);
 }
+// The lane's quad's slot of stage 0 in a BIAS instance's ring `bring`.
+__device__ __forceinline__ float4* fg_bring_lane(float4* bring) {
+  return bring + (threadIdx.x >> 5) * FG_STAGES * 8 + ((threadIdx.x & 31) >> 2);
+}
 
 // Point the cursor at GEMV d and issue its first FG_STAGES - 1 chunks (the
 // caller's grid barrier may follow: the copies need nothing of this phase).
-__device__ __forceinline__ void fg_prime(FgCursor& c, const FGemv& d, const FgSmem& sm) {
+// BIAS: B is d's bias table [K/g, N] or null, `bring` the block's bias ring;
+// fg_gemv of d takes the same two.
+template <bool BIAS = false>
+__device__ __forceinline__ void fg_prime(FgCursor& c, const FGemv& d, const FgSmem& sm,
+                                         const float* B = nullptr, float4* bring = nullptr) {
   c.d = d;
   c.wpg = d.g / 8;
   c.cpg = (c.wpg + FG_ROWS - 1) / FG_ROWS;
   c.ntiles = (d.N + d.ws * FG_STRIP - 1) / (d.ws * FG_STRIP);
   c.nitems = c.ntiles * d.splits;
   c.stage = 0;
-  fg_seek(c, blockIdx.x);
+  fg_seek<BIAS>(c, blockIdx.x, B);
   uint4* ring = fg_ring_lane(sm);
   float4* sring = fg_sring_lane(sm);
+  float4* bq = BIAS ? fg_bring_lane(bring) : nullptr;
 #pragma unroll 1
-  for (int i = 0; i < FG_STAGES - 1; ++i) fg_fetch(c, ring, sring);
+  for (int i = 0; i < FG_STAGES - 1; ++i) fg_fetch<BIAS>(c, ring, sring, bq, B);
 }
 
 // The last chunk (exclusive) of the staged window that starts at chunk jw0
@@ -390,10 +417,13 @@ constexpr int FG_OUT_PARTS = 0, FG_OUT_LOGITS = 1;
 // each group and of each warp's range, the strip's warps added in warp
 // order, then the output `out` in lane t = 0 of the strip's first warp: the
 // lane's 4 columns lcol..lcol+3. Called by the whole block, after
-// fg_prime(fc, d).
-template <class T>
+// fg_prime<BIAS>(fc, d, sm, B, bring) with the same B and bring. BIAS: lane
+// t = 1 holds its quad's biases where lane t = 0 holds the scales, and hands
+// them over at each group's end; a null B takes -zc*s.
+template <class T, bool BIAS = false>
 __device__ __forceinline__ void fg_gemv(FgCursor& fc, const FgRow& r, const FgSmem& sm, int out,
-                                        float* part, float& best, int& best_i) {
+                                        float* part, float& best, int& best_i,
+                                        const float* B = nullptr, float4* bring = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, t = lane & 3;
   const FGemv d = fc.d;
   const int ks = NW / d.ws, strip = warp % d.ws, ksub = warp / d.ws;
@@ -403,6 +433,7 @@ __device__ __forceinline__ void fg_gemv(FgCursor& fc, const FgRow& r, const FgSm
   float* sums = sm.win + FG_PLANES * prow / 2;
   uint4* ring = fg_ring_lane(sm);
   float4* sring = fg_sring_lane(sm);
+  float4* bq = BIAS ? fg_bring_lane(bring) : nullptr;
   // opaque to the compiler, so that each lop3 takes both as registers
   const uint32_t mask = __shfl_sync(0xffffffffu, 0x000F000Fu, 0);
   const uint32_t bias = __shfl_sync(0xffffffffu, 0x43004300u, 0);
@@ -432,7 +463,8 @@ __device__ __forceinline__ void fg_gemv(FgCursor& fc, const FgRow& r, const FgSm
       // the warp's segments in the window: its chunks [j, je) of one group
       for (int j = max(it.jlo, jw0); live && j < j1;) {
         const int g0 = j / cpg, q0 = j - g0 * cpg, je = min(j1, (g0 + 1) * cpg);
-        bool want_s = t == 0 && (j == it.jlo || q0 == 0);  // the chunk in hand brings the scales
+        // the chunk in hand brings the scales (and biases)
+        bool want_s = (t == 0 || (BIAS && t == 1)) && (j == it.jlo || q0 == 0);
         int rel = (it.ga + g0) * wpg + FG_ROWS * q0 + t - wa;  // the lane's word row in the window
         int rg = FG_ROWS * q0 + t;                             // ... in its group
 #pragma unroll 1
@@ -440,11 +472,11 @@ __device__ __forceinline__ void fg_gemv(FgCursor& fc, const FgRow& r, const FgSm
           cp_async_wait<FG_STAGES - 2>();  // this lane's copy of the chunk in hand has landed
           const uint4 w0 = ring[64 * ps], w1 = ring[64 * ps + 32];
           if (want_s) {
-            sv = sring[8 * ps];
+            sv = BIAS && t == 1 ? bq[8 * ps] : sring[8 * ps];
             want_s = false;
           }
           ps = ps + 1 == FG_STAGES ? 0 : ps + 1;
-          fg_fetch(fc, ring, sring);  // into the stage read one chunk ago
+          fg_fetch<BIAS>(fc, ring, sring, bq, B);  // into the stage read one chunk ago
           uint4 xv = make_uint4(0u, 0u, 0u, 0u);
           if (rg < wpg) {
             if (gq < np) xv = *reinterpret_cast<const uint4*>(planes + gq * prow + rel * 8);
@@ -469,6 +501,10 @@ __device__ __forceinline__ void fg_gemv(FgCursor& fc, const FgRow& r, const FgSm
           v += __shfl_xor_sync(0xffffffffu, v, 2);
           xs = 0.f;
           const float sc[4] = {sv.x, sv.y, sv.z, sv.w};
+          float bt[4];  // lane t = 1's biases, in lane t = 0
+          if (BIAS)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) bt[e] = __shfl_down_sync(0xffffffffu, sc[e], 1);
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             float dd[2] = {dacc[i][0], dacc[i][2]};
@@ -481,7 +517,8 @@ __device__ __forceinline__ void fg_gemv(FgCursor& fc, const FgRow& r, const FgSm
             if (t == 0) {
 #pragma unroll
               for (int hh = 0; hh < 2; ++hh) {
-                const float s = sc[2 * i + hh], cb = fmaf(8.f, s, -d.zc * s);
+                const float s = sc[2 * i + hh];
+                const float cb = fmaf(8.f, s, BIAS && B ? bt[2 * i + hh] : -d.zc * s);
                 y[2 * i + hh] += fmaf(s, dd[hh], cb * v);
               }
             }

@@ -1,5 +1,6 @@
 // Every decoder layer in ONE cooperative launch, without the lm_head: for one
-// token (model_decode_mega) and for B rows at their own positions
+// token (model_decode_mega with 2- and 8-bit words; 4-bit words take
+// model_mega4.cu) and for B rows at their own positions
 // (model_decode_mega_batch: slots of one token, or of a chunk of C tokens,
 // over a dense cache or a page pool).
 //
@@ -57,28 +58,11 @@
 // build), so the dense instances compile as before.
 #include "batch_gemv.cuh"
 #include "decode_common.cuh"
+#include "mega_args.cuh"
 
-// Host-side argument blocks, mirrored field by field by the ctypes
-// Structures in ops/model_fused.py. Stacked arrays carry a leading layer
-// axis; a null bias table means "use -zc*s".
-struct MegaArgs {
-  const void* x;                                          // model dtype [h]
-  const void* n1; const void* n2;                         // model dtype [L, h]
-  const int32_t* qkv; const float* qs; const float* qb;   // [L, h/vpw, nqkv], [L, h/g, nqkv]
-  const int32_t* o; const float* os; const float* ob;     // [L, qdim/vpw, h], [L, qdim/g, h]
-  const int32_t* gu; const float* gus; const float* gub;  // [L, h/vpw, 2I], [L, h/g, 2I]
-  const int32_t* dn; const float* ds; const float* db;    // [L, I/vpw, h], [L, I/g, h]
-  const float* cos; const float* sin;                     // [D]
-  const int8_t* ck; const int8_t* cv;                     // [L, T, Hkv, D]
-  const float* cks; const float* cvs;                     // [L, T, Hkv]
-  void* x_out;                                            // model dtype [h]
-  int8_t* krow; int8_t* vrow; float* ks; float* vs;       // [L, Hkv, D], [L, Hkv]
-  float* scratch;  // f32: xres h | qkv nqkv | attn qdim | xmid h | act inter
-  int n_layers, hidden, n_heads, n_kv_heads, head_dim, inter, max_len, pos;
-  int g_qkv, g_o, g_gu, g_d;
-  float zc_qkv, zc_o, zc_gu, zc_d, eps;
-};
-
+// Host-side argument blocks (MegaArgs: mega_args.cuh), mirrored field by
+// field by the ctypes Structures in ops/model_fused.py. Stacked arrays carry
+// a leading layer axis; a null bias table means "use -zc*s".
 struct BatchArgs {
   const void* x;                                          // model dtype [B, h]
   const void* n1; const void* n2;
@@ -764,9 +748,8 @@ cudaError_t dispatch_nb(const BatchArgs& f, cudaStream_t s) {
 
 template <class T>
 cudaError_t dispatch_mega(const MegaArgs& f, int bits, cudaStream_t s) {
-  switch (bits) {
+  switch (bits) {  // 4-bit words: model_mega4.cu
     case 2: return launch_mega<T, 2>(f, s);
-    case 4: return launch_mega<T, 4>(f, s);
     case 8: return launch_mega<T, 8>(f, s);
   }
   return cudaErrorInvalidValue;

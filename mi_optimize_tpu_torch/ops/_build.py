@@ -27,8 +27,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "torch_kernels")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("dequant_matmul", "block_fused", "model_flat", "model_fused", "paged_attention",
-           "decode_attention", "mlp_fused", "w4a8_matmul")
+SOURCES = ("dequant_matmul", "block_fused", "model_flat", "model_fused", "model_mega4",
+           "paged_attention", "decode_attention", "mlp_fused", "w4a8_matmul")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

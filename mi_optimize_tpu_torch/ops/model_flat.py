@@ -156,15 +156,18 @@ def flat_plan(ncols: int, K: int, g: int, blocks: int = COOP_PER_SM * H100_SMS,
     return best_plan(-(-ncols // FLAT_STRIP), K // g, blocks, rank, split)
 
 
-def flat_plans(cfg, meta, sms: int = H100_SMS):
+def flat_plans(cfg, meta, sms: int = H100_SMS, lm: bool = True):
     """The 4-bit flat kernel's plan: [(ncols, K, g, ws, splits)] for qkv,
-    o_proj, gate/up (gate and up columns side by side), down_proj and the
-    lm_head."""
+    o_proj, gate/up (gate and up columns side by side), down_proj and, with
+    lm, the lm_head (lm=False: the whole-model kernel without it,
+    ops/model_fused.py's "mega4" route)."""
     h, I = cfg.hidden_size, cfg.intermediate_size
     qdim, kvdim = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     blocks = COOP_PER_SM * sms
     shapes = [(qdim + 2 * kvdim, h, meta[1], True), (h, qdim, meta[2], True),
-              (2 * I, h, meta[3], True), (h, I, meta[4], True), (meta[11], h, meta[9], False)]
+              (2 * I, h, meta[3], True), (h, I, meta[4], True)]
+    if lm:
+        shapes.append((meta[11], h, meta[9], False))
     return [(n, K, g) + flat_plan(n, K, g, blocks, split) for n, K, g, split in shapes]
 
 

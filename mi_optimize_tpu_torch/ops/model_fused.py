@@ -3,9 +3,11 @@ for one token (`model_decode_mega`) or for B rows at their own positions
 (`model_decode_mega_batch`: the continuous-batching step, its paged and
 chunk modes).
 
-Kernels: csrc/model_fused.cu (with csrc/decode_common.cuh), which replaces
-the TPU kernels mi_optimize_tpu/ops/model_fused.py::_kernel
-(model_decode_mega) and ::_kernel_b in its modes (a) batched decode, (b)
+Kernels: csrc/model_fused.cu (with csrc/decode_common.cuh) and, for the
+one-token kernel with 4-bit words, csrc/model_mega4.cu (with
+csrc/flat_gemv.cuh), which replace the TPU kernels
+mi_optimize_tpu/ops/model_fused.py::_kernel (model_decode_mega) and
+::_kernel_b in its modes (a) batched decode, (b)
 paged (a page table picks each history row's pool page), (c) chunk (C
 consecutive tokens a slot with an intra-chunk causal pass) and (d) terminal
 lm rows (every row's final rmsnorm, packed lm_head logits and first-index
@@ -15,9 +17,13 @@ wrapper raises NotImplementedError for it.
 
 What bounds them on an H100: the stacked packed weights (about 3.4 GB at
 Llama-2-7B, int4 g128) read once per step over the memory rate, plus every
-slot's live KV history. The one-token kernel runs the layers of the
-per-layer decode kernel back to back with the residual in f32 across all of
-them. The batched kernel reads each packed word once per step for all B
+slot's live KV history. The one-token kernel keeps the residual in f32
+across all layers. With 4-bit words (`mega_route`: "mega4") it runs the
+flat decode kernel's tensor-core layer loop without the lm_head
+(csrc/model_mega4.cu: each GEMV cut by `model_flat.flat_plan` to fill the
+card, an asymmetric grid's bias tables streamed beside the scales); with
+2- and 8-bit words ("cuda_core") the layers of the per-layer decode kernel
+back to back. The batched kernel reads each packed word once per step for all B
 rows, so a step costs about one weight read however many rows it decodes.
 With 4-bit words its GEMVs run on the tensor cores (csrc/batch_gemv.cuh:
 the reference's grouped rescale, the rows as an n8 mma operand in exact
@@ -44,8 +50,10 @@ import torch
 from .block_fused import _check_cuda, layer_rows_ref, norm_row
 from .coop_plan import COOP_PER_SM, H100_SMS, best_plan, sm_count
 from .dequant_matmul import qdot_ref
+from .model_flat import _FlatArgs, flat_plans, flat_scratch
 
-launches = 0        # model_decode_mega kernel launches; chip_smoke.py resets and reads it
+launches = 0        # model_decode_mega launches, either route; chip_smoke.py resets and reads it
+launches_mega4 = 0  # ... of them on the "mega4" route (csrc/model_mega4.cu)
 launches_batch = 0  # model_decode_mega_batch launches in mode (a), dense one-token rows
 launches_paged = 0  # ... in mode (b) with one token a slot (paged decode)
 launches_chunk = 0  # ... in mode (c), dense or paged (C > 1 tokens a slot)
@@ -181,6 +189,9 @@ class _MegaArgs(ctypes.Structure):
                                     "inter", "max_len", "pos"] + _GROUPS] + _ZCS
 
 
+_MEGA_FIELDS = {n for n, _ in _MegaArgs._fields_}
+
+
 class _BatchArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _WEIGHTS + ["pos"] + _OUTS] + [
         (n, ctypes.c_int) for n in ["batch", "n_layers", "hidden", "n_heads", "n_kv_heads",
@@ -226,17 +237,33 @@ def _check_stack(stack, cfg, meta, dev, dt):
     return n1, n2, ptrs, list(meta[1:5]), zcs + [cfg.rms_eps]
 
 
-def _call(name, args, argtype, bits, dt, dev):
+def _call(name, args, argtype, bits, dt, dev, lib="model_fused"):
     from . import _build
 
-    fn = getattr(_build.load("model_fused"), name)
+    fn = getattr(_build.load(lib), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(argtype), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     _build.check(fn(ctypes.byref(args), bits, _DTYPES[dt], _build.stream_ptr(dev)), name)
 
 
+class _Mega4Args(ctypes.Structure):
+    """csrc/model_mega4.cu's Mega4Args: the flat kernel's argument block
+    (its words, scales, norms, shapes and plan; no lm_head, no merged cache)
+    for the layer loop both kernels run, then MegaArgs for the rest."""
+    _fields_ = [("f", _FlatArgs), ("m", _MegaArgs)]
+
+
+def mega_route(meta) -> str:
+    """The kernel `model_decode_mega` takes on the card: "mega4" (the
+    tensor-core layer loop, csrc/model_mega4.cu) for 4-bit words, every case
+    a 4-bit stack can hold; "cuda_core" (mega_kernel on the CUDA cores,
+    csrc/model_fused.cu) for 2- and 8-bit words, which csrc/flat_gemv.cuh
+    does not unpack."""
+    return "mega4" if meta[0] == 4 else "cuda_core"
+
+
 def _model_decode_mega_cuda(stack, x, cos, sin, cache, pos: int, cfg, meta):
-    global launches
+    global launches, launches_mega4
     dev, dt = x.device, x.dtype
     if dt not in _DTYPES:
         raise TypeError(f"model_decode_mega kernel takes float32 or bfloat16, not {dt}")
@@ -261,6 +288,7 @@ def _model_decode_mega_cuda(stack, x, cos, sin, cache, pos: int, cfg, meta):
     vrows = torch.empty_like(krows)
     ksr = torch.empty(L, Hkv, dtype=torch.float32, device=dev)
     vsr = torch.empty_like(ksr)
+    mega4 = mega_route(meta) == "mega4"
     scratch = torch.empty(2 * h + 2 * H * D + 2 * Hkv * D + inter, dtype=torch.float32,
                           device=dev)
     p = lambda t: t.data_ptr()
@@ -268,7 +296,20 @@ def _model_decode_mega_cuda(stack, x, cos, sin, cache, pos: int, cfg, meta):
                      p(cache["k"]), p(cache["v"]), p(cache["k_scale"]), p(cache["v_scale"]),
                      p(x_out), p(krows), p(vrows), p(ksr), p(vsr), p(scratch),
                      L, h, H, Hkv, D, inter, T, pos, *groups, *floats)
-    _call("mi_model_decode_mega", args, _MegaArgs, meta[0], dt, dev)
+    if mega4:  # the tensor-core layer loop's plan (the flat kernel's, no lm_head) and partials
+        plans = flat_plans(cfg, meta, sm_count(dev), lm=False)
+        n_part, kc = flat_scratch(plans)
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+        f = _FlatArgs(**{n: getattr(args, n) for n, _ in _FlatArgs._fields_
+                         if n in _MEGA_FIELDS})  # the fields both blocks name alike
+        f.plan_ws[:4] = [pl[3] for pl in plans]
+        f.plan_splits[:4] = [pl[4] for pl in plans]
+        f.plan_kc, f.n_part, f.part = kc, n_part, p(part)
+        args = _Mega4Args(f, args)
+        _call("mi_model_decode_mega4", args, _Mega4Args, meta[0], dt, dev, "model_mega4")
+        launches_mega4 += 1
+    else:
+        _call("mi_model_decode_mega", args, _MegaArgs, meta[0], dt, dev)
     launches += 1
     return x_out.reshape(x.shape), krows, vrows, ksr, vsr
 
@@ -276,7 +317,8 @@ def _model_decode_mega_cuda(stack, x, cos, sin, cache, pos: int, cfg, meta):
 def model_decode_mega(stack, x, cos, sin, cache, pos: int, cfg, meta):
     """All decoder layers for one token, one launch. x [1,1,h] -> (x_out
     [1,1,h] in x's dtype, krows [L,Hkv,D] int8, vrows, ksr [L,Hkv] f32, vsr).
-    The kernel on GPU tensors, the plain version on CPU tensors.
+    The kernel `mega_route` picks on GPU tensors, the plain version on CPU
+    tensors.
 
     cos/sin: [D] for the token's position. cache: stacked
     {"k"/"v": [L,T,Hkv,D] int8, "k_scale"/"v_scale": [L,T,Hkv] f32}; the

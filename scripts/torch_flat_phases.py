@@ -5,7 +5,7 @@ phase, on one NVIDIA GPU.
     python3 scripts/torch_flat_phases.py [--sass]
 
 Copies mi_optimize_tpu_torch/csrc/ to build/flat_phases/, where thread 0 of
-every block of model_flat_kernel<T, 4> (flat4_model in model_flat.cu) stamps
+every block of model_flat_kernel<T, 4> (flat4_model in flat_model.cuh) stamps
 %globaltimer at each step of its phase loop: before and after the residual,
 after the GEMV, after priming the next GEMV, after the grid barrier, and in P1
 after attention and its barrier. It builds the copy with the package's nvcc
@@ -44,8 +44,8 @@ STAMP_AT = [
     ("    const bool lm = st == 4 * L;\n", "    const bool lm = st == 4 * L;\n    FT(st, 0)\n"),
     ("    float* out = lm ? f.logits", "    FT(st, 1)\n    float* out = lm ? f.logits"),
     ("    if (lm) break;\n", "    FT(st, 2)\n    if (lm) break;\n"),
-    ("    fg_prime(fc, gemv(st + 1), sm);\n    grid.sync();\n",
-     "    fg_prime(fc, gemv(st + 1), sm);\n    FT(st, 3)\n    grid.sync();\n    FT(st, 4)\n"),
+    ("    grid.sync();\n    if (p == 0) {\n",
+     "    FT(st, 3)\n    grid.sync();\n    FT(st, 4)\n    if (p == 0) {\n"),
     ("      grid.sync();\n    }\n  }\n",
      "      FT(st, 5)\n      grid.sync();\n      FT(st, 6)\n    }\n  }\n")]
 # (step of the loop: 0 qkv, 1 o_proj, 2 gate/up, 3 down_proj; decoder phase,
@@ -60,21 +60,22 @@ SEGMENTS = [(0, "P1", "residual", 0, 1), (0, "P1", "qkv GEMV", 1, 2), (0, "P1", 
 
 def stamped_copy():
     """A copy of csrc/ under build/flat_phases/ with the stamps in
-    model_flat.cu."""
+    flat_model.cuh (the loop that model_flat.cu's kernel runs). Returns the
+    copy's model_flat.cu."""
     from mi_optimize_tpu_torch.ops import _build
 
     dst = os.path.join(HERE, "build", "flat_phases")
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(_build.CSRC, dst)
-    p = os.path.join(dst, "model_flat.cu")
+    p = os.path.join(dst, "flat_model.cuh")
     inc = '#include "flat_gemv.cuh"\n'
     s = open(p).read().replace(inc, inc + STAMPS)
     for old, new in STAMP_AT:
         if s.count(old) != 1:
-            raise SystemExit(f"model_flat.cu changed: no single line {old.strip()!r} to stamp")
+            raise SystemExit(f"flat_model.cuh changed: no single line {old.strip()!r} to stamp")
         s = s.replace(old, new)
     open(p, "w").write(s)
-    return p
+    return os.path.join(dst, "model_flat.cu")
 
 
 def ptxas_line(log):

@@ -366,15 +366,95 @@ def test_model_decode_mega(dev, bits, symmetric, head_dim, inter, group, pos):
     x = torch.randn(1, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(pos)).to(dev)
     cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
     args = (stack, x, cos.reshape(-1), sin.reshape(-1), cache, pos, cfg, meta)
-    before = model_fused.launches
+    before, before4 = model_fused.launches, model_fused.launches_mega4
     got = model_fused.model_decode_mega(*args)
     assert model_fused.launches == before + 1
+    # 4-bit words take the tensor-core layer loop, 2- and 8-bit the CUDA-core mega_kernel
+    assert model_fused.launches_mega4 == before4 + (bits == 4)
     ref = model_fused.model_decode_mega_ref(*args)
     _close(got[0], ref[0])
     _rows_match(got[1], ref[1])
     _rows_match(got[2], ref[2])
     _close(got[3], ref[3], 1e-5)
     _close(got[4], ref[4], 1e-5)
+
+
+def _one_row(out):
+    """model_decode_mega's outputs with the batched kernel's row axis, for
+    `_batch_close`."""
+    return (out[0].reshape(1, 1, -1),) + tuple(t[:, None] for t in out[1:])
+
+
+def _mega_close(got, args, dtype):
+    """A one-token launch against its plain version on `args`: float32 as
+    `test_model_decode_mega` holds it (x_out to RTOL, int8 rows one code
+    off on at most 0.1%, scales to 1e-5), bfloat16 as `_batch_close` holds
+    a batched row."""
+    ref = model_fused.model_decode_mega_ref(*args)
+    if dtype == torch.bfloat16:
+        _batch_close(_one_row(got), lambda: _one_row(ref), dtype)
+        return
+    _close(got[0], ref[0])
+    _rows_match(got[1], ref[1])
+    _rows_match(got[2], ref[2])
+    _close(got[3], ref[3], 1e-5)
+    _close(got[4], ref[4], 1e-5)
+
+
+@pytest.mark.parametrize("bits,symmetric,head_dim,inter,group",
+                         [m for m in WHOLE_MODEL if m[0] == 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [0, 200])
+def test_model_decode_mega4(dev, bits, symmetric, head_dim, inter, group, dtype, pos):
+    """The "mega4" route (csrc/model_mega4.cu) in both model dtypes, on both
+    grids: `mega_route` picks it, a second launch on the same inputs gives
+    the same bits, and the outputs match the plain version (`_mega_close`)."""
+    cfg, _, stack, meta = _stacked(dev, bits, symmetric, head_dim, inter, group, pos + 5)
+    cache = _to(_cache(cfg, T_MEGA, pos, layers=cfg.num_layers, seed=pos + 1), dev)
+    x = torch.randn(1, 1, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(pos + 2)).to(dev, dtype)
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+    args = (stack, x, cos.reshape(-1), sin.reshape(-1), cache, pos, cfg, meta)
+    assert model_fused.mega_route(meta) == "mega4"
+    before4 = model_fused.launches_mega4
+    got = model_fused.model_decode_mega(*args)
+    _same_bits(got, model_fused.model_decode_mega(*args))
+    assert model_fused.launches_mega4 == before4 + 2
+    _mega_close(got, args, dtype)
+
+
+@pytest.mark.parametrize("short", [None, "partials", "splits"])
+def test_model_decode_mega4_plan(dev, monkeypatch, short):
+    """The "mega4" route's plan is made on the host (`flat_plans` without
+    the lm_head, `flat_scratch`) and checked again by its launch
+    (check_plan): with o_proj split in 4, gate/up in 2 and down_proj in 3
+    the asymmetric launch matches its plain version and repeats its bits;
+    partials one float short of the plan's, or a split with no group
+    (o_proj in groups + 1), are refused before anything runs, and no launch
+    is counted."""
+    plans, sizes = model_fused.flat_plans, model_fused.flat_scratch
+    force = {None: {1: 4, 2: 2, 3: 3}, "partials": {1: 4, 2: 2, 3: 3}, "splits": {1: 5}}
+    monkeypatch.setattr(model_fused, "flat_plans", lambda *a, **k: [
+        pl[:4] + (force[short].get(i, pl[4]),) for i, pl in enumerate(plans(*a, **k))])
+    cut = 1 if short == "partials" else 0
+    monkeypatch.setattr(model_fused, "flat_scratch",
+                        lambda pl: (sizes(pl)[0] - cut, sizes(pl)[1]))
+    cfg, _, stack, meta = _stacked(dev, *WHOLE_MODEL[1], seed=3)  # 512 inputs of o_proj: 4 groups
+    pos = 127
+    cache = _to(_cache(cfg, T_MEGA, pos, layers=cfg.num_layers, seed=4), dev)
+    x = torch.randn(1, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(5)).to(dev)
+    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+    args = (stack, x, cos.reshape(-1), sin.reshape(-1), cache, pos, cfg, meta)
+    before = model_fused.launches_mega4
+    if short is not None:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            model_fused.model_decode_mega(*args)
+        assert model_fused.launches_mega4 == before
+        return
+    got = model_fused.model_decode_mega(*args)
+    _same_bits(got, model_fused.model_decode_mega(*args))
+    assert model_fused.launches_mega4 == before + 2
+    _mega_close(got, args, torch.float32)
 
 
 def _same_bits(a, b):

@@ -79,17 +79,13 @@ def _deal(ncols, K, g, ws, splits):
     return out
 
 
-@pytest.mark.parametrize("name,g,i", GEMV_CASES)
-def test_plan_covers_every_column_and_word_row_once(name, g, i):
-    """Every (output column, word row) is streamed by exactly one warp; the
-    splits are whole groups, in order, covering K, none empty; the lm_head
-    is unsplit (the kernel's check_plan refuses anything else)."""
-    ncols, K, gg, ws, splits = _plans(name, g)[i]
+def check_covers(ncols, K, gg, ws, splits):
+    """Every (output column, word row) of one GEMV's plan is streamed by
+    exactly one warp; the splits are whole groups, in order, covering K,
+    none empty."""
     ng, wpg, R = K // gg, gg // 8, mf.FLAT_CHUNK_ROWS
     cpg = -(-wpg // R)
     assert ws in (1, 2, 4, 8) and 1 <= splits <= ng and gg % 8 == 0 and K % gg == 0
-    if GEMVS[i] == "lm_head":
-        assert splits == 1
     count = np.zeros((ncols, K // 8), np.int32)
     bounds = {}
     for item, sp, (ga, gb), col, (jlo, jhi) in _deal(ncols, K, gg, ws, splits):
@@ -105,6 +101,16 @@ def test_plan_covers_every_column_and_word_row_once(name, g, i):
     assert b[0][0] == 0 and b[-1][1] == ng
     assert all(ga < gb for ga, gb in b)
     assert all(b[k][1] == b[k + 1][0] for k in range(splits - 1))
+
+
+@pytest.mark.parametrize("name,g,i", GEMV_CASES)
+def test_plan_covers_every_column_and_word_row_once(name, g, i):
+    """`check_covers` for each GEMV of each plan; the lm_head is unsplit
+    (the kernel's check_plan refuses anything else)."""
+    ncols, K, gg, ws, splits = _plans(name, g)[i]
+    check_covers(ncols, K, gg, ws, splits)
+    if GEMVS[i] == "lm_head":
+        assert splits == 1
 
 
 @pytest.mark.parametrize("i", range(5))
@@ -146,14 +152,12 @@ def _window_rows(ga, jw0, jw1, wpg, cpg):
     return wa, min(gl * wpg + R * ((jw1 - 1) % cpg) + R, (gl + 1) * wpg)
 
 
-@pytest.mark.parametrize("name,g", [(n, g) for n, _, g in PLANS])
-def test_scratch_fits_the_plan(name, g):
-    """The wrapper allocates flat_scratch(plans): the f32 partials every
-    split of qkv, o_proj, gate/up and down_proj writes (the kernel's index
-    of the last column of the last split, at its region's offset), and a
-    window that holds every split whole (one staged window an item), a
-    multiple of 64 k within FLAT_KC_MAX."""
-    plans = _plans(name, g)
+def check_scratch(plans):
+    """flat_scratch(plans) holds the f32 partials every split of qkv,
+    o_proj, gate/up and down_proj writes (the kernel's index of the last
+    column of the last split, at its region's offset), and a window that
+    holds every split whole (one staged window an item), a multiple of 64 k
+    within FLAT_KC_MAX."""
     n_part, kc = mf.flat_scratch(plans)
     assert kc % 64 == 0 and 64 <= kc <= mf.FLAT_KC_MAX
     off = 0
@@ -170,6 +174,12 @@ def test_scratch_fits_the_plan(name, g):
             assert len(win) == 1
             wa, wb = _window_rows(ga, *win[0], wpg, cpg)
             assert (wa, wb) == (ga * wpg, gb * wpg)
+
+
+@pytest.mark.parametrize("name,g", [(n, g) for n, _, g in PLANS])
+def test_scratch_fits_the_plan(name, g):
+    """The wrapper allocates flat_scratch(plans): `check_scratch`."""
+    check_scratch(_plans(name, g))
 
 
 @pytest.mark.parametrize("K,g,kc", [(11008, 11008, 8192), (4096, 4096, 1024), (1000, 8, 64),
@@ -235,14 +245,16 @@ def _packed(rng, K, N):
     return torch.from_numpy(words.view(np.int32))
 
 
-def _kernel_model(x, packed, s, zc, g, ws, splits, n_planes):
+def _kernel_model(x, packed, s, zc, g, ws, splits, n_planes, b=None):
     """fg_gemv's sums for one row x [K], in plain torch, and the consumer's
     sum of the splits: per item split, each of the ks = 8 // ws warps of a
     strip streams chunks [jlo, jhi) of the split (8 word rows of one group
     each); a warp's segment (its chunks of one group) gives D = the planes'
     products with the centered codes (exact, f32 sums, planes added in
     order) and xsum = the segment's word sums, and y += s*D + (8s - zc*s) *
-    xsum; the warps add in warp order, the splits in split order."""
+    xsum, or with a bias table b [K/g, N] (fg_gemv<T, true>) y += s*D +
+    (8s + b) * xsum; the warps add in warp order, the splits in split
+    order."""
     K = x.shape[0]
     ng, wpg, ks, R = K // g, g // 8, mf.FLAT_WARPS // ws, mf.FLAT_CHUNK_ROWS
     cpg = -(-wpg // mf.FLAT_CHUNK_ROWS)
@@ -270,21 +282,26 @@ def _kernel_model(x, packed, s, zc, g, ws, splits, n_planes):
                     dp = p[sl] @ codes[sl]
                     d = dp if d is None else d + dp
                 xs = wsum[r0:r1].sum()
-                acc = acc + (s[gi] * d + (8 * s[gi] - zc * s[gi]) * xs)
+                cb = 8 * s[gi] - zc * s[gi] if b is None else 8 * s[gi] + b[gi]
+                acc = acc + (s[gi] * d + cb * xs)
                 j = je
             part = acc if part is None else part + acc
         y = part if y is None else y + part
     return y
 
 
-@pytest.mark.parametrize("K,N,g,ws,splits", [
+# (K, N, g, ws, splits) of the model of the sums
+GEMV_SHAPES = [
     (4096, 96, 128, 8, 11),     # qkv's plan: 11 splits of 2-3 groups, one warp a strip
     (4096, 64, 128, 1, 2),      # o_proj's: 8 warps split 16 groups (32 chunks)
     (11008, 64, 128, 1, 2),     # down_proj's: 86 chunks a split, 10-11 a warp, mid-group ends
     (4096, 40, 32, 4, 1),       # the lm_head's shape at g32, a ragged N
     (1000, 48, 8, 1, 5),        # group 8: a chunk holds one word row of a group
     (2048, 32, 32, 1, 2),       # group 32: half a chunk a group
-    (1024, 32, 1024, 2, 1)])    # a per-channel group cut among 4 warps
+    (1024, 32, 1024, 2, 1)]     # a per-channel group cut among 4 warps
+
+
+@pytest.mark.parametrize("K,N,g,ws,splits", GEMV_SHAPES)
 @pytest.mark.parametrize("rows", ["f32", "bf16"])
 @pytest.mark.parametrize("zc", [8.0, 7.0])
 def test_grouped_rescale_model_agrees_with_qdot_ref(K, N, g, ws, splits, rows, zc):
