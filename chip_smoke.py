@@ -15,7 +15,11 @@ Phases:
      dequant matmul (the gemv16 kernel at M = 1, the tensor-core mma kernel
      at M = 128 and 2048, each also timed against the CUDA-core kernel on
      the same operands, which keeps the f32 inputs: M = 1 and 128 in f32),
-     the per-layer and flat decode kernels (the flat one at position 200,
+     the per-layer decode kernel on the route 4-bit words take (the
+     whole-model kernel's tensor-core layer loop at one layer: positions
+     200 and 0, and 200 on a layer of the asymmetric grid, its bias tables
+     streamed; the same bits on a second launch), the flat decode kernel
+     (at position 200,
      at position 0 held by `hold_rows` over its first 2 layers and the
      lm_head, and on a planted 2-layer draft with its logits held to the
      off-peak scale; the same bits on a second launch), the whole-model
@@ -51,7 +55,8 @@ Phases:
   3. serve the paths at Llama-2-7B width and depth (int4 g128 packed
      weights made on the card from seed 0, int8 KV cache), each with the
      launch counters set to 0 just before it and read just after:
-     a. three requests through `generate` (per-layer decode kernel), then
+     a. three requests through `generate` (per-layer decode kernel, every
+        launch on its tensor-core route), then
         one 128-token prefill plus a 128-token `decode_loop_flat`
         (whole-model flat kernel);
      b. 24 requests through `ContinuousBatcher` (8 slots, max_len 512,
@@ -117,13 +122,15 @@ per-channel W4A8 row; none for the decode kernels and the fused MLP, since no
 single PyTorch call computes a decoder stack, its lm rows or a quantized
 SwiGLU MLP) and bound (model_decode_mega's launches count every
 whole-model one-token launch, of either route; model_decode_mega4's those of
-the 4-bit route);
+the 4-bit route; block_decode_mega's and block_decode_mega4's the same for
+the per-layer decode);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 2 and prints no result. `--report PATH` also writes
 the whole report (per-kernel bytes and flops, per-request latencies)
 there as JSON. `--baseline PATH` reads such a report of another tree's run
 in the same call (a parent commit's) and prints its kernel times, phase 5
-device times and ptxas registers and spills beside this run's.
+device times, walls and busy shares and ptxas registers and spills beside
+this run's.
 """
 from __future__ import annotations
 
@@ -396,13 +403,14 @@ def random_int8_cache(cfg, T, pos, dev, gen):
     return c
 
 
-def decode_block_bytes(blk, mega, cfg, pos):
+def decode_block_bytes(stack, cfg, pos):
+    """Bytes one layer's decode must move: a one-layer stack's words, scale
+    tables, norms and (an asymmetric grid) bias tables, the live history,
+    x in and out and the new rows."""
     h, Hkv, D = cfg.hidden_size, cfg.num_kv_heads, cfg.head_dim
-    w = nbytes(*(blk[n].packed for n in ("qkv_proj", "o_proj", "gateup_proj", "down_proj")),
-               *mega.values(), blk["input_norm"], blk["post_norm"])
     cache = 2 * pos * Hkv * (D + 4)      # live int8 k/v rows and their f32 scales
     io = 2 * h * 2 + 2 * Hkv * (D + 4)   # x in, x out, the new rows and scales
-    return w + cache + io
+    return stacked_bytes(stack) + cache + io
 
 
 def decode_block_flops(cfg, pos):
@@ -412,34 +420,58 @@ def decode_block_flops(cfg, pos):
     return 2.0 * lin + 4.0 * (pos + 1) * H * D
 
 
-def check_block(model, cfg, dev, flush, reps, T=384, pos=200):
+def check_block(model, cfg, dev, flush, reps, T=384, positions=(200, 0), label=""):
+    """The per-layer decode kernel (B2) on layer 0 of a 7B model, on the
+    route 4-bit words take ("mega4": the whole-model kernel's tensor-core
+    layer loop at one layer, csrc/model_mega4.cu, on the block's one-layer
+    view; an asymmetric grid streams its bias tables): at each position
+    x_out and the dequantized new rows against its plain version, a second
+    launch giving the same bits, and timed beside its plain version
+    (position 0: the GEMVs and barriers with next to no attention). Its
+    rows carry the name of the kernel they replace (`baseline_name`), so
+    that a parent's report, which timed the CUDA-core block_decode_kernel
+    on the same inputs, lines up with them. Bound: the view's words, tables
+    and norms, the live history, x in and out and the new rows, read or
+    written once."""
     import torch
 
     from mi_optimize_tpu_torch.models import llama
     from mi_optimize_tpu_torch.ops import block_fused as bf
 
-    blk = model.params["layers"][0]
-    gen = torch.Generator(device=dev).manual_seed(2)
-    cache = random_int8_cache(cfg, T, pos, dev, gen)
-    x = (torch.randn(1, 1, cfg.hidden_size, generator=gen, device=dev)).to(torch.bfloat16)
-    cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
-    cos, sin = cos.reshape(-1), sin.reshape(-1)
-    run = lambda: bf.block_decode_rows(blk, blk["mega"], x, cos, sin, cache, pos, cfg)
-    plain = lambda: bf.block_decode_ref(blk, blk["mega"], x, cos, sin, cache, pos, cfg)
-    got, ref = run(), plain()
-    torch.cuda.synchronize()
-    err = check_close(f"block_decode_mega x_out (T={T}, pos={pos})", got[0], ref[0])
-    for i, sc, f in ((1, 3, "k"), (2, 4, "v")):
-        check_close(f"block_decode_mega new {f} row (dequantized)",
-                    got[i].float() * got[sc][:, None], ref[i].float() * ref[sc][:, None])
-    ms = time_ms(run, reps, flush)
-    plain_ms = time_ms(plain, max(2, reps // 10), flush)
-    nb, fl = decode_block_bytes(blk, blk["mega"], cfg, pos), decode_block_flops(cfg, pos)
-    b_ms, b_by = bound(nb, fl)
-    log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
-    return [dict(name="block_decode_mega", shape=f"one layer T={T} pos={pos}",
-                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 bytes=nb, flops=fl)]
+    blk, name, rows = model.params["layers"][0], "block_decode_mega4", []
+    if bf.block_route(blk["qkv_proj"].spec.wbit, torch.bfloat16) != "mega4":
+        raise AssertionError("the 4-bit per-layer decode should take the mega4 route")
+    for pos in positions:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        cache = random_int8_cache(cfg, T, pos, dev, gen)
+        x = (torch.randn(1, 1, cfg.hidden_size, generator=gen, device=dev)).to(torch.bfloat16)
+        cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+        cos, sin = cos.reshape(-1), sin.reshape(-1)
+        run = lambda: bf.block_decode_rows(blk, blk["mega"], x, cos, sin, cache, pos, cfg)
+        plain = lambda: bf.block_decode_ref(blk, blk["mega"], x, cos, sin, cache, pos, cfg)
+        before = bf.launches_mega4
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        if bf.launches_mega4 == before:
+            raise AssertionError(f"{name} did not launch the mega4 kernel")
+        err = check_close(f"{name} {label}x_out (T={T}, pos={pos})", got[0], ref[0])
+        for i, sc, f in ((1, 3, "k"), (2, 4, "v")):
+            check_close(f"{name} new {f} row (dequantized)",
+                        got[i].float() * got[sc][:, None], ref[i].float() * ref[sc][:, None])
+        if not all(torch.equal(u, v) for u, v in zip(got, run())):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        ms = time_ms(run, reps, flush)
+        plain_ms = time_ms(plain, max(2, reps // 10), flush)
+        view = bf.mega4_view(blk, blk["mega"], cfg, x.dtype)
+        nb, fl = decode_block_bytes(view.stack, cfg, pos), decode_block_flops(cfg, pos)
+        b_ms, b_by = bound(nb, fl)
+        log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
+            f"same bits twice; bias tables streamed: "
+            f"{sorted(k for k in view.stack if k.endswith('z'))}")
+        rows.append(dict(name=name, shape=f"one layer {label}T={T} pos={pos}",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, bytes=nb, flops=fl, baseline_name="block_decode_mega"))
+    return rows
 
 
 # the flat stack's per-layer entries (the rest are the lm_head's and the final norm)
@@ -2489,6 +2521,8 @@ KERNELS = {
                            "mi_optimize_tpu/ops/dequant_matmul.py:93"),
     "block_decode_mega": ("mi_optimize_tpu_torch/csrc/block_fused.cu",
                           "mi_optimize_tpu/ops/block_fused.py:328"),
+    "block_decode_mega4": ("mi_optimize_tpu_torch/csrc/model_mega4.cu",
+                           "mi_optimize_tpu/ops/block_fused.py:328"),
     "model_decode_flat": ("mi_optimize_tpu_torch/csrc/model_flat.cu",
                           "mi_optimize_tpu/ops/model_flat.py:149"),
     "model_decode_mega": ("mi_optimize_tpu_torch/csrc/model_fused.cu",
@@ -2531,6 +2565,7 @@ def counters():
             "dequant_matmul_gemv16": (dequant_matmul, "launches_gemv16"),
             "dequant_matmul_mma": (dequant_matmul, "launches_mma"),
             "block_decode_mega": (block_fused, "launches"),
+            "block_decode_mega4": (block_fused, "launches_mega4"),
             "model_decode_flat": (model_flat, "launches"),
             "model_decode_mega": (model_fused, "launches"),
             "model_decode_mega4": (model_fused, "launches_mega4"),
@@ -2579,7 +2614,8 @@ def compare_baseline(report, path) -> dict:
     replaced where it gives one, and shape), phase 5 windows and ptxas
     instances beside those of the report at `path` (another tree's run in the
     same call), logged one a line: {"kernels": [[name, shape, ms, its ms]],
-    "profile": [[window, device ms, its device ms]], "ptxas": [[instance,
+    "profile": [[window, device ms, its device ms, wall ms, its wall ms, busy
+    share, its busy share]], "ptxas": [[instance,
     registers, spill stores, its registers, its spill stores]]}."""
     with open(path) as f:
         base = json.load(f)
@@ -2593,11 +2629,15 @@ def compare_baseline(report, path) -> dict:
             log(f"  {k['name']} {k['shape']}: {k['ms']:.4f} ms, baseline {b:.4f} ms "
                 f"({b / k['ms']:.3f}x, {100 * (k['ms'] / b - 1):+.1f}%)")
     for w, v in report.get("profile", {}).items():
-        b = base.get("profile", {}).get(w, {}).get("device_ms")
+        bw = base.get("profile", {}).get(w, {})
+        b = bw.get("device_ms")
         if b and v.get("device_ms"):
-            out["profile"].append([w, v["device_ms"], b])
+            out["profile"].append([w, v["device_ms"], b, v["wall_ms"], bw["wall_ms"],
+                                   v["busy_share"], bw["busy_share"]])
             log(f"  phase 5 {w}: device {v['device_ms']:.3f} ms, baseline {b:.3f} ms "
-                f"({b / v['device_ms']:.3f}x)")
+                f"({b / v['device_ms']:.3f}x); wall {v['wall_ms']:.3f} ms, baseline "
+                f"{bw['wall_ms']:.3f} ms; busy share {v['busy_share']:.3f}, baseline "
+                f"{bw['busy_share']:.3f}")
     theirs = {r["instance"]: r for r in base.get("ptxas", [])}
     for r in report.get("ptxas", []):
         b = theirs.get(r["instance"])
@@ -2736,6 +2776,7 @@ def main() -> int:
     del sstack, smeta, lm
     amodel, astack, ameta = asymmetric()
     rows += check_mega(amodel, astack, ameta, cfg, dev, flush, reps=5)
+    rows += check_block(amodel, cfg, dev, flush, reps=20, positions=(200,), label="asymmetric ")
     rows += check_mega_batch(amodel, astack, ameta, cfg, dev, flush, 5, [77, 300],
                              label="asymmetric ")
     del amodel, astack, ameta
@@ -2759,10 +2800,12 @@ def main() -> int:
     log(" a. generate + decode_loop_flat")
     report["main_path"], c = run_path(
         "generate + decode_loop_flat", ("dequant_matmul_gemv16", "dequant_matmul_mma",
-                                        "block_decode_mega",
+                                        "block_decode_mega", "block_decode_mega4",
                                         "model_decode_flat"),
         lambda: serve_main_path(model, fstack, fmeta, cfg, dev))
     tally(c)
+    if c["block_decode_mega"] != c["block_decode_mega4"]:
+        raise AssertionError("a 4-bit block_decode_mega launch took the CUDA-core kernel")
     w_bytes = nbytes(*fstack.values())
     report["main_path"]["decode_bound_ms_per_token"] = w_bytes / HBM_BYTES_PER_S * 1e3
     log(f"  weights read per flat token {w_bytes / 1e9:.3f} GB -> bound "

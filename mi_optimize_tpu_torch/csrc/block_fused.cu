@@ -1,9 +1,13 @@
-// One decoder layer for one token (B = S = 1) in ONE cooperative launch.
+// One decoder layer for one token (B = S = 1) in ONE cooperative launch, with
+// 2- or 8-bit words.
 //
 // Replaces the TPU kernel mi_optimize_tpu/ops/block_fused.py::_kernel
-// (block_decode_mega). What bounds it on an H100 is the packed weights of the
-// layer (about 100 MB of int4 words and scales at Llama-2-7B width) read once
-// over the memory rate; the math is a few operations per byte. The design
+// (block_decode_mega) for 2- and 8-bit words; 4-bit words take the
+// whole-model kernel's tensor-core layer loop at one layer
+// (csrc/model_mega4.cu; ops/block_fused.py::block_route picks). What bounds
+// it on an H100 is the packed weights of the layer (about 200 MB of int8
+// words and scales at Llama-2-7B width) read once over the memory rate; the
+// math is a few operations per byte. The design
 // keeps every intermediate (qkv, attention, residual, MLP activation) in f32
 // global scratch that stays in L2, reads each packed word once, and orders
 // the five phases with grid barriers instead of five launches (see
@@ -79,7 +83,6 @@ template <class T>
 cudaError_t dispatch_bits(const BlockArgs& b, int bits, cudaStream_t s) {
   switch (bits) {
     case 2: return launch<T, 2>(b, s);
-    case 4: return launch<T, 4>(b, s);
     case 8: return launch<T, 8>(b, s);
   }
   return cudaErrorInvalidValue;
@@ -87,7 +90,8 @@ cudaError_t dispatch_bits(const BlockArgs& b, int bits, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() after the launch.
+// bits: 2 or 8; dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError()
+// after the launch.
 extern "C" int mi_block_decode(const BlockArgs* b, int bits, int dtype, void* stream) {
   cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;

@@ -43,7 +43,9 @@ and `model_decode_mega_batch_ref`.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Any, Optional
 
 import torch
 
@@ -96,15 +98,16 @@ def _layer(stack, meta, l):
     return lin, tabs
 
 
-def model_decode_mega_ref(stack, x, cos, sin, cache, pos: int, cfg, meta):
+def model_decode_mega_ref(stack, x, cos, sin, cache, pos: int, cfg, meta, pre: bool = False):
     """Plain PyTorch version of the one-token kernel (same signature and
-    outputs as `model_decode_mega`)."""
+    outputs as `model_decode_mega`); with `pre` also the k and v values
+    each layer's int8 rows round (x / scale, f32 [L, Hkv, D])."""
     D = cfg.head_dim
-    xo, krows, vrows, ksr, vsr = model_decode_mega_batch_ref(
+    xo, *rows = model_decode_mega_batch_ref(
         stack, x.reshape(1, 1, -1), cos.reshape(1, D), sin.reshape(1, D),
         {f: cache[f][:, None].transpose(2, 3) for f in ("k", "v", "k_scale", "v_scale")},
-        [pos], cfg, meta)
-    return xo.reshape(x.shape), krows[:, 0], vrows[:, 0], ksr[:, 0], vsr[:, 0]
+        [pos], cfg, meta, pre=pre)
+    return (xo.reshape(x.shape),) + tuple(r[:, 0] for r in rows)
 
 
 def _history(cache, l, s, table, n):
@@ -125,7 +128,7 @@ def _history(cache, l, s, table, n):
 
 
 def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta, table=None,
-                                chunk: int = 1, lm=None, lm_meta=None):
+                                chunk: int = 1, lm=None, lm_meta=None, pre: bool = False):
     """Plain PyTorch version of the batched kernel (same signature and
     outputs as `model_decode_mega_batch`, modes (a)-(d)).
 
@@ -135,7 +138,9 @@ def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta,
     0..i-1 of its own chunk, then to its own row: position prefix + i. With
     `lm`, every row's f32 residual after the last layer goes through the
     final rmsnorm (the model-dtype rounding points) and the packed lm_head,
-    and the first index of each row's maximum is its token."""
+    and the first index of each row's maximum is its token. With `pre` the
+    outputs gain, after the new rows' scales, the k and v values the rows
+    round (x / scale, f32 [L, B, Hkv, D])."""
     B, h, D, L = x.shape[0], cfg.hidden_size, cfg.head_dim, cfg.num_layers
     C = chunk
     pos = [int(p) for p in torch.as_tensor(positions).reshape(-1).tolist()]
@@ -158,12 +163,11 @@ def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta,
                                  zip(base[r // C], (kq, ks, vq, vs))))
             return out
 
-        xr, kq, ks, vq, vs = layer_rows_ref(xr, x.dtype, lin, tabs, stack["n1"][l],
-                                            stack["n2"][l], cos, sin, hists,
-                                            [prefix[r // C] + r % C for r in range(B)], cfg)
-        rows.append((kq, vq, ks, vs))
-    krows, vrows, ksr, vsr = (torch.stack(r) for r in zip(*rows))
-    out = (xr.to(x.dtype).reshape(B, 1, h), krows, vrows, ksr, vsr)
+        xr, kq, ks, vq, vs, *kv = layer_rows_ref(
+            xr, x.dtype, lin, tabs, stack["n1"][l], stack["n2"][l], cos, sin, hists,
+            [prefix[r // C] + r % C for r in range(B)], cfg, pre)
+        rows.append((kq, vq, ks, vs, *kv))
+    out = (xr.to(x.dtype).reshape(B, 1, h),) + tuple(torch.stack(r) for r in zip(*rows))
     if lm is None:
         return out
     g_ue, zc_ue = lm_meta[:2]
@@ -190,6 +194,7 @@ class _MegaArgs(ctypes.Structure):
 
 
 _MEGA_FIELDS = {n for n, _ in _MegaArgs._fields_}
+_FLAT_FIELDS = {n for n, _ in _FlatArgs._fields_}
 
 
 class _BatchArgs(ctypes.Structure):
@@ -262,14 +267,93 @@ def mega_route(meta) -> str:
     return "mega4" if meta[0] == 4 else "cuda_core"
 
 
+@dataclasses.dataclass
+class MegaLaunch:
+    """What a one-token whole-model launch on a stack takes that no launch
+    changes (`mega_prepare`), for `mega_launch`: the argument block with the
+    stack's pointers, shapes, groups and zero constants (`_MegaArgs`; on
+    the "mega4" route `_Mega4Args`, with the plan), the plan's f32
+    partials, and the tensors whose pointers it holds."""
+    cfg: Any
+    meta: tuple
+    dtype: torch.dtype
+    args: ctypes.Structure
+    plans: Optional[list]  # the "mega4" route's plan (flat_plans without the lm_head)
+    n_part: int
+    keep: tuple
+
+
+# the fields of the argument block that each launch sets
+_PER_LAUNCH = ("x", "cos", "sin", "ck", "cv", "cks", "cvs", "x_out", "krow", "vrow", "ks", "vs",
+               "scratch", "max_len", "pos")
+
+
+def mega_prepare(stack, cfg, meta, dev, dt) -> MegaLaunch:
+    """Check the stack and fill every field of a one-token launch that no
+    launch changes, on the route `mega_route` picks (on "mega4" the plan
+    for the card's SMs)."""
+    if dt not in _DTYPES:
+        raise TypeError(f"model_decode_mega kernel takes float32 or bfloat16, not {dt}")
+    h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n1, n2, ptrs, groups, floats = _check_stack(stack, cfg, meta, dev, dt)
+    args = _MegaArgs(n1=n1.data_ptr(), n2=n2.data_ptr(), **dict(zip(_WEIGHTS[3:15], ptrs)),
+                     **dict(zip(_GROUPS + [n for n, _ in _ZCS], groups + floats)),
+                     n_layers=cfg.num_layers, hidden=h, n_heads=H, n_kv_heads=Hkv, head_dim=D,
+                     inter=cfg.intermediate_size)
+    plans, n_part = None, 0
+    if mega_route(meta) == "mega4":  # the flat kernel's plan without the lm_head
+        plans = flat_plans(cfg, meta, sm_count(dev), lm=False)
+        n_part, kc = flat_scratch(plans)
+        f = _FlatArgs(**{n: getattr(args, n) for n, _ in _FlatArgs._fields_
+                         if n in _MEGA_FIELDS})  # the fields both blocks name alike
+        f.plan_ws[:4] = [pl[3] for pl in plans]
+        f.plan_splits[:4] = [pl[4] for pl in plans]
+        f.plan_kc, f.n_part = kc, n_part
+        args = _Mega4Args(f, args)
+    return MegaLaunch(cfg, meta, dt, args, plans, n_part, (n1, n2))
+
+
+def mega_launch(prep: MegaLaunch, x, cos, sin, cache, pos: int, rows=None):
+    """One launch of a prepared stack on checked inputs (x [h] in
+    prep.dtype, cos/sin f32 [D], the split cache [L, T, Hkv, D] and its
+    scales [L, T, Hkv], all contiguous on the stack's device; 0 <= pos < T).
+    Returns (x_out [h], krows [L, Hkv, D] int8, vrows, ksr [L, Hkv] f32,
+    vsr), written into `rows` where given (contiguous tensors of those
+    shapes); counts nothing."""
+    cfg, dev, dt = prep.cfg, x.device, prep.dtype
+    h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L, inter = cfg.num_layers, cfg.intermediate_size
+    x_out = torch.empty(h, dtype=dt, device=dev)
+    if rows is None:
+        kv = torch.empty(2, L, Hkv, D, dtype=torch.int8, device=dev)
+        sc = torch.empty(2, L, Hkv, dtype=torch.float32, device=dev)
+        rows = (kv[0], kv[1], sc[0], sc[1])
+    n_scratch = -(-(2 * h + 2 * H * D + 2 * Hkv * D + inter) // 64) * 64
+    work = torch.empty(n_scratch + prep.n_part, dtype=torch.float32,
+                       device=dev)  # scratch, then the plan's partials 256-byte aligned
+    p = lambda t: t.data_ptr()
+    vals = (p(x), p(cos), p(sin), p(cache["k"]), p(cache["v"]), p(cache["k_scale"]),
+            p(cache["v_scale"]), p(x_out), *map(p, rows), p(work), cache["k"].shape[1], pos)
+    args = type(prep.args).from_buffer_copy(prep.args)
+    mega4 = prep.plans is not None
+    for n, v in zip(_PER_LAUNCH, vals):
+        setattr(args.m if mega4 else args, n, v)
+        if mega4 and n in _FLAT_FIELDS:
+            setattr(args.f, n, v)
+    if mega4:
+        args.f.part = p(work) + 4 * n_scratch
+        _call("mi_model_decode_mega4", args, _Mega4Args, prep.meta[0], dt, dev, "model_mega4")
+    else:
+        _call("mi_model_decode_mega", args, _MegaArgs, prep.meta[0], dt, dev)
+    return (x_out, *rows)
+
+
 def _model_decode_mega_cuda(stack, x, cos, sin, cache, pos: int, cfg, meta):
     global launches, launches_mega4
     dev, dt = x.device, x.dtype
     if dt not in _DTYPES:
         raise TypeError(f"model_decode_mega kernel takes float32 or bfloat16, not {dt}")
-    h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    L, inter = cfg.num_layers, cfg.intermediate_size
-    n1, n2, ptrs, groups, floats = _check_stack(stack, cfg, meta, dev, dt)
+    h, Hkv, D, L = cfg.hidden_size, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
     T = cache["k"].shape[1]
     if not 0 <= pos < T:
         raise ValueError(f"position {pos} outside the cache of {T} rows")
@@ -282,34 +366,9 @@ def _model_decode_mega_cuda(stack, x, cos, sin, cache, pos: int, cfg, meta):
     sin = sin.reshape(-1).to(torch.float32).contiguous()
     _check_cuda("cos", cos, dev, shape=(D,))
     _check_cuda("sin", sin, dev, shape=(D,))
-
-    x_out = torch.empty(h, dtype=dt, device=dev)
-    krows = torch.empty(L, Hkv, D, dtype=torch.int8, device=dev)
-    vrows = torch.empty_like(krows)
-    ksr = torch.empty(L, Hkv, dtype=torch.float32, device=dev)
-    vsr = torch.empty_like(ksr)
-    mega4 = mega_route(meta) == "mega4"
-    scratch = torch.empty(2 * h + 2 * H * D + 2 * Hkv * D + inter, dtype=torch.float32,
-                          device=dev)
-    p = lambda t: t.data_ptr()
-    args = _MegaArgs(p(xr), p(n1), p(n2), *ptrs, p(cos), p(sin),
-                     p(cache["k"]), p(cache["v"]), p(cache["k_scale"]), p(cache["v_scale"]),
-                     p(x_out), p(krows), p(vrows), p(ksr), p(vsr), p(scratch),
-                     L, h, H, Hkv, D, inter, T, pos, *groups, *floats)
-    if mega4:  # the tensor-core layer loop's plan (the flat kernel's, no lm_head) and partials
-        plans = flat_plans(cfg, meta, sm_count(dev), lm=False)
-        n_part, kc = flat_scratch(plans)
-        part = torch.empty(n_part, dtype=torch.float32, device=dev)
-        f = _FlatArgs(**{n: getattr(args, n) for n, _ in _FlatArgs._fields_
-                         if n in _MEGA_FIELDS})  # the fields both blocks name alike
-        f.plan_ws[:4] = [pl[3] for pl in plans]
-        f.plan_splits[:4] = [pl[4] for pl in plans]
-        f.plan_kc, f.n_part, f.part = kc, n_part, p(part)
-        args = _Mega4Args(f, args)
-        _call("mi_model_decode_mega4", args, _Mega4Args, meta[0], dt, dev, "model_mega4")
-        launches_mega4 += 1
-    else:
-        _call("mi_model_decode_mega", args, _MegaArgs, meta[0], dt, dev)
+    prep = mega_prepare(stack, cfg, meta, dev, dt)
+    x_out, krows, vrows, ksr, vsr = mega_launch(prep, xr, cos, sin, cache, pos)
+    launches_mega4 += prep.plans is not None
     launches += 1
     return x_out.reshape(x.shape), krows, vrows, ksr, vsr
 

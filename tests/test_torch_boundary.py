@@ -103,7 +103,8 @@ def test_batcher_refuses_more_slots_than_the_batched_kernel_takes():
 
 
 _COUNTERS = ((dequant_matmul, "launches"), (dequant_matmul, "launches_gemv16"),
-             (dequant_matmul, "launches_mma"), (block_fused, "launches"), (model_flat, "launches"),
+             (dequant_matmul, "launches_mma"), (block_fused, "launches"),
+             (block_fused, "launches_mega4"), (model_flat, "launches"),
              (model_fused, "launches"), (model_fused, "launches_batch"),
              (model_fused, "launches_paged"), (model_fused, "launches_chunk"),
              (model_fused, "launches_lm"), (model_flat_seg, "launches"),
