@@ -7,7 +7,8 @@ Phases:
   1. build the CUDA kernels under mi_optimize_tpu_torch/csrc/ with nvcc
      (one nvcc per source, all at once) into build/torch_kernels/, and
      report ptxas's registers and spills of every batch_kernel,
-     model_flat_kernel and mega4_kernel instance, of gemv16_kernel and of
+     model_flat_kernel, model_flat_seg_kernel and mega4_kernel instance,
+     of gemv16_kernel and of
      the fused MLP's tensor-core kernels from the build's own -Xptxas -v
      log;
   2. hold each kernel against its plain PyTorch version on the card at the
@@ -36,7 +37,9 @@ Phases:
      one-token rows; timed against the unfused route, the launch without
      them plus rms_norm and the dequant_matmul lm_head), the multi-token flat
      decode (kseg=5 after a 200-row history, on the 7B stack and on a planted
-     2-layer draft; timed against 5 model_decode_flat launches), the
+     2-layer draft; the same bits on a second launch and as 5
+     model_decode_flat launches with the rows scattered between them; timed
+     against 5 model_decode_flat launches), the
      paged flash decode of one layer (4 slots, pages of 16), the decode
      attention of one layer (T=384 at pos 200, T=2048 at pos 2047; new
      int8 rows and scales bit-equal), the fused MLP (M = 1 on its "gemv"
@@ -178,8 +181,8 @@ def _bits_dtype(m) -> str:
 
 # (source, mangled-name pattern, label) of the kernels whose registers and
 # spills phase 1 reports: every batch_kernel instance (model_fused.cu), every
-# model_flat_kernel instance (model_flat.cu; its 4-bit instances run
-# flat_gemv.cuh), every mega4_kernel instance (model_mega4.cu, over
+# model_flat_kernel and model_flat_seg_kernel instance (model_flat.cu; their
+# 4-bit instances run flat_gemv.cuh), every mega4_kernel instance (model_mega4.cu, over
 # flat_gemv.cuh; BIAS=1 streams bias tables), gemv16_kernel
 # (dequant_matmul.cu) and the fused MLP's tensor-core kernels (mlp_fused.cu:
 # the M <= 8 kernel, P1 and P2 above)
@@ -189,6 +192,8 @@ PTXAS_KERNELS = (
                f"LM={m.group(5)}>"),
     ("model_flat", r"model_flat_kernelI(f|13__nv_bfloat16)Li(\d)E",
      lambda m: f"model_flat_kernel<{_bits_dtype(m)}, {m.group(2)}>"),
+    ("model_flat", r"model_flat_seg_kernelI(f|13__nv_bfloat16)Li(\d)E",
+     lambda m: f"model_flat_seg_kernel<{_bits_dtype(m)}, {m.group(2)}>"),
     ("model_mega4", r"mega4_kernelI(f|13__nv_bfloat16)Lb([01])E",
      lambda m: f"mega4_kernel<{_bits_dtype(m)}, BIAS={m.group(2)}>"),
     ("dequant_matmul", r"gemv16_kernelILi(\d)E", lambda m: f"gemv16_kernel<{m.group(1)}>"),
@@ -1115,8 +1120,11 @@ def check_mega_batch_lm(model, stack, meta, lm, lm_meta, cfg, dev, flush, reps, 
 
 def check_flat_seg(name, model, fstack, fmeta, cfg, dev, flush, reps, kseg=5, T=384, pos0=200):
     """The multi-token flat decode (B10): kseg greedy tokens in one launch on
-    the flat stack, over a random int8 history of pos0 rows. Token t is held
-    to the plain version's (equal unless the plain top-2 gap is below the
+    the flat stack, over a random int8 history of pos0 rows. A second launch
+    gives the same bits, and with 4-bit words (the tensor-core layer loop)
+    so do kseg launches of model_decode_flat with each token's rows
+    scattered into a copy of the cache before the next. Token t is held to
+    the plain version's (equal unless the plain top-2 gap is below the
     tolerance; after such a flip the later tokens are no longer comparable
     and only reported), and the dequantized k/v rows of the comparable
     tokens within TOL. Timed against kseg launches of model_decode_flat on
@@ -1139,8 +1147,27 @@ def check_flat_seg(name, model, fstack, fmeta, cfg, dev, flush, reps, kseg=5, T=
     args = (fstack, emb, x, cossin, cache, pos0, cfg, fmeta, kseg)
     log(f"  model_decode_flat_seg: {name}, {cfg.num_layers} layers + lm_head, kseg={kseg}, "
         f"T={T}, pos0={pos0}")
-    got, ref = mfs.model_decode_flat_seg(*args), mfs.model_decode_flat_seg_ref(*args)
+    got, got2 = mfs.model_decode_flat_seg(*args), mfs.model_decode_flat_seg(*args)
+    ref = mfs.model_decode_flat_seg_ref(*args)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, got2)):
+        raise AssertionError("model_decode_flat_seg: two launches on the same inputs differ")
+    if fmeta[0] == 4:
+        work = {f: cache[f].clone() for f in cache}
+        xc, chain = x, ([], [], [])
+        for t in range(kseg):
+            tok, _, kv, sc = mfl.model_decode_flat(fstack, xc, cossin[t], work, pos0 + t, cfg,
+                                                   fmeta)
+            work["kv"][:, pos0 + t], work["kv_scale"][:, pos0 + t] = kv, sc[:, :, 0]
+            for c, v in zip(chain, (tok, kv, sc[:, :, 0])):
+                c.append(v)
+            xc = emb[tok.long()].reshape(x.shape)
+        if not all(torch.equal(g, torch.cat(c) if i == 0 else torch.stack(c))
+                   for i, (g, c) in enumerate(zip(got, chain))):
+            raise AssertionError(f"model_decode_flat_seg: not the bits of {kseg} "
+                                 "model_decode_flat launches")
+        del work
+        log(f"    the same bits twice, and those of {kseg} model_decode_flat launches")
     # the plain version's logits of each token, for the tolerance of its gap
     work = {f: cache[f].clone() for f in cache}
     xr, n_ok = x, 0

@@ -29,6 +29,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_common.cuh"
+
 namespace mi {
 
 namespace cg = cooperative_groups;
@@ -223,6 +227,11 @@ __device__ __forceinline__ void gemv_phase(const float* vec, int K, const int32_
 // likewise) and its scales at ks[t*sstride] (vs likewise); rows t < pos are
 // live. Serves the [T, Hkv, D] caches (stride Hkv*D) and the head-transposed
 // [Hkv, T, D] slot caches of the batched kernel (stride D).
+//
+// With a history ring (attend_head<Hist, true>) a row lands in a slot of
+// ring_bytes(D): the k codes, the v codes, then the two scales, copied by
+// the warp's lanes together with 4-byte cp.async (fetch; the history was
+// written before the launch, so the copies may allocate in L1).
 struct HeadHist {
   const int8_t* k; const int8_t* v; const float* ks; const float* vs;
   long stride, sstride;
@@ -235,7 +244,32 @@ struct HeadHist {
     vsc = vs[(long)t * sstride];
   }
   static __device__ __forceinline__ int8_t ld(const int8_t* p) { return *p; }
+  __host__ __device__ static constexpr int ring_bytes(int D) { return 2 * D + 8; }
+  __device__ __forceinline__ void fetch(int t, uint8_t* s, int D, int lane) const {
+    const int8_t* kr = k + (long)t * stride;
+    const int8_t* vr = v + (long)t * stride;
+    for (int b = 4 * lane; b < D; b += 128) {
+      cp_async4(s + b, kr + b, true);
+      cp_async4(s + D + b, vr + b, true);
+    }
+    if (lane == 0) {
+      cp_async4(s + 2 * D, ks + (long)t * sstride, true);
+      cp_async4(s + 2 * D + 4, vs + (long)t * sstride, true);
+    }
+  }
+  __device__ __forceinline__ void scales(int, const uint8_t* s, int D, float& ksc,
+                                         float& vsc) const {
+    ksc = *reinterpret_cast<const float*>(s + 2 * D);
+    vsc = *reinterpret_cast<const float*>(s + 2 * D + 4);
+  }
 };
+
+// The cache history of kv head kvh for a one-token step's layer `a`.
+__device__ __forceinline__ HeadHist head_hist(const LayerArgs& a, int kvh) {
+  const int D = a.head_dim;
+  return HeadHist{a.ck + (long)kvh * D, a.cv + (long)kvh * D, a.cks + kvh, a.cvs + kvh,
+                  a.kv_stride, a.s_stride, a.pos};
+}
 
 // The history of one kv head in the batched kernel's paged and chunk modes
 // (model_fused.cu, mode (b) and/or (c)). Rows t < prefix come from the
@@ -276,13 +310,59 @@ struct PagedChunkHist {
   static __device__ __forceinline__ int8_t ld(const int8_t* p) { return __ldcg(p); }
 };
 
-// Attention for one query head over the int8 history `hh` (HeadHist or
-// PagedChunkHist), seeded with the new (dequantized) row: warps stream
-// history rows t < hh.pos with an online softmax each, then merge. Writes
-// out[0:D]. smem holds q[D], kd[D], vd[D] and NW*(D+2) merge floats.
-template <class Hist>
+// The history of one kv head for token t of a multi-token segment
+// (model_flat.cu): rows t' < pos0 from the merged cache [T, 2, Hkv, D], then
+// rows pos0 <= t' < pos of the segment's earlier tokens from the launch's
+// own output rows [kseg, L, 2, Hkv, D] (scales [.., 2, Hkv] alike), which
+// other blocks wrote earlier in the same launch: no load of those may
+// allocate in L1, where a line read before another block wrote it would be
+// stale, so every load goes through L2 (__ldcg). The 4-bit kernel streams
+// the rows t' < pos0 through its history ring as a HeadHist and passes this
+// history to attend_head as the tail.
+struct SegHist {
+  const int8_t* k; const float* ks;    // the cache's kv head: rows 2*kvdim apart, scales 2*Hkv
+  const int8_t* sk; const float* sks;  // the segment's token 0: rows L*2*kvdim, scales L*2*Hkv
+  int kvdim, Hkv, L, pos0, pos;        // v rows kvdim after k rows, v scales Hkv after k scales
+  __device__ __forceinline__ void row(int t, const int8_t*& kr, const int8_t*& vr, float& ksc,
+                                      float& vsc) const {
+    const bool c = t < pos0;
+    const long r = c ? t : (long)(t - pos0) * L;
+    kr = (c ? k : sk) + r * 2 * kvdim;
+    vr = kr + kvdim;
+    const float* kp = (c ? ks : sks) + r * 2 * Hkv;
+    ksc = __ldcg(kp);
+    vsc = __ldcg(kp + Hkv);
+  }
+  static __device__ __forceinline__ int8_t ld(const int8_t* p) { return __ldcg(p); }
+};
+
+// No rows after the history's own: attend_head's default tail.
+struct NoTail {
+  int pos;
+  __device__ __forceinline__ void row(int, const int8_t*&, const int8_t*&, float&, float&) const {}
+  static __device__ __forceinline__ int8_t ld(const int8_t* p) { return *p; }
+};
+
+// History rows a warp's ring holds in attend_head<Hist, true> (HIST_RING - 1
+// in flight).
+constexpr int HIST_RING = 8;
+
+// Attention for one query head over the int8 history `hh` (HeadHist,
+// PagedChunkHist or SegHist), seeded with the new (dequantized) row: warps
+// stream history rows t < hh.pos (warp w rows w, w + NW, ..) with an online
+// softmax each, then merge. Writes out[0:D]. smem holds q[D], kd[D], vd[D]
+// and NW*(D+2) merge floats. A warp's rows come either by direct loads as it
+// reaches them (hh.row, Hist::ld) or, with RING, through a per-warp cp.async
+// ring of HIST_RING rows in shared memory (`pf`: [NW][HIST_RING][
+// Hist::ring_bytes(D)]; hh.fetch copies row t into a slot, hh.scales reads
+// its scales there), HIST_RING - 1 of them in flight. A Tail other than
+// NoTail adds its rows hh.pos <= t < tail.pos after them, by direct loads,
+// in the same order (warp w's next rows). The arithmetic, its order and its
+// rounding are the same whichever way a row comes.
+template <class Hist, bool RING = false, class Tail = NoTail>
 __device__ __forceinline__ void attend_head(const Hist& hh, int D, float* out, float* sm,
-                                            float* red) {
+                                            float* red, uint8_t* pf = nullptr,
+                                            const Tail& tail = Tail{}) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* q = sm;
   const float* kd = sm + D;
@@ -291,6 +371,23 @@ __device__ __forceinline__ void attend_head(const Hist& hh, int D, float* out, f
   const float scale = 1.f / sqrtf((float)D);
   constexpr int MAXJ = 8;   // D <= 256
   const int nj = D / 32;
+  uint8_t* ring = nullptr;
+  int rowb = 0;
+  if constexpr (RING) {
+    rowb = Hist::ring_bytes(D);
+    ring = pf + warp * HIST_RING * rowb;
+  }
+  auto fetch = [&](int i) {  // the warp's i-th row into slot i % HIST_RING
+    if constexpr (RING) {
+      const int t = warp + i * NW;
+      if (t < hh.pos) hh.fetch(t, ring + (i % HIST_RING) * rowb, D, lane);
+      cp_async_commit();
+    }
+  };
+  if constexpr (RING) {
+#pragma unroll 1
+    for (int i = 0; i < HIST_RING - 1; ++i) fetch(i);
+  }
 
   float sn = 0.f;
   for (int d = threadIdx.x; d < D; d += NT) sn += q[d] * kd[d];
@@ -306,15 +403,12 @@ __device__ __forceinline__ void attend_head(const Hist& hh, int D, float* out, f
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j) acc[j] = 0.f;
   }
-  for (int t = warp; t < hh.pos; t += NW) {
-    const int8_t* kr;
-    const int8_t* vr;
-    float ksc, vsc;
-    hh.row(t, kr, vr, ksc, vsc);
+  // row (kr, vr, ksc, vsc) into the warp's online softmax; ld loads a code
+  auto update = [&](const int8_t* kr, const int8_t* vr, float ksc, float vsc, auto ld) {
     float p = 0.f;
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j)
-      if (j < nj) p += q[lane + 32 * j] * ((float)Hist::ld(kr + lane + 32 * j) * ksc);
+      if (j < nj) p += q[lane + 32 * j] * ((float)ld(kr + lane + 32 * j) * ksc);
     const float s = warp_sum(p) * scale;
     const float mn = fmaxf(m, s);
     const float corr = expf(m - mn);
@@ -322,8 +416,36 @@ __device__ __forceinline__ void attend_head(const Hist& hh, int D, float* out, f
     l = l * corr + e;
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j)
-      if (j < nj) acc[j] = acc[j] * corr + e * ((float)Hist::ld(vr + lane + 32 * j) * vsc);
+      if (j < nj) acc[j] = acc[j] * corr + e * ((float)ld(vr + lane + 32 * j) * vsc);
     m = mn;
+  };
+  int t = warp, i = 0;
+  for (; t < hh.pos; t += NW, ++i) {
+    const int8_t* kr;
+    const int8_t* vr;
+    float ksc, vsc;
+    if constexpr (RING) {
+      cp_async_wait<HIST_RING - 2>();  // row i has landed (this lane's pieces)
+      __syncwarp();                     // and every lane's
+      const uint8_t* slot = ring + (i % HIST_RING) * rowb;
+      kr = reinterpret_cast<const int8_t*>(slot);
+      vr = kr + D;
+      hh.scales(t, slot, D, ksc, vsc);
+      update(kr, vr, ksc, vsc, [](const int8_t* p) { return *p; });
+      fetch(i + HIST_RING - 1);  // into the slot every lane left one row ago
+    } else {
+      hh.row(t, kr, vr, ksc, vsc);
+      update(kr, vr, ksc, vsc, [](const int8_t* p) { return Hist::ld(p); });
+    }
+  }
+  if constexpr (!std::is_same<Tail, NoTail>::value) {
+    for (; t < tail.pos; t += NW) {
+      const int8_t* kr;
+      const int8_t* vr;
+      float ksc, vsc;
+      tail.row(t, kr, vr, ksc, vsc);
+      update(kr, vr, ksc, vsc, [](const int8_t* p) { return Tail::ld(p); });
+    }
   }
   float* mine = mrg + warp * (D + 2);
 #pragma unroll
@@ -447,11 +569,9 @@ __device__ __forceinline__ void attention_phase(const LayerArgs& a, float* sm, f
   const int qdim = a.n_heads * D, kvdim = a.n_kv_heads * D;
   for (int hq = blockIdx.x; hq < a.n_heads; hq += gridDim.x) {
     const int kvh = hq / reps;
-    const HeadHist hh{a.ck + (long)kvh * D, a.cv + (long)kvh * D, a.cks + kvh, a.cvs + kvh,
-                      a.kv_stride, a.s_stride, a.pos};
-    attention_item(a.qkv_buf, a.cos, a.sin, hq, kvh, qdim, kvdim, D, hh, hq % reps == 0,
-                   a.krow + (long)kvh * D, a.vrow + (long)kvh * D, a.ks_out + kvh,
-                   a.vs_out + kvh, a.attn_buf + (long)hq * D, sm, red);
+    attention_item(a.qkv_buf, a.cos, a.sin, hq, kvh, qdim, kvdim, D, head_hist(a, kvh),
+                   hq % reps == 0, a.krow + (long)kvh * D, a.vrow + (long)kvh * D,
+                   a.ks_out + kvh, a.vs_out + kvh, a.attn_buf + (long)hq * D, sm, red);
   }
 }
 

@@ -1,9 +1,9 @@
 // The one-row whole-model kernels' GEMV for 4-bit words, on the tensor cores:
 // phases P1 qkv, P3 o_proj, P4 gate/up and P5 down_proj of every layer and
-// the lm_head of model_flat_kernel<T, 4> (model_flat.cu), and the same four
-// phases of mega4_kernel (model_mega4.cu), one row. The 2- and 8-bit
-// instances of both and the multi-token kernel keep decode_common.cuh's
-// CUDA-core tile_dot.
+// the lm_head of model_flat_kernel<T, 4> and of each token of
+// model_flat_seg_kernel<T, 4> (model_flat.cu), and the same four phases of
+// mega4_kernel (model_mega4.cu), one row. The 2- and 8-bit instances keep
+// decode_common.cuh's CUDA-core tile_dot.
 //
 // Replaces the `_qdot` calls of the TPU kernels
 // mi_optimize_tpu/ops/model_flat.py::_kernel_flat and
@@ -80,7 +80,6 @@ constexpr int FG_STRIP = 32;      // output columns a warp strip
 constexpr int FG_PLANES = 3;      // bf16 planes of an f32 row
 constexpr int FG_GEMVS = 5;       // qkv, o_proj, gate/up, down_proj, lm_head
 constexpr int FG_KC_MAX = 8192;   // k a staged window may hold
-constexpr int FG_HROWS = 8;       // history rows a warp's attention ring holds (7 in flight)
 // The BIAS instances' ring of bias rows [NW][FG_STAGES][8] x 16 bytes, which
 // they place after fg_smem_floats' regions and pass to fg_prime and fg_gemv
 // beside the GEMV's bias table (FgSmem, FGemv and FgCursor leave both out, so
@@ -101,10 +100,10 @@ template <> struct FgNormPlanes<__nv_bfloat16> { static constexpr int n = 1; };
 // [FG_PLANES][kc + 32] bf16 (+64 bytes a plane, so that the two planes a
 // quarter warp reads fall on distinct banks) and word sums [kc / 8]; P2's
 // attention buffers (attend_head's, the head's q, k and v rows, and each
-// warp's ring of FG_HROWS history rows) alias the window.
+// warp's ring of HIST_RING history rows) alias the window.
 __host__ __device__ inline int fg_win_floats(int kc, int D) {
   const int w = FG_PLANES * (kc + 32) / 2 + kc / 8;
-  const int att = 3 * D + NW * (D + 2) + 3 * D + NW * FG_HROWS * (2 * D + 8) / 4;
+  const int att = 3 * D + NW * (D + 2) + 3 * D + NW * HIST_RING * HeadHist::ring_bytes(D) / 4;
   return fg_align4(w > att ? w : att);
 }
 __host__ __device__ inline int fg_smem_floats(int h, int kc, int D) {
@@ -620,110 +619,19 @@ __device__ __forceinline__ float fg_residual(float* vec, const T* x0, const floa
   return block_sum(ss, red);
 }
 
-// attend_head (decode_common.cuh) over a HeadHist, with its arithmetic,
-// order and rounding unchanged: only the history rows come another way. A
-// warp's rows t = warp, warp + NW, .. (int8 k and v, and their scales) go
-// through a per-warp cp.async ring of FG_HROWS rows in shared memory (`pf`:
-// [NW][FG_HROWS][2D bytes + 2 floats]), FG_HROWS - 1 of them in flight, where
-// attend_head loads each row only when it reaches it.
-__device__ __forceinline__ int fg_hrow_bytes(int D) { return 2 * D + 8; }
-__device__ __forceinline__ void fg_attend_head(const HeadHist& hh, int D, float* out, float* sm,
-                                               float* red, uint8_t* pf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* q = sm;
-  const float* kd = sm + D;
-  const float* vd = sm + 2 * D;
-  float* mrg = sm + 3 * D;  // [NW][D + 2]
-  const float scale = 1.f / sqrtf((float)D);
-  constexpr int MAXJ = 8;   // D <= 256
-  const int nj = D / 32, rowb = fg_hrow_bytes(D);
-  uint8_t* ring = pf + warp * FG_HROWS * rowb;
-  auto fetch = [&](int i) {  // the warp's i-th row into slot i % FG_HROWS
-    const int t = warp + i * NW;
-    if (t < hh.pos) {
-      uint8_t* s = ring + (i % FG_HROWS) * rowb;
-      const int8_t* kr = hh.k + (long)t * hh.stride;
-      const int8_t* vr = hh.v + (long)t * hh.stride;
-      for (int b = 4 * lane; b < D; b += 128) {
-        cp_async4(s + b, kr + b, true);
-        cp_async4(s + D + b, vr + b, true);
-      }
-      if (lane == 0) {
-        cp_async4(s + 2 * D, hh.ks + (long)t * hh.sstride, true);
-        cp_async4(s + 2 * D + 4, hh.vs + (long)t * hh.sstride, true);
-      }
-    }
-    cp_async_commit();
-  };
-#pragma unroll 1
-  for (int i = 0; i < FG_HROWS - 1; ++i) fetch(i);
-
-  float sn = 0.f;
-  for (int d = threadIdx.x; d < D; d += NT) sn += q[d] * kd[d];
-  sn = block_sum(sn, red) * scale;
-
-  float m, l, acc[MAXJ];
-  if (warp == 0) {
-    m = sn; l = 1.f;
-#pragma unroll
-    for (int j = 0; j < MAXJ; ++j) acc[j] = j < nj ? vd[lane + 32 * j] : 0.f;
-  } else {
-    m = -INFINITY; l = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAXJ; ++j) acc[j] = 0.f;
-  }
-  int i = 0;
-  for (int t = warp; t < hh.pos; t += NW, ++i) {
-    cp_async_wait<FG_HROWS - 2>();  // row i has landed (this lane's pieces)
-    __syncwarp();                    // and every lane's
-    const uint8_t* slot = ring + (i % FG_HROWS) * rowb;
-    const int8_t* kr = reinterpret_cast<const int8_t*>(slot);
-    const int8_t* vr = kr + D;
-    const float ksc = *reinterpret_cast<const float*>(slot + 2 * D);
-    const float vsc = *reinterpret_cast<const float*>(slot + 2 * D + 4);
-    float p = 0.f;
-#pragma unroll
-    for (int j = 0; j < MAXJ; ++j)
-      if (j < nj) p += q[lane + 32 * j] * ((float)kr[lane + 32 * j] * ksc);
-    const float sc = warp_sum(p) * scale;
-    const float mn = fmaxf(m, sc);
-    const float corr = expf(m - mn);
-    const float e = expf(sc - mn);
-    l = l * corr + e;
-#pragma unroll
-    for (int j = 0; j < MAXJ; ++j)
-      if (j < nj) acc[j] = acc[j] * corr + e * ((float)vr[lane + 32 * j] * vsc);
-    m = mn;
-    fetch(i + FG_HROWS - 1);  // into the slot every lane left one row ago
-  }
-  float* mine = mrg + warp * (D + 2);
-#pragma unroll
-  for (int j = 0; j < MAXJ; ++j)
-    if (j < nj) mine[lane + 32 * j] = acc[j];
-  if (lane == 0) { mine[D] = m; mine[D + 1] = l; }
-  __syncthreads();
-  for (int d = threadIdx.x; d < D; d += NT) {
-    float M = -INFINITY;
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, mrg[w * (D + 2) + D]);
-    float L = 0.f, A = 0.f;
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(mrg[w * (D + 2) + D] - M);
-      L += mrg[w * (D + 2) + D + 1] * c;
-      A += mrg[w * (D + 2) + d] * c;
-    }
-    out[d] = A / L;
-  }
-  __syncthreads();
-}
-
-// P2 of the 4-bit flat kernel: decode_common.cuh's attention_phase and
-// attention_item, with each head's q, k and v rows first summed from the qkv
-// GEMV's split partials [splits, ld] (in split order; a thread's loads of 8
-// splits go out together) into shared memory and the RoPE and the int8 row
-// read from there, then fg_attend_head: the same arithmetic on the same
-// values. sm: attend_head's buffers, the q | k | v rows, the history ring.
+// P2 of the 4-bit layer loop (flat_model.cuh): decode_common.cuh's
+// attention_phase and attention_item, with each head's q, k and v rows first
+// summed from the qkv GEMV's split partials [splits, ld] (in split order; a
+// thread's loads of 8 splits go out together) into shared memory and the
+// RoPE and the int8 row read from there, then attend_head over hist(kvh)
+// (a HeadHist) through its history ring and, given `tail`, over the rows of
+// tail(kvh) after them (a segment's SegHist): the same arithmetic on the
+// same values. sm: attend_head's buffers, the q | k | v rows, the history
+// ring.
+template <class MkHist, class MkTail = NoTail (*)(int)>
 __device__ __forceinline__ void fg_attention_phase(const LayerArgs& a, const float* part,
-                                                   int splits, int ld, float* sm, float* red) {
+                                                   int splits, int ld, float* sm, float* red,
+                                                   MkHist hist, MkTail tail = nullptr) {
   const int D = a.head_dim, reps = a.n_heads / a.n_kv_heads, half = D / 2;
   const int qdim = a.n_heads * D, kvdim = a.n_kv_heads * D;
   float* raw = sm + 3 * D + NW * (D + 2);
@@ -758,8 +666,7 @@ __device__ __forceinline__ void fg_attention_phase(const LayerArgs& a, const flo
     for (int e = 0; e < E; ++e)
       if (threadIdx.x + e * NT < 3 * D) raw[threadIdx.x + e * NT] = acc[e];
     __syncthreads();
-    const HeadHist hh{a.ck + (long)kvh * D, a.cv + (long)kvh * D, a.cks + kvh, a.cvs + kvh,
-                      a.kv_stride, a.s_stride, a.pos};
+    const auto hh = hist(kvh);
     const float* qs = raw;
     const float* ks = raw + D;
     const float* vs = raw + 2 * D;
@@ -788,7 +695,11 @@ __device__ __forceinline__ void fg_attention_phase(const LayerArgs& a, const flo
       }
     }
     __syncthreads();
-    fg_attend_head(hh, D, a.attn_buf + (long)hq * D, sm, red, pf);
+    if constexpr (std::is_same<MkTail, NoTail (*)(int)>::value)
+      attend_head<decltype(hist(kvh)), true>(hh, D, a.attn_buf + (long)hq * D, sm, red, pf);
+    else
+      attend_head<decltype(hist(kvh)), true>(hh, D, a.attn_buf + (long)hq * D, sm, red, pf,
+                                             tail(kvh));
   }
 }
 

@@ -18,23 +18,34 @@
 // table is read. The new k/v rows and scales of every layer go out for the
 // caller to scatter into the merged [L, T, 2, Hkv, D] cache.
 //
-// With 4-bit words the one-token kernel runs the layer loop of
-// flat_model.cuh (flat4_model, which model_mega4.cu's one-token kernel
-// without the lm_head runs too): its GEMVs run on the tensor cores
-// (flat_gemv.cuh: the reference's grouped rescale, the row as exact bf16
-// planes of an n8 mma operand, every phase cut by the host's plan to fill
-// the grid, the next phase's first words in flight across each grid
-// barrier, the residual kept in shared memory). The 2- and 8-bit instances
-// and the multi-token kernel keep decode_common.cuh's layer and CUDA-core
-// tile_dot.
+// Which loop each instance runs:
+//   * 4-bit words, both kernels (model_flat_kernel<T, 4>,
+//     model_flat_seg_kernel<T, 4>): the tensor-core layer loop of
+//     flat_model.cuh (flat4_model, which model_mega4.cu's one-token kernel
+//     without the lm_head runs too). Its GEMVs run on the tensor cores
+//     (flat_gemv.cuh: the reference's grouped rescale, the row as exact bf16
+//     planes of an n8 mma operand, every phase cut by the host's plan to fill
+//     the grid, the next phase's first words in flight across each grid
+//     barrier, the residual kept in shared memory); P2's history rows come
+//     through a per-warp cp.async ring (attend_head<Hist, true>). The
+//     multi-token kernel runs the one-token kernel's steps once for each of
+//     its kseg tokens in the same launch (flat4_model's FgSeg): the same
+//     plan, phases and rounding points, so that its tokens, rows and scales
+//     are those of kseg one-token launches with the rows scattered between
+//     them, bit for bit.
+//   * 2- and 8-bit words: decode_common.cuh's CUDA-core decoder_layer and
+//     tile_dot, the one-token kernel with its own copy of the layer loop and
+//     lm phase, the multi-token kernel through flat_layer_args, set_layer and
+//     lm_argmax.
 //
 // The multi-token kernel saves the launches and the host glue between
 // tokens, which is what a few-layer draft model pays for. After token t's
-// argmax and one more barrier every block reads the winner's embedding row
-// directly (the TPU kernel streamed the whole table through a one-hot dot).
-// Token t attends to the cache rows before the segment and then to the rows
-// of tokens 0..t-1 of this launch, read back from the output buffers through
-// L2; the caller writes all kseg rows into the cache after the launch.
+// argmax every block reduces the blocks' pairs itself and reads the winner's
+// embedding row directly (the TPU kernel streamed the whole table through a
+// one-hot dot). Token t attends to the cache rows before the segment and
+// then to the rows of tokens 0..t-1 of this launch, read back from the
+// output buffers through L2, never L1 (SegHist); the caller writes all kseg
+// rows into the cache after the launch.
 #include "decode_common.cuh"
 #include "flat_gemv.cuh"
 #include "flat_model.cuh"
@@ -241,50 +252,20 @@ __global__ void __launch_bounds__(NT, COOP_PER_SM) model_flat_kernel(FlatArgs f)
   }
 }
 
-// The history of one kv head for token t of a segment: rows t' < pos0 from
-// the cache (`stride` apart, scales `sstride` apart), then rows pos0 <= t' <
-// pos of the segment's earlier tokens from this launch's output rows (`step`
-// and `sstep` apart), which other blocks wrote: every load goes through L2.
-struct SegHist {
-  const int8_t* k; const int8_t* v; const float* ks; const float* vs;
-  long stride, sstride;
-  const int8_t* sk; const int8_t* sv; const float* sks; const float* svs;
-  long step, sstep;
-  int pos0, pos;
-  __device__ __forceinline__ void row(int t, const int8_t*& kr, const int8_t*& vr, float& ksc,
-                                      float& vsc) const {
-    if (t < pos0) {
-      kr = k + (long)t * stride;
-      vr = v + (long)t * stride;
-      ksc = __ldcg(ks + (long)t * sstride);
-      vsc = __ldcg(vs + (long)t * sstride);
-    } else {
-      const long j = t - pos0;
-      kr = sk + j * step;
-      vr = sv + j * step;
-      ksc = __ldcg(sks + j * sstep);
-      vsc = __ldcg(svs + j * sstep);
-    }
-  }
-  static __device__ __forceinline__ int8_t ld(const int8_t* p) { return __ldcg(p); }
-};
-
 // P2 of token t of a segment: every q head over SegHist. rows/scales point at
-// layer l's [2, Hkv, D] rows and [2, Hkv] scales of the segment's token 0.
+// layer l's [2, Hkv, D] rows and [2, Hkv] scales of the segment's token 0 in
+// the [kseg, L, ...] outputs.
 struct SegAttention {
   const int8_t* rows;
   const float* scales;
-  long step, sstep;
-  int pos0;
+  int L, pos0;
   __device__ __forceinline__ void operator()(const LayerArgs& a, float* sm, float* red) const {
     const int D = a.head_dim, Hkv = a.n_kv_heads, reps = a.n_heads / Hkv;
     const int qdim = a.n_heads * D, kvdim = Hkv * D;
     for (int hq = blockIdx.x; hq < a.n_heads; hq += gridDim.x) {
       const int kvh = hq / reps;
-      const SegHist hh{a.ck + (long)kvh * D, a.cv + (long)kvh * D, a.cks + kvh, a.cvs + kvh,
-                       a.kv_stride, a.s_stride, rows + (long)kvh * D,
-                       rows + kvdim + (long)kvh * D, scales + kvh, scales + Hkv + kvh, step,
-                       sstep, pos0, a.pos};
+      const SegHist hh{a.ck + (long)kvh * D, a.cks + kvh, rows + (long)kvh * D, scales + kvh,
+                       kvdim, Hkv, L, pos0, a.pos};
       attention_item(a.qkv_buf, a.cos, a.sin, hq, kvh, qdim, kvdim, D, hh, hq % reps == 0,
                      a.krow + (long)kvh * D, a.vrow + (long)kvh * D, a.ks_out + kvh,
                      a.vs_out + kvh, a.attn_buf + (long)hq * D, sm, red);
@@ -292,39 +273,46 @@ struct SegAttention {
   }
 };
 
+// 4-bit words take flat4_model (FgSeg); 2- and 8-bit words decoder_layer
+// with SegAttention and lm_argmax, one more barrier passing each token on.
 template <class T, int BITS>
 __global__ void __launch_bounds__(NT, COOP_PER_SM) model_flat_seg_kernel(FlatArgs f) {
   extern __shared__ float smem[];
-  float* red = smem;
-  float* vec = smem + RED_FLOATS;
-  cg::grid_group grid = cg::this_grid();
+  if constexpr (BITS == 4) {
+    FgSeg seg;
+    flat4_model<T>(f, seg, smem);
+  } else {
+    float* red = smem;
+    float* vec = smem + RED_FLOATS;
+    cg::grid_group grid = cg::this_grid();
 
-  const int h = f.hidden, D = f.head_dim, I = f.inter, L = f.n_layers, Hkv = f.n_kv_heads;
-  const int qdim = f.n_heads * D, kvdim = Hkv * D, nqkv = qdim + 2 * kvdim;
-  float* part_val = f.scratch + h + nqkv + qdim + h + I;
+    const int h = f.hidden, D = f.head_dim, I = f.inter, L = f.n_layers, Hkv = f.n_kv_heads;
+    const int qdim = f.n_heads * D, kvdim = Hkv * D, nqkv = qdim + 2 * kvdim;
+    float* part_val = f.scratch + h + nqkv + qdim + h + I;
 
-  LayerArgs a = flat_layer_args(f);
-  for (int t = 0; t < f.kseg; ++t) {
-    // token t's input: the first token's row, else the embedding row of the
-    // token block 0 chose before the last barrier
-    const T* xt = t == 0 ? (const T*)f.x : (const T*)f.emb + (long)__ldcg(f.token + t - 1) * h;
-    a.cos = f.cos + (long)t * D;
-    a.sin = f.sin + (long)t * D;
-    a.pos = f.pos + t;
-    for (int l = 0; l < L; ++l) {
-      a.x_t = l == 0 ? xt : nullptr;
-      set_layer<T, BITS>(a, f, l, t);
-      const SegAttention attn{f.kvrow + (long)l * 2 * kvdim, f.kvsc + (long)l * 2 * Hkv,
-                              (long)L * 2 * kvdim, (long)L * 2 * Hkv, f.pos};
-      decoder_layer<T, BITS>(a, vec, red, attn);
-      grid.sync();
+    LayerArgs a = flat_layer_args(f);
+    for (int t = 0; t < f.kseg; ++t) {
+      // token t's input: the first token's row, else the embedding row of the
+      // token block 0 chose before the last barrier
+      const T* xt = t == 0 ? (const T*)f.x : (const T*)f.emb + (long)__ldcg(f.token + t - 1) * h;
+      a.cos = f.cos + (long)t * D;
+      a.sin = f.sin + (long)t * D;
+      a.pos = f.pos + t;
+      for (int l = 0; l < L; ++l) {
+        a.x_t = l == 0 ? xt : nullptr;
+        set_layer<T, BITS>(a, f, l, t);
+        const SegAttention attn{f.kvrow + (long)l * 2 * kvdim, f.kvsc + (long)l * 2 * Hkv, L,
+                                f.pos};
+        decoder_layer<T, BITS>(a, vec, red, attn);
+        grid.sync();
+      }
+      lm_argmax<T, BITS>(f, a.xres, part_val, vec, red, f.token + t);
+      if (t + 1 < f.kseg) grid.sync();
     }
-    lm_argmax<T, BITS>(f, a.xres, part_val, vec, red, f.token + t);
-    if (t + 1 < f.kseg) grid.sync();
   }
 }
 
-// The 4-bit one-token kernel's plan against its scratch (flat_gemv.cuh):
+// The 4-bit kernels' plan against its scratch (flat_gemv.cuh):
 // 1, 2, 4 or 8 warp strips a tile; K splits of whole groups (a group a
 // multiple of 8 k that divides K), at least one group each, the lm_head
 // unsplit; a staged window of a multiple of 64 k up to FG_KC_MAX; the
@@ -351,7 +339,7 @@ cudaError_t check_plan(const FlatArgs& f) {
 template <class T, int BITS, bool SEG>
 cudaError_t launch(const FlatArgs& f, cudaStream_t stream) {
   auto kern = SEG ? model_flat_seg_kernel<T, BITS> : model_flat_kernel<T, BITS>;
-  constexpr bool MMA = BITS == 4 && !SEG;
+  constexpr bool MMA = BITS == 4;
   if (MMA) {
     const cudaError_t e = check_plan(f);
     if (e != cudaSuccess) return e;

@@ -58,7 +58,7 @@ using namespace mi;
 // block's bias ring; layer l's split cache, new rows and scales; x_out.
 template <bool BIAS>
 struct Mega4View {
-  static constexpr bool kLm = false, kBias = BIAS;
+  static constexpr bool kLm = false, kSeg = false, kBias = BIAS;
   const MegaArgs& m;
   int down_splits;
   float4* bring;

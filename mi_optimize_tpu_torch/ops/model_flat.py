@@ -23,7 +23,8 @@ words-major per-layer arrays into [L, KW, N] with f32 scales [L, K/g, N];
 the reference's TPU tiling of the intermediate axis is not copied. On CPU
 tensors the wrapper runs the plain version, `model_decode_flat_ref`.
 `flat_launch` checks the inputs and launches either entry point of
-model_flat.cu; ops/model_flat_seg.py launches the multi-token one.
+model_flat.cu (with 4-bit words both take the same plan, partials and
+window); ops/model_flat_seg.py launches the multi-token one.
 """
 from __future__ import annotations
 
@@ -186,8 +187,11 @@ def flat_launch(entry, stack, x, cos, sin, cache, pos: int, cfg, meta, kseg=1, e
     """Check the inputs of the flat kernels (model_flat.cu), launch `entry`
     for kseg tokens from position pos (cos/sin [kseg, D]) and return (tokens
     [kseg] int32, logits [V] f32 of the last token, kvrows [kseg, L, 2, Hkv,
-    D] int8, kvscales [kseg, L, 2, Hkv] f32). `lib`: another build of
-    model_flat.cu to launch (scripts/torch_flat_phases.py's timed copy)."""
+    D] int8, kvscales [kseg, L, 2, Hkv] f32). With 4-bit words either entry
+    gets the tensor-core GEMV's plan (`flat_plans`), its partials and its
+    staged window (`flat_scratch`). `lib`:
+    another build of model_flat.cu to launch (scripts/torch_flat_phases.py's
+    timed copy). A refused launch raises (`_build.check`)."""
     from . import _build
 
     (bits, g_qkv, g_o, g_gu, g_d, zc_qkv, zc_o, zc_gu, zc_d, g_ue, zc_ue, vocab) = meta
@@ -221,6 +225,8 @@ def flat_launch(entry, stack, x, cos, sin, cache, pos: int, cfg, meta, kseg=1, e
         _check_cuda(name, t, dev, shape=shape)
     if emb is not None:
         _check_cuda("emb", emb, dev, dt, (vocab, h))
+    elif entry == "mi_model_decode_flat_seg":
+        raise ValueError("the multi-token kernel reads each later token's row from emb")
     _check_cuda("kv cache", cache["kv"], dev, torch.int8, (L, T, 2, Hkv, D))
     _check_cuda("kv scales", cache["kv_scale"], dev, torch.float32, (L, T, 2, Hkv))
 
@@ -232,7 +238,7 @@ def flat_launch(entry, stack, x, cos, sin, cache, pos: int, cfg, meta, kseg=1, e
                           dtype=torch.float32, device=dev)
     part_idx = torch.empty(_MAX_BLOCKS, dtype=torch.int32, device=dev)
     plan_ws, plan_splits, kc, n_part, part = [0] * FLAT_GEMVS, [0] * FLAT_GEMVS, 0, 0, None
-    if bits == 4 and entry == "mi_model_decode_flat":  # the tensor-core GEMV's plan, partials
+    if bits == 4:  # the tensor-core GEMV's plan, partials
         plans = flat_plans(cfg, meta, sm_count(dev))
         plan_ws, plan_splits = [pl[3] for pl in plans], [pl[4] for pl in plans]
         n_part, kc = flat_scratch(plans)
@@ -249,11 +255,17 @@ def flat_launch(entry, stack, x, cos, sin, cache, pos: int, cfg, meta, kseg=1, e
         zc_qkv, zc_o, zc_gu, zc_d, zc_ue, cfg.rms_eps,
         (ctypes.c_int * FLAT_GEMVS)(*plan_ws), (ctypes.c_int * FLAT_GEMVS)(*plan_splits), kc,
         n_part, None if part is None else p(part))
+    _call(entry, args, bits, dt, dev, lib)
+    return token, logits, kvrows, kvsc
+
+
+def _call(entry, args, bits, dt, dev, lib=None):
+    from . import _build
+
     fn = getattr(lib or _build.load("model_flat"), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(_FlatArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     _build.check(fn(ctypes.byref(args), bits, _DTYPES[dt], _build.stream_ptr(dev)), entry)
-    return token, logits, kvrows, kvsc
 
 
 def _model_decode_flat_cuda(stack, x, cossin, cache, pos: int, cfg, meta):

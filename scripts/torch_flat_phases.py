@@ -2,7 +2,7 @@
 """Where the port's flat decode kernel (B3, 4-bit words) spends its time, phase by
 phase, on one NVIDIA GPU.
 
-    python3 scripts/torch_flat_phases.py [--sass]
+    python3 scripts/torch_flat_phases.py [--sass] [--seg KSEG]
 
 Copies mi_optimize_tpu_torch/csrc/ to build/flat_phases/, where thread 0 of
 every block of model_flat_kernel<T, 4> (flat4_model in flat_model.cuh) stamps
@@ -13,9 +13,13 @@ flags, times the package's own build and the stamped copy with CUDA events at
 Llama-2-7B (random int4 g128 weights, bf16, T = 384, positions 200 and 0), and
 prints, over layers 1..L-1, the mean and the slowest block's microseconds of
 each segment (a barrier's is the wait of the blocks that reached it first).
+`--seg KSEG` also times the multi-token kernel (model_flat_seg_kernel<T, 4>,
+the same loop once a token) for KSEG tokens from position 200 and prints its
+last token's segments, which overwrite the earlier tokens' stamps.
 `--sass` also counts, in cuobjdump's SASS of the package's build, the
-instructions of model_flat_kernel<bf16, 4> and of its chunk loop (the
-innermost loop holding its mma instructions: static size, every path).
+instructions of model_flat_kernel<bf16, 4> (with --seg, also of
+model_flat_seg_kernel<bf16, 4>) and of its chunk loop (the innermost loop
+holding its mma instructions: static size, every path).
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ extern "C" int mi_flat_timers(void* out) {
 STAMP_AT = [
     ("    const bool lm = st == 4 * L;\n", "    const bool lm = st == 4 * L;\n    FT(st, 0)\n"),
     ("    float* out = lm ? f.logits", "    FT(st, 1)\n    float* out = lm ? f.logits"),
-    ("    if (lm) break;\n", "    FT(st, 2)\n    if (lm) break;\n"),
+    ("    if constexpr (X::kSeg) {\n      if (!lm) fg_prime",
+     "    FT(st, 2)\n    if constexpr (X::kSeg) {\n      if (!lm) fg_prime"),
     ("    grid.sync();\n    if (p == 0) {\n",
      "    FT(st, 3)\n    grid.sync();\n    FT(st, 4)\n    if (p == 0) {\n"),
     ("      grid.sync();\n    }\n  }\n",
@@ -87,13 +92,13 @@ def ptxas_line(log):
     raise SystemExit("ptxas reported no model_flat_kernel<bf16, 4>")
 
 
-def sass_counts(lib, cuobjdump):
-    """Print the SASS instructions of model_flat_kernel<bf16, 4> in `lib` and
-    of the smallest loop (a backward branch) around its first mma."""
+def sass_counts(lib, cuobjdump, kernel="model_flat_kernel"):
+    """Print the SASS instructions of `kernel`<bf16, 4> in `lib` and of the
+    smallest loop (a backward branch) around its first mma."""
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
     body = next(f for f in sass.split("Function : ")[1:]
-                if "model_flat_kernelI13__nv_bfloat16Li4E" in f.split("\n", 1)[0])
+                if f"{kernel}I13__nv_bfloat16Li4E" in f.split("\n", 1)[0])
     ins = [(int(m.group(1), 16), m.group(2)) for m in
            re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
     first = next(a for a, op in ins if "HMMA" in op)
@@ -102,13 +107,14 @@ def sass_counts(lib, cuobjdump):
              if t <= first <= a]
     lo, hi = min(loops, key=lambda x: x[1] - x[0])
     n = sum(lo <= a <= hi for a, _ in ins)
-    print(f"SASS: model_flat_kernel<bf16, 4> {len(ins)} instructions; its chunk loop {n} "
+    print(f"SASS: {kernel}<bf16, 4> {len(ins)} instructions; its chunk loop {n} "
           f"({sum('HMMA' in op for a, op in ins if lo <= a <= hi)} mma)")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sass", action="store_true", help="count the kernel's SASS instructions")
+    ap.add_argument("--seg", type=int, default=0, help="also the multi-token kernel, KSEG tokens")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -140,7 +146,9 @@ def main() -> int:
     print(f"ptxas (stamped): {ptxas_line(log)}")
     stamped = ctypes.CDLL(out)
     if args.sass:
-        sass_counts(plain._name, os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump"))
+        for kernel in ("model_flat_kernel",) + (("model_flat_seg_kernel",) if args.seg else ()):
+            sass_counts(plain._name, os.path.join(os.path.dirname(_build.nvcc_path()),
+                                                  "cuobjdump"), kernel)
     cfg = LlamaConfig.llama2_7b()
     dev = "cuda"
     model = fuse_for_serving(Model(config=cfg, params=build_quantized_llama(
@@ -150,14 +158,9 @@ def main() -> int:
     print("plan (ws, splits):", [pl[3:] for pl in plans])
     flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
     L = cfg.num_layers
-    for pos in (200, 0):
-        gen = torch.Generator(device=dev).manual_seed(3)
-        cache = stack_cache_flat([cs.random_int8_cache(cfg, 384, pos, dev, gen) for _ in range(L)])
-        x = llama.embed(model.params, torch.tensor([[7]], device=dev))
-        cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
-        cos, sin = cos.reshape(-1), sin.reshape(-1)
-        ms = {lib: cs.time_ms(lambda: mf.flat_launch("mi_model_decode_flat", fstack, x, cos, sin,
-                                                      cache, pos, cfg, fmeta, lib=lib), 10, flush)
+
+    def report(what, run):
+        ms = {lib: cs.time_ms(lambda: run(lib), 10, flush)
               for lib in (plain, stamped)}  # the stamps are the last timed launch's
         buf = np.zeros((136, 8, 272), np.uint64)
         if stamped.mi_flat_timers(buf.ctypes.data_as(ctypes.c_void_p)) != 0:
@@ -165,13 +168,28 @@ def main() -> int:
         t = buf[:, :, :264].astype(np.float64) / 1e3
         layer = np.mean([t[4 * (l + 1), 0, 0] - t[4 * l, 0, 0] for l in range(1, L - 1)])
         lm = t[4 * L, 2] - t[4 * L, 1]
-        print(f"T=384 pos={pos}: {ms[plain]:.4f} ms package build, {ms[stamped]:.4f} ms stamped; "
+        print(f"{what}: {ms[plain]:.4f} ms package build, {ms[stamped]:.4f} ms stamped; "
               f"a layer {layer:.2f} us; lm_head GEMV mean {lm.mean():.2f}, "
               f"slowest {lm.max():.2f} us")
         for p, phase, name, a, b in SEGMENTS:
             d = np.stack([t[4 * l + p, b] - t[4 * l + p, a] for l in range(1, L)])
             print(f"  {phase} {name:15s} mean {d.mean():7.2f}  "
                   f"slowest block {d.max(axis=1).mean():7.2f} us")
+
+    for pos in (200, 0):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        cache = stack_cache_flat([cs.random_int8_cache(cfg, 384, pos, dev, gen) for _ in range(L)])
+        x = llama.embed(model.params, torch.tensor([[7]], device=dev))
+        cos, sin = llama.rope_tables(cfg, torch.tensor([pos], device=dev))
+        cos, sin = cos.reshape(-1), sin.reshape(-1)
+        report(f"T=384 pos={pos}", lambda lib: mf.flat_launch(
+            "mi_model_decode_flat", fstack, x, cos, sin, cache, pos, cfg, fmeta, lib=lib))
+        if args.seg and pos:
+            k = args.seg
+            cos, sin = llama.rope_tables(cfg, pos + torch.arange(k, device=dev))
+            report(f"T=384 pos0={pos} kseg={k}, token {k - 1}", lambda lib: mf.flat_launch(
+                "mi_model_decode_flat_seg", fstack, x, cos, sin, cache, pos, cfg, fmeta, kseg=k,
+                emb=model.params["embed"], lib=lib))
     return 0
 
 

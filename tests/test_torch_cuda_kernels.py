@@ -8,7 +8,10 @@ paged, C = 2 to 8, prefix 0 and across page boundaries), the paged flash
 decode (f32/bf16 q and pool), and both paged batchers against the CPU; the
 batched kernel's terminal lm rows (mode d) in every mode (dense one-token,
 paged, dense and paged chunk; a vocab that is not a multiple of 32), the
-multi-token flat decode (kseg 1 to 5), and the speculative paths and
+multi-token flat decode (kseg 1 to 5, float32 and bfloat16, 4-bit words
+also at the narrowest widths its plan takes; the same bits on a second
+launch, and with 4-bit words those of kseg one-token flat launches; its
+plan refused as the flat kernel's is), and the speculative paths and
 batchers against the CPU; the decode attention (codes and scales bitwise
 against its plain version), the fused MLP (M from 1 to 130, int2/4/8,
 per-group and per-channel, the same bits on every run), the W4A8 integer
@@ -182,9 +185,9 @@ def test_dequant_matmul_bf16_int4(dev, M, K, N, qtype, groupsize, symmetric):
 
 
 def _small(device, bits=4, groupsize=128, head_dim=128, layers=2, seed=0, symmetric=True,
-           inter=1024, vocab=160, dtype=torch.float32):
-    heads = 512 // head_dim
-    cfg = LlamaConfig(vocab_size=vocab, hidden_size=512, intermediate_size=inter,
+           inter=1024, vocab=160, dtype=torch.float32, hidden=512):
+    heads = hidden // head_dim
+    cfg = LlamaConfig(vocab_size=vocab, hidden_size=hidden, intermediate_size=inter,
                       num_layers=layers, num_heads=heads, num_kv_heads=heads // 2,
                       head_dim=head_dim, max_seq_len=512)
     p = build_quantized_llama(cfg, bits=bits, groupsize=groupsize, dtype=dtype,
@@ -986,23 +989,117 @@ def test_model_decode_mega_batch_lm_rows(dev, bits, symmetric, head_dim, inter, 
         [t for t, c in zip(ref[6].tolist(), clear) if c]
 
 
-@pytest.mark.parametrize("bits,head_dim", [(4, 128), (8, 64)])
-@pytest.mark.parametrize("kseg", [1, 3, 5])
-def test_model_decode_flat_seg(dev, bits, head_dim, kseg):
-    """B10 against its plain version: kseg tokens equal, every token's rows
-    up to tie flips, scales to 1e-5; the segment's history: cache rows before
-    pos0 and the launch's own earlier rows."""
-    cfg, _, gpu = _small(dev, bits=bits, head_dim=head_dim, layers=3, seed=8 + kseg)
+def _seg_args(dev, bits, head_dim, kseg, dtype=torch.float32, hidden=512, group=128, inter=1024,
+              seed=None):
+    """The multi-token flat decode's arguments on the card tests' small model
+    (3 layers), from position 150 of a random int8 history."""
+    cfg, _, gpu = _small(dev, bits=bits, groupsize=group, head_dim=head_dim, layers=3,
+                         seed=8 + kseg if seed is None else seed, dtype=dtype, hidden=hidden,
+                         inter=inter)
     fstack, fmeta = stack_flat(gpu)
     T, pos0 = 256, 150
     cache = stack_cache_flat([_to(_cache(cfg, T, pos0, seed=l), dev) for l in range(3)])
     x = llama.embed(gpu.params, torch.tensor([[9]], device=dev))
     cos, sin = llama.rope_tables(cfg, pos0 + torch.arange(kseg, device=dev))
-    args = (fstack, gpu.params["embed"], x, torch.cat([cos, sin], -1), cache, pos0, cfg, fmeta,
+    return (fstack, gpu.params["embed"], x, torch.cat([cos, sin], -1), cache, pos0, cfg, fmeta,
             kseg)
+
+
+def _flat_chain(flat, fstack, emb, x, cossin, cache, pos0, cfg, fmeta, kseg):
+    """kseg one-token flat decodes (`flat`: model_decode_flat or its plain
+    version), each token's rows scattered into a copy of the cache before
+    the next and the next input its winner's embedding row: what the
+    multi-token decode computes in one launch. Returns (tokens, rows,
+    scales, each token's logits)."""
+    work = {f: t.clone() for f, t in cache.items()}
+    out = ([], [], [], [])
+    for t in range(kseg):
+        tok, logits, kv, sc = flat(fstack, x, cossin[t], work, pos0 + t, cfg, fmeta)
+        work["kv"][:, pos0 + t] = kv
+        work["kv_scale"][:, pos0 + t] = sc[:, :, 0]
+        for o, v in zip(out, (tok, kv, sc[:, :, 0], logits[0])):
+            o.append(v)
+        x = emb[tok.long()].reshape(x.shape)
+    return torch.cat(out[0]), torch.stack(out[1]), torch.stack(out[2]), torch.stack(out[3])
+
+
+# (bits, head_dim, hidden, group, dtype, kseg): 4-bit (the tensor-core layer
+# loop) and 8-bit (the CUDA-core decoder_layer) in both model dtypes at kseg
+# 1, 3 and 5; and 4-bit at the narrowest widths the plan takes (hidden 64,
+# one kv head of 32, g32), where each (token, layer)'s scales are 8 bytes and
+# 16 of them share a 128-byte line: a copy of a segment row or scale through
+# L1 could read a line another block is writing
+SEG_CASES = [(b, d, 512, 128, dt, k) for b, d in ((4, 128), (8, 64))
+             for dt in (torch.float32, torch.bfloat16) for k in (1, 3, 5)] + [
+    (4, 32, 64, 32, dt, 5) for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("bits,head_dim,hidden,group,dtype,kseg", SEG_CASES)
+def test_model_decode_flat_seg(dev, bits, head_dim, hidden, group, dtype, kseg):
+    """B10 against its plain version: a second launch bit for bit; with
+    4-bit words the tokens, rows and scales of kseg one-token flat launches
+    with the rows scattered between them, bit for bit. float32: kseg tokens
+    equal, every token's rows up to tie flips (`_rows_match`), scales to
+    1e-5. bfloat16 (B3's bf16 bounds, `test_model_decode_flat`): each
+    token's rows within one code and scales to 1e-3, and the token equal
+    where the plain version's top two logits lie more than BF16_TOL apart;
+    after a token that differs the later ones follow other inputs and are
+    not compared. The segment's history: cache rows before pos0 and the
+    launch's own earlier rows."""
+    args = _seg_args(dev, bits, head_dim, kseg, dtype, hidden, group,
+                     inter=128 if hidden == 64 else 1024)
     before = model_flat_seg.launches
     got = model_flat_seg.model_decode_flat_seg(*args)
-    assert model_flat_seg.launches == before + 1
+    _same_bits(got, model_flat_seg.model_decode_flat_seg(*args))
+    assert model_flat_seg.launches == before + 2
+    if bits == 4:
+        flat_before = model_flat.launches
+        chain = _flat_chain(model_flat.model_decode_flat, *args)
+        assert model_flat.launches == flat_before + kseg
+        _same_bits(got, chain[:3])
+    if dtype == torch.float32:
+        ref = model_flat_seg.model_decode_flat_seg_ref(*args)
+        assert got[0].tolist() == ref[0].tolist()
+        _rows_match(got[1], ref[1])
+        _close(got[2], ref[2], 1e-5)
+        return
+    ref = _flat_chain(model_flat.model_decode_flat_ref, *args)
+    for t in range(kseg):
+        assert int((got[1][t].int() - ref[1][t].int()).abs().max()) <= 1
+        _close(got[2][t], ref[2][t], 1e-3)
+        top2 = torch.topk(ref[3][t].float(), 2).values
+        if int(got[0][t]) != int(ref[0][t]):
+            assert float(top2[0] - top2[1]) <= BF16_TOL * float(ref[3][t].abs().max())
+            break
+
+
+@pytest.mark.parametrize("short", [None, "partials", "splits", "lm_head"])
+def test_model_decode_flat_seg_plan(dev, monkeypatch, short):
+    """The multi-token kernel takes the one-token kernel's plan, checked by
+    the same launch check: with o_proj split in 4, gate/up in 2 and
+    down_proj in 3 a kseg = 5 launch repeats its bits, gives the one-token
+    kernel's chain under the same plan bit for bit and the plain version's
+    tokens; partials one float short of the plan's, a split with no group
+    (o_proj in groups + 1) or a split lm_head are refused before anything
+    runs, and no launch is counted."""
+    plans, sizes = model_flat.flat_plans, model_flat.flat_scratch
+    force = {None: {1: 4, 2: 2, 3: 3}, "partials": {1: 4, 2: 2, 3: 3}, "splits": {1: 5},
+             "lm_head": {4: 2}}
+    monkeypatch.setattr(model_flat, "flat_plans", lambda *a: [
+        pl[:4] + (force[short].get(i, pl[4]),) for i, pl in enumerate(plans(*a))])
+    cut = 1 if short == "partials" else 0
+    monkeypatch.setattr(model_flat, "flat_scratch", lambda pl: (sizes(pl)[0] - cut, sizes(pl)[1]))
+    args = _seg_args(dev, 4, 128, 5, seed=30)  # 512 inputs of o_proj: 4 groups
+    before = model_flat_seg.launches
+    if short is not None:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            model_flat_seg.model_decode_flat_seg(*args)
+        assert model_flat_seg.launches == before
+        return
+    got = model_flat_seg.model_decode_flat_seg(*args)
+    _same_bits(got, model_flat_seg.model_decode_flat_seg(*args))
+    assert model_flat_seg.launches == before + 2
+    _same_bits(got, _flat_chain(model_flat.model_decode_flat, *args)[:3])
     ref = model_flat_seg.model_decode_flat_seg_ref(*args)
     assert got[0].tolist() == ref[0].tolist()
     _rows_match(got[1], ref[1])
