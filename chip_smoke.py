@@ -10,7 +10,7 @@ Phases:
      model_flat_kernel, model_flat_seg_kernel and mega4_kernel instance,
      of gemv16_kernel and of
      the fused MLP's tensor-core kernels from the build's own -Xptxas -v
-     log;
+     log, and of every paged_split_kernel instance (the paged flash decode);
   2. hold each kernel against its plain PyTorch version on the card at the
      Llama-2-7B shapes of the paths below in bf16, and time both: the
      dequant matmul (the gemv16 kernel at M = 1, the tensor-core mma kernel
@@ -40,7 +40,8 @@ Phases:
      2-layer draft; the same bits on a second launch and as 5
      model_decode_flat launches with the rows scattered between them; timed
      against 5 model_decode_flat launches), the
-     paged flash decode of one layer (4 slots, pages of 16), the decode
+     paged flash decode of one layer (4 slots, pages of 16; one slot at
+     its last row; a GQA group of 4; the same bits on a second launch), the decode
      attention of one layer (T=384 at pos 200, T=2048 at pos 2047; new
      int8 rows and scales bit-equal), the fused MLP (M = 1 on its "gemv"
      instance, 128 and 2048 on its "mma" instance, with the P1/P2 split of
@@ -112,7 +113,8 @@ Phases:
   5. where the time goes: torch.profiler device time by kernel and the
      device busy share over a prefill, flat decode, per-layer decode, 16
      tokens of decode_loop_model on the asymmetric grid, 8 batcher steps
-     and 8 paged batcher steps with 8 active slots, one
+     and 8 paged batcher steps with 8 active slots, 8 PagedBatcher steps
+     with 4 active slots (the paged flash decode), one
      k=4 speculative round on the planted 7B pair, 8 decode steps of the
      unfused planted model and one 2048-token perplexity batch.
 
@@ -184,8 +186,9 @@ def _bits_dtype(m) -> str:
 # model_flat_kernel and model_flat_seg_kernel instance (model_flat.cu; their
 # 4-bit instances run flat_gemv.cuh), every mega4_kernel instance (model_mega4.cu, over
 # flat_gemv.cuh; BIAS=1 streams bias tables), gemv16_kernel
-# (dequant_matmul.cu) and the fused MLP's tensor-core kernels (mlp_fused.cu:
-# the M <= 8 kernel, P1 and P2 above)
+# (dequant_matmul.cu), the fused MLP's tensor-core kernels (mlp_fused.cu:
+# the M <= 8 kernel, P1 and P2 above) and the paged flash decode's
+# paged_split_kernel (paged_attention.cu: q and pool dtypes, q heads an item)
 PTXAS_KERNELS = (
     ("model_fused", r"batch_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb(\d)ELb(\d)E",
      lambda m: f"batch_kernel<{_bits_dtype(m)}, {m.group(2)}, {m.group(3)}, GEN={m.group(4)}, "
@@ -198,6 +201,10 @@ PTXAS_KERNELS = (
      lambda m: f"mega4_kernel<{_bits_dtype(m)}, BIAS={m.group(2)}>"),
     ("dequant_matmul", r"gemv16_kernelILi(\d)E", lambda m: f"gemv16_kernel<{m.group(1)}>"),
     ("mlp_fused", r"mlp_gemv_mma_kernel", lambda m: "mlp_gemv_mma_kernel"),
+    # (a bf16 pool after a bf16 q is mangled as a back-reference, S1_)
+    ("paged_attention", r"paged_split_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)Li(\d)E",
+     lambda m: f"paged_split_kernel<q {_bits_dtype(m)}, pool "
+               f"{'float' if m.group(2) == 'f' else 'bf16'}, {m.group(3)} heads>"),
     ("mlp_fused",
      r"mlp_mma_kernelINS_7MlpTileILi(\d+)ELi(\d)ELi(\d)ELi(\d)ELi\d+ELi\d+EEELb([01])E",
      lambda m: f"mlp_mma_kernel<{'P1' if m.group(5) == '1' else 'P2'}, [{m.group(1)}, 128] on "
@@ -1213,12 +1220,13 @@ def check_flat_seg(name, model, fstack, fmeta, cfg, dev, flush, reps, kseg=5, T=
 
 
 def check_paged_attention(cfg, dev, flush, reps, positions=(37, 200, 333, 511), P=16, pps=32):
-    """The paged flash decode (B8) at one layer of the 7B model as
-    PagedBatcher calls it: q in bf16 over an f32 pool, and in float32 (held
-    within 1e-4 of max|plain|). The library yardstick is
-    F.scaled_dot_product_attention with a boolean mask over the pool already
-    gathered into [B, H, T, D] (the gather is not timed); the port never
-    calls it."""
+    """The paged flash decode (B8) at one layer of `cfg` as PagedBatcher
+    calls it: q in bf16 over an f32 pool, and in float32 (held within 1e-4
+    of max|plain|); the same bits on a second launch. The library yardstick
+    is F.scaled_dot_product_attention with a boolean mask over the pool
+    already gathered into [B, H, T, D] (the gather is not timed); the port
+    never calls it. The bound counts the live rows' k and v once, for every
+    q head of their kv head."""
     import torch
     import torch.nn.functional as F
 
@@ -1234,7 +1242,8 @@ def check_paged_attention(cfg, dev, flush, reps, positions=(37, 200, 333, 511), 
     table = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:B * pps] + 1).reshape(
         B, pps).int().cpu()
     kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=D, page_size=P)
-    log(f"  paged_flash_attention: B={B}, H={H}, Hkv={Hkv}, D={D}, pages of {P}, {pps} a slot, "
+    heads = f"H={H}" if Hkv == H else f"H={H} Hkv={Hkv}"
+    log(f"  paged_flash_attention: B={B}, {heads}, D={D}, pages of {P}, {pps} a slot, "
         f"positions {list(positions)}, f32 pool")
     check_close("paged_flash_attention (f32 q)",
                 pa.paged_flash_attention(q32, pk, pv, table, positions, **kw),
@@ -1247,6 +1256,9 @@ def check_paged_attention(cfg, dev, flush, reps, positions=(37, 200, 333, 511), 
     got, ref = run(), plain()
     torch.cuda.synchronize()
     err = check_close("paged_flash_attention (bf16 q)", got, ref)
+    if not torch.equal(got, run()):
+        raise AssertionError("paged_flash_attention: a second launch gave other bits")
+    log("  paged_flash_attention: the same bits on a second launch")
     # the library yardstick on the pre-gathered view
     reps_h = H // Hkv
     pages = table.to(dev).long()
@@ -1268,7 +1280,7 @@ def check_paged_attention(cfg, dev, flush, reps, positions=(37, 200, 333, 511), 
     b_ms, b_by = bound(nb, fl)
     log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms "
         f"(pre-gathered SDPA)  bound {b_ms:.4f} ms ({b_by})")
-    return [dict(name="paged_flash_attention", shape=f"B={B} H={H} P={P} pps={pps} positions "
+    return [dict(name="paged_flash_attention", shape=f"B={B} {heads} P={P} pps={pps} positions "
                  f"{list(positions)} bf16 q, f32 pool", max_abs_err=err, ms=ms,
                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                  library_max_abs_err=lib_err, bytes=nb, flops=fl)]
@@ -2060,7 +2072,8 @@ def serve_model_loop(model, stack, meta, cfg, dev, S=128, n=128):
 def profile_windows(model, fstack, fmeta, cfg, dev, extra=None):
     """For a 128-token prefill, 16 tokens of decode_loop_flat, 8 tokens of
     engine.decode_loop, 8 ContinuousBatcher steps and 8 PagedMegaBatcher steps
-    with 8 active slots, and the `extra` windows {name: (fn, units)}:
+    with 8 active slots, 8 PagedBatcher steps with 4 active slots, and the
+    `extra` windows {name: (fn, units)}:
     the host wall time of the window (unprofiled, best of 3, ending in a
     synchronize), the device time of every kernel and copy from
     torch.profiler summed by name, and the busy share = summed device time /
@@ -2072,7 +2085,7 @@ def profile_windows(model, fstack, fmeta, cfg, dev, extra=None):
     from mi_optimize_tpu_torch.serving import engine
     from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
     from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat
-    from mi_optimize_tpu_torch.serving.paged import PagedMegaBatcher
+    from mi_optimize_tpu_torch.serving.paged import PagedBatcher, PagedMegaBatcher
 
     S, T = 128, 512
     prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(6))
@@ -2103,6 +2116,12 @@ def profile_windows(model, fstack, fmeta, cfg, dev, extra=None):
     for n in rng.integers(16, 257, 8):
         paged.add_request(rng.integers(0, cfg.vocab_size, (int(n),)), max_new_tokens=64)
     windows["paged_step_8"] = (lambda: [paged.step() for _ in range(8)], 8)
+    # PagedBatcher (the paged flash decode's path) with 4 active slots over an
+    # f32 pool of pages of 16
+    pbatch = PagedBatcher(model, n_slots=4, page_size=16, n_pages=1 + 4 * 32, pages_per_slot=32)
+    for n in rng.integers(16, 201, 4):
+        pbatch.add_request(rng.integers(0, cfg.vocab_size, (int(n),)), max_new_tokens=96)
+    windows["paged_batcher_step_4"] = (lambda: [pbatch.step() for _ in range(8)], 8)
     windows.update(extra or {})
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     out = {}
@@ -2126,14 +2145,13 @@ def profile_windows(model, fstack, fmeta, cfg, dev, extra=None):
                 by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
         dev_ms = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        if not (all(r is not None for r in batcher.slot_req)
-                and all(r is not None for r in paged.slot_req)):
+        if not all(r is not None for b in (batcher, paged, pbatch) for r in b.slot_req):
             raise AssertionError("a batcher slot freed during the profile window")
         out[name] = {"wall_ms": wall, "wall_ms_per_token": wall / n_tok,
                      "device_ms": dev_ms or None, "busy_share": dev_ms / wall if dev_ms else None,
                      "top_kernels_ms": [[k, v] for k, v in top]}
         busy = f"{dev_ms / wall:.3f}" if dev_ms else "not measured"
-        unit = "step" if name.endswith("step_8") else "round" if "round" in name else "token"
+        unit = "step" if "_step_" in name else "round" if "round" in name else "token"
         log(f"  {name}: wall {wall:.3f} ms ({wall / n_tok:.3f} ms/{unit}), device "
             f"{dev_ms:.3f} ms, busy share {busy}")
         for k, v in top:
@@ -2637,7 +2655,7 @@ def run_path(name, needs, fn):
 
 
 def compare_baseline(report, path) -> dict:
-    """This run's kernel rows (by name, or the name of the kernel a row
+    """This run's kernel rows (by name, else the name of the kernel a row
     replaced where it gives one, and shape), phase 5 windows and ptxas
     instances beside those of the report at `path` (another tree's run in the
     same call), logged one a line: {"kernels": [[name, shape, ms, its ms]],
@@ -2650,7 +2668,7 @@ def compare_baseline(report, path) -> dict:
     out = {"kernels": [], "profile": [], "ptxas": []}
     theirs = {(k["name"], k["shape"]): k["ms"] for k in base.get("kernels", [])}
     for k in report["kernels"]:
-        b = theirs.get((k.get("baseline_name") or k["name"], k["shape"]))
+        b = theirs.get((k["name"], k["shape"]), theirs.get((k.get("baseline_name"), k["shape"])))
         if b is not None:
             out["kernels"].append([k["name"], k["shape"], k["ms"], b])
             log(f"  {k['name']} {k['shape']}: {k['ms']:.4f} ms, baseline {b:.4f} ms "
@@ -2800,6 +2818,9 @@ def main() -> int:
     rows += check_flat_seg("random weights", model, fstack, fmeta, cfg, dev, flush, 5)
     rows += check_flat_seg("planted 2-layer draft", draft, *dfl, dcfg, dev, flush, 20)
     rows += check_paged_attention(cfg, dev, flush, reps=20)
+    rows += check_paged_attention(cfg, dev, flush, reps=20, positions=(511,))
+    rows += check_paged_attention(dataclasses.replace(cfg, num_kv_heads=cfg.num_heads // 4), dev,
+                                  flush, reps=20)
     del sstack, smeta, lm
     amodel, astack, ameta = asymmetric()
     rows += check_mega(amodel, astack, ameta, cfg, dev, flush, reps=5)

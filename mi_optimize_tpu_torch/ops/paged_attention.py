@@ -10,9 +10,20 @@ clamp does.
 
 What bounds it on an H100: the live k/v rows, read once (for Llama-2-7B one
 layer at 1085 live rows over 4 slots, 35.6 MB of f32 pool), over the memory
-rate. The kernel is one pass over the pages (no split over pages): one block
-per (slot, q head), its warps stream rows with an online softmax each in f32
-and merge at the end.
+rate, 3.35 TB/s. The kernel splits each slot's live rows across the card
+(flash decoding): a work item is (slot, kv head, up to 8 of its q heads, a
+chunk of `chunk_pages` pages), so one slot at a long position runs on the
+whole card; an item reads its kv head's rows once for every q head it holds
+(the GQA group); it streams them as slabs of `slab_rows` rows through a ring
+of shared-memory stages by 16-byte cp.async, several slabs in flight; and it
+keeps an online softmax in f32. The last item of a (slot, kv head) to finish
+merges the chunks' partials in chunk order, so every launch gives the same
+bits. `split_plan` sets the split from the shapes alone: the positions stay
+on the card, and the grid holds every chunk of the table, the items past a
+slot's live rows exiting at once. The partials and the arrival counters are
+a workspace cached per device and shape (`_workspace`; the kernel leaves the
+counters at 0), so launches that share it run on one stream, as the port's
+do.
 
 On CPU tensors the wrapper runs the plain version,
 `paged_flash_attention_ref`.
@@ -56,9 +67,45 @@ def paged_flash_attention_ref(q, pk, pv, table, positions, *, n_heads, n_kv_head
 
 
 class _PagedArgs(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_void_p) for n in ("q", "pk", "pv", "table", "pos", "out")] + [
+    _fields_ = [(n, ctypes.c_void_p) for n in ("q", "pk", "pv", "table", "pos", "out", "part",
+                                               "count")] + [
         (n, ctypes.c_int) for n in ("batch", "n_heads", "n_kv_heads", "head_dim", "page_size",
-                                    "pps")]
+                                    "pps", "chunk_pages", "n_chunks", "slab_rows", "n_sub")]
+
+
+CHUNK_ROWS = 64   # rows of a work item's chunk (whole pages)
+GROUP_MAX = 8     # q heads an item holds
+
+
+def split_plan(n_heads, n_kv_heads, page_size, pps, chunk_pages=None):
+    """The kernel's split, from the shapes alone: (chunk_pages, n_chunks,
+    slab_rows, n_sub). A chunk is `chunk_pages` whole pages (CHUNK_ROWS rows
+    by default), `n_chunks` cover the table's pps pages; a slab, the unit of
+    the shared-memory ring, is the largest multiple of 8 rows, at most 32,
+    that divides the page; a kv head's q heads go to `n_sub` items of at
+    most GROUP_MAX heads."""
+    cp = chunk_pages or max(1, CHUNK_ROWS // page_size)
+    cp = min(cp, pps)
+    sr = next(r for r in (32, 24, 16, 8) if page_size % r == 0)
+    return cp, -(-pps // cp), sr, -(-(n_heads // n_kv_heads) // GROUP_MAX)
+
+
+_workspaces = {}
+
+
+def _workspace(dev, batch, n_heads, n_kv_heads, n_chunks, n_sub, head_dim):
+    """(partials, counters) for a launch of these shapes on `dev`: f32
+    [B*H, n_chunks, D] acc then [B*H, n_chunks, 2] (m, l), and int32 arrival
+    counters [B, Hkv, n_sub], zeroed once (the kernel's last item of each
+    resets its own). Cached per device and shape."""
+    key = (str(dev), batch, n_heads, n_kv_heads, n_chunks, n_sub, head_dim)
+    ws = _workspaces.get(key)
+    if ws is None:
+        rows = batch * n_heads * n_chunks
+        ws = _workspaces[key] = (
+            torch.empty(rows * (head_dim + 2), dtype=torch.float32, device=dev),
+            torch.zeros(batch * n_kv_heads * n_sub, dtype=torch.int32, device=dev))
+    return ws
 
 
 def check_table(table, positions, n_slots, n_pages, page_size):
@@ -103,10 +150,13 @@ def _paged_flash_attention_cuda(q, pk, pv, table, positions, *, n_heads, n_kv_he
         _check_cuda("positions", pos, dev, torch.int32, (B,))
     else:
         tbl, pos = (t.to(dev) for t in check_table(table, positions, B, n_pages, page_size))
+    pps = tbl.shape[1]
+    cp, n_chunks, sr, n_sub = split_plan(n_heads, n_kv_heads, page_size, pps)
+    part, count = _workspace(dev, B, n_heads, n_kv_heads, n_chunks, n_sub, head_dim)
     out = torch.empty_like(q)
     p = lambda t: t.data_ptr()
-    args = _PagedArgs(p(q), p(pk), p(pv), p(tbl), p(pos), p(out), B, n_heads, n_kv_heads,
-                      head_dim, page_size, tbl.shape[1])
+    args = _PagedArgs(p(q), p(pk), p(pv), p(tbl), p(pos), p(out), p(part), p(count), B, n_heads,
+                      n_kv_heads, head_dim, page_size, pps, cp, n_chunks, sr, n_sub)
     fn = _build.load("paged_attention").mi_paged_attention
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(_PagedArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

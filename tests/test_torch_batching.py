@@ -89,7 +89,7 @@ def test_model_step_batch_matches_jax(step_runs, case):
         [{f: torch.from_numpy(v.copy()) for f, v in c.items()} for c in r["cache"]])
     pos = np.array(r["positions"])
     cur = torch.from_numpy(r["last"].copy())
-    model_fused.launches_batch = 0
+    before = model_fused.launches_batch
     toks = []
     for i in range(STEPS):
         logits, sc = megadecode.model_step_batch(pf.params, r["stack"], r["meta"], cfg, cur,
@@ -101,7 +101,7 @@ def test_model_step_batch_matches_jax(step_runs, case):
         cur = torch.argmax(logits, -1)[:, None]
         toks.append(cur[:, 0].numpy())
         pos = pos + 1
-    assert model_fused.launches_batch == 0
+    assert model_fused.launches_batch == before
     np.testing.assert_array_equal(np.stack(toks, 1), r["toks"])
     for b, p in enumerate(r["positions"]):
         for f in ("k", "v"):
@@ -156,11 +156,11 @@ def test_continuous_batcher_matches_jax(batcher_runs, name):
     b = batching.ContinuousBatcher(r["pf"], n_slots=2, max_len=T, cache_dtype=torch.int8,
                                    **r["kw"])
     assert (b._mega is not None) == r["kw"].get("use_megakernel", False)
-    model_fused.launches_batch = dequant_matmul.launches = 0
+    before = model_fused.launches_batch, dequant_matmul.launches
     got = _drive(b, r["prompts"])
     assert [len(t) for t in got] == [3, 6, 4]
     assert got == [[int(t) for t in ref] for ref in r["ref"]]
-    assert model_fused.launches_batch == dequant_matmul.launches == 0
+    assert (model_fused.launches_batch, dequant_matmul.launches) == before
 
 
 def test_megakernel_defaults_off_on_cpu_and_run_all():

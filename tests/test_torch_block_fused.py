@@ -52,10 +52,11 @@ def test_plain_matches_jax_kernel(T, pos):
 
     cos, sin = llama.rope_tables(cfg, torch.tensor([pos]))
     tcache = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    before = block_fused.launches
     x_out, krow, vrow, ks, vs = block_fused.block_decode_rows(
         pblk, pblk["mega"], torch.from_numpy(x), cos.reshape(-1), sin.reshape(-1), tcache,
         pos, cfg)
-    assert block_fused.launches == 0
+    assert block_fused.launches == before
 
     np.testing.assert_allclose(x_out.numpy().reshape(1, 1, -1), np.asarray(jx),
                                rtol=2e-4, atol=2e-4)

@@ -135,6 +135,8 @@ def test_wrapper_launches_mega4_on_the_view(monkeypatch, symmetric, dtype):
     cache = _cache(cfg, T, pos)
     x = torch.randn(1, 1, cfg.hidden_size).to(dtype)
     cos, sin = llama.rope_tables(cfg, torch.tensor([pos]))
+    for counter in ("launches", "launches_mega4"):
+        monkeypatch.setattr(block_fused, counter, getattr(block_fused, counter))
     before, before4 = block_fused.launches, block_fused.launches_mega4
     for _ in range(2):
         block_fused._block_decode_cuda(blk, blk["mega"], x, cos.reshape(-1), sin.reshape(-1),
@@ -165,6 +167,8 @@ def test_block_decode_mega_points_the_kernel_at_the_cache_rows(monkeypatch):
     calls = []
     monkeypatch.setattr(model_fused, "_call", lambda name, args, *a, **k: calls.append(args))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    for counter in ("launches", "launches_mega4"):
+        monkeypatch.setattr(block_fused, counter, getattr(block_fused, counter))
     T, pos = 256, 130
     cache = _cache(cfg, T, pos)
     before = {f: t.clone() for f, t in cache.items()}

@@ -123,8 +123,7 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_nothing():
         config=cfg, params=build_quantized_llama(cfg, dtype=torch.float32, device="cpu")))
     assert all("mega" in b for b in model.params["layers"])
     fstack, fmeta = stack_flat(model)
-    for m, a in _COUNTERS:
-        setattr(m, a, 0)
+    before = _counts()
     prompt = np.arange(5)[None] % cfg.vocab_size
     out = engine.generate(model, prompt, max_new_tokens=3, cache_dtype=torch.int8)
     logits, cache = engine.prefill(model.params, cfg, torch.from_numpy(prompt),
@@ -165,7 +164,7 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_nothing():
     assert sb.run_all([prompt[0]], max_new_tokens=3) == {0: out2[0, 5:8].tolist()}
     ps = PagedSpeculativeBatcher(model, model, k=2, n_slots=2, max_len=256)
     assert ps.run_all([prompt[0]], max_new_tokens=3) == {0: out2[0, 5:8].tolist()}
-    assert _counts() == (0,) * len(_COUNTERS)
+    assert _counts() == before
 
 
 def _dense_tokens(model, prompt):
@@ -341,13 +340,12 @@ def test_unfused_path_on_cpu_takes_the_stock_route_and_counts_nothing(monkeypatc
     params = build_quantized_llama(cfg, dtype=torch.float32, device="cpu")
     model = Model(config=cfg, params=with_w4a8(params) if w4a8 else params)
     monkeypatch.setenv("MI_W4A8_INT", "1")
-    for m, a in _COUNTERS:
-        setattr(m, a, 0)
+    before = _counts()
     prompt = np.arange(40)[None] % cfg.vocab_size
     out = engine.generate(model, prompt, max_new_tokens=3, cache_dtype=torch.int8)
     ppl = compute_ppl(model, [prompt, prompt[:, :33]])
     assert out.shape == (1, 43) and np.isfinite(ppl) and ppl > 1.0
-    assert _counts() == (0,) * len(_COUNTERS)
+    assert _counts() == before
 
 
 def test_unfused_launchers_validate_inputs_before_building():

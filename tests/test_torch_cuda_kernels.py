@@ -5,7 +5,10 @@ ragged M and N, an intermediate size that is not a multiple of 32, head_dim
 64, 1 to 8 slots, positions on and off the 128-row boundary; the batched
 kernel's paged mode bitwise against its dense mode, its chunk mode (dense and
 paged, C = 2 to 8, prefix 0 and across page boundaries), the paged flash
-decode (f32/bf16 q and pool), and both paged batchers against the CPU; the
+decode (f32/bf16 q and pool; split over pages: one slot at its last row,
+slots around chunk boundaries, GQA groups of 1 to 16 heads, NaN in the rows
+it must not read, the same bits on a second launch), and both paged
+batchers against the CPU; the
 batched kernel's terminal lm rows (mode d) in every mode (dense one-token,
 paged, dense and paged chunk; a vocab that is not a multiple of 32), the
 multi-token flat decode (kseg 1 to 5, float32 and bfloat16, 4-bit words
@@ -890,6 +893,52 @@ def test_paged_flash_attention(dev, q_dtype, kv_dtype, page_size, pps, H, Hkv):
     assert paged_attention.launches == before + 1 and got.dtype == q_dtype
     ref = paged_attention.paged_flash_attention_ref(q, pk, pv, table, positions, **kw)
     _close(got.cpu(), ref, RTOL if q_dtype == torch.float32 else 2e-2)
+
+
+def _split_positions(case, P, pps, H, Hkv):
+    """The slots' positions of a `test_paged_flash_attention_split` case."""
+    cr = paged_attention.split_plan(H, Hkv, P, pps)[0] * P  # rows of a chunk
+    return {"one slot at the last row": [pps * P - 1],
+            "chunk boundaries": [cr - 1, cr, cr + 1, 2 * cr, pps * P - cr]}[case]
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv", [(8, 8), (8, 4), (8, 2), (16, 1), (12, 1)])
+@pytest.mark.parametrize("case", ["one slot at the last row", "chunk boundaries"])
+def test_paged_flash_attention_split(dev, kv_dtype, H, Hkv, case):
+    """The split over pages at 32 pages of 16 a slot: one slot at its last
+    row, and slots on, one before and one past chunk boundaries; GQA groups
+    of 1, 2 and 4, and groups of 16 and 12 heads split into items of at most
+    8; f32 and bf16 pools. NaN in every row the kernel must not read (the
+    live page's rows past pos and the pages past it) leaves the output
+    finite and equal to the plain version's on clean pages, and a second
+    launch gives the same bits."""
+    D, P, pps = 128, 16, 32
+    positions = _split_positions(case, P, pps, H, Hkv)
+    B, n_pages = len(positions), 1 + len(positions) * pps
+    g = torch.Generator().manual_seed(H * 8 + Hkv)
+    q = torch.randn(B, H * D, generator=g)
+    pk = torch.randn(n_pages, P, Hkv, D, generator=g).to(kv_dtype)
+    pv = torch.randn(n_pages, P, Hkv, D, generator=g).to(kv_dtype)
+    table = (torch.randperm(n_pages - 1, generator=g)[:B * pps] + 1).reshape(B, pps).int()
+    kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=D, page_size=P)
+    ref = paged_attention.paged_flash_attention_ref(q, pk, pv, table, positions, **kw)
+    dirty_k, dirty_v = pk.clone(), pv.clone()
+    for b, p in enumerate(positions):
+        for j in range(p // P, pps):
+            rows = slice(p % P + 1 if j == p // P else 0, P)
+            dirty_k[table[b, j], rows] = float("nan")
+            dirty_v[table[b, j], rows] = float("nan")
+    dirty_k[0] = dirty_v[0] = float("nan")  # the page no slot holds
+    tdev, pdev = (t.to(dev) for t in paged_attention.check_table(table, positions, B, n_pages,
+                                                                 P))
+    args = (q.to(dev), dirty_k.to(dev), dirty_v.to(dev), tdev, pdev)
+    before = paged_attention.launches
+    got = paged_attention.paged_flash_attention(*args, **kw)
+    assert paged_attention.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got.cpu(), ref)
+    assert torch.equal(got, paged_attention.paged_flash_attention(*args, **kw))
 
 
 def test_paged_batchers_match_the_cpu(dev):

@@ -48,6 +48,7 @@ def test_matches_jax(H, Hkv, pos, bf16):
         jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(ks), jnp.asarray(vs), pos,
         interpret=True, **kw)
     caches = [torch.from_numpy(a.copy()) for a in (ck, cv, ks, vs)]
+    before = da.launches
     out, pck, pcv, pks, pvs = da.fused_decode_attention(
         *(torch.tensor(a).to(tdt) for a in (q, k, v)), torch.from_numpy(cos),
         torch.from_numpy(sin), *caches, pos, **kw)
@@ -59,4 +60,4 @@ def test_matches_jax(H, Hkv, pos, bf16):
     np.testing.assert_array_equal(pck.numpy()[others], ck[others])
     assert out.dtype == torch.float32 and out.shape == (1, H * D)
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
-    assert da.launches == 0  # CPU tensors: the plain version, no launch
+    assert da.launches == before  # CPU tensors: the plain version, no launch

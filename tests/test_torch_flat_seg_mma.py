@@ -40,8 +40,11 @@ def _h100_plan(monkeypatch):
 
 @pytest.fixture
 def calls(monkeypatch):
-    """The launch stubbed: each call's (entry, args, bits, dtype)."""
+    """The launch stubbed: each call's (entry, args, bits, dtype). The
+    counters the stubbed launches move are restored after the test."""
     got = []
+    monkeypatch.setattr(model_flat, "launches", model_flat.launches)
+    monkeypatch.setattr(model_flat_seg, "launches", model_flat_seg.launches)
     monkeypatch.setattr(model_flat, "_call", lambda entry, args, bits, dt, dev, lib=None:
                         got.append((entry, args, bits, dt)))
     return got

@@ -86,13 +86,13 @@ def test_lm_rows_match_jax(runs, name):
     assert lm_meta == r["jlm_meta"]
     B = len(r["positions"])
     cos, sin = llama.rope_tables(cfg, torch.as_tensor(r["positions"])[:, None])
-    model_fused.launches_lm = 0
+    before = model_fused.launches_lm
     outs = model_fused.model_decode_mega_batch(
         r["stack"], torch.from_numpy(r["x"]), cos.reshape(B, -1), sin.reshape(B, -1),
         {f: torch.from_numpy(v) for f, v in r["cache"].items()}, r["positions"], cfg, r["meta"],
         table=None if r["table"] is None else torch.from_numpy(r["table"]), chunk=C, lm=lm,
         lm_meta=lm_meta)
-    assert model_fused.launches_lm == 0 and len(outs) == 7
+    assert model_fused.launches_lm == before and len(outs) == 7
     jx, jk, jv, jks, jvs, jlogits, jtok = r["ref"]
     scale = np.abs(jx).max()
     assert np.abs(outs[0].numpy() - jx).max() <= 2e-4 * scale

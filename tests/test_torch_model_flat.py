@@ -46,10 +46,11 @@ def test_plain_matches_jax_kernel(T, pos):
 
     x = llama.embed(pf.params, torch.from_numpy(tok))
     cos, sin = llama.rope_tables(cfg, torch.tensor([pos]))
+    before = model_flat.launches
     ttok, logits, rows, sc = model_flat.model_decode_flat(
         stack, x, torch.cat([cos.reshape(-1), sin.reshape(-1)]),
         {k: torch.from_numpy(v) for k, v in cache.items()}, pos, cfg, meta)
-    assert model_flat.launches == 0
+    assert model_flat.launches == before
 
     assert int(ttok[0]) == int(np.asarray(jtok)[0, 0])
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=2e-4, atol=2e-4)

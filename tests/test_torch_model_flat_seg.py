@@ -53,10 +53,10 @@ def test_seg_matches_jax(seg_run):
     r = seg_run
     pf = r["pf"]
     stack, meta = stack_flat(pf)
-    model_flat_seg.launches = 0
+    before = model_flat_seg.launches
     toks, c2 = decode_loop_flat_seg(pf.params, stack, meta, pf.config, torch.from_numpy(r["tok"]),
                                     _cache(r), 17, KSEG * NSEG, kseg=KSEG)
-    assert model_flat_seg.launches == 0
+    assert model_flat_seg.launches == before
     assert toks.shape == (1, KSEG * NSEG)
     assert toks.tolist() == r["toks"].tolist()
     sl = slice(17, 17 + KSEG * NSEG)
@@ -90,6 +90,7 @@ def test_seg_outputs_and_bounds(seg_run):
     stack, meta = stack_flat(pf)
     x = pf.params["embed"][torch.from_numpy(r["tok"])]
     cs = torch.zeros(KSEG, 2 * cfg.head_dim)
+    before = model_flat.launches, model_flat_seg.launches
     toks, rows, sc = model_flat_seg.model_decode_flat_seg(stack, pf.params["embed"], x, cs,
                                                           _cache(r), 17, cfg, meta, KSEG)
     L, Hkv, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
@@ -99,4 +100,4 @@ def test_seg_outputs_and_bounds(seg_run):
     with pytest.raises(ValueError, match="outside the cache"):
         model_flat_seg.model_decode_flat_seg(stack, pf.params["embed"], x, cs, _cache(r),
                                              T - KSEG + 1, cfg, meta, KSEG)
-    assert model_flat.launches == 0
+    assert (model_flat.launches, model_flat_seg.launches) == before

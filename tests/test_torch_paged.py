@@ -143,11 +143,11 @@ def test_model_step_batch_paged_matches_jax(paged_step):
     r = paged_step
     pf = r["pf"]
     pool = _torch(r["pool"])
-    model_fused.launches_paged = 0
+    before = model_fused.launches_paged
     logits, pool = megadecode.model_step_batch_paged(
         pf.params, r["stack"], r["meta"], pf.config, torch.from_numpy(r["last"]), pool,
         r["table"], POSITIONS)
-    assert model_fused.launches_paged == 0
+    assert model_fused.launches_paged == before
     _close(logits, r["logits"])
     rows = list(enumerate(POSITIONS))
     got = _at_pages({f: v.numpy() for f, v in pool.items()}, r["table"], rows)
@@ -219,14 +219,14 @@ def test_chunk_steps_match_jax(chunk_runs, name):
     C = r["tokens"].shape[1]
     args = (pf.params, r["stack"], r["meta"], pf.config, torch.from_numpy(r["tokens"]),
             _torch(r["cache"]))
-    model_fused.launches_chunk = 0
+    before = model_fused.launches_chunk
     if table is not None:
         logits, c2 = megadecode.model_step_chunk_batch_paged(*args, table, prefixes)
     elif len(prefixes) == 1:
         logits, c2 = megadecode.model_step_chunk(*args, prefixes[0])
     else:
         logits, c2 = megadecode.model_step_chunk_batch(*args, prefixes)
-    assert model_fused.launches_chunk == 0
+    assert model_fused.launches_chunk == before
     _close(logits, r["logits"])
     c2 = {f: v.numpy() for f, v in c2.items()}
     rows = [(s, p + i) for s, p in enumerate(prefixes) for i in range(C)]
@@ -332,7 +332,7 @@ def test_paged_batcher_matches_jax(paged_batcher_runs, page_size, monkeypatch):
     assert paged_attention.paged_attention_supported(page_size, 128) == (page_size == 16)
     b = PagedBatcher(pf, n_slots=2, page_size=page_size, n_pages=n_pages, pages_per_slot=pps)
     assert b.layers[0][0].dtype == torch.float32 and b.device.type == "cpu"
-    paged_attention.launches = dequant_matmul.launches = 0
+    before = paged_attention.launches, dequant_matmul.launches
     calls = []
     ref_fn = paged_attention.paged_flash_attention_ref
     monkeypatch.setattr(paged_attention, "paged_flash_attention_ref",
@@ -340,5 +340,5 @@ def test_paged_batcher_matches_jax(paged_batcher_runs, page_size, monkeypatch):
     got = _drive_paged(b, prompts)
     assert got[0] == [[int(t) for t in r] for r in ref[page_size][0]]
     assert got[1] == ref[page_size][1]
-    assert paged_attention.launches == dequant_matmul.launches == 0
+    assert (paged_attention.launches, dequant_matmul.launches) == before
     assert bool(calls) == (page_size == 16)
