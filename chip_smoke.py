@@ -10,7 +10,8 @@ Phases:
      model_flat_kernel, model_flat_seg_kernel and mega4_kernel instance,
      of gemv16_kernel and of
      the fused MLP's tensor-core kernels from the build's own -Xptxas -v
-     log, and of every paged_split_kernel instance (the paged flash decode);
+     log, of every paged_split_kernel instance (the paged flash decode)
+     and of every decode_split_kernel instance (the decode attention);
   2. hold each kernel against its plain PyTorch version on the card at the
      Llama-2-7B shapes of the paths below in bf16, and time both: the
      dequant matmul (the gemv16 kernel at M = 1, the tensor-core mma kernel
@@ -42,8 +43,10 @@ Phases:
      against 5 model_decode_flat launches), the
      paged flash decode of one layer (4 slots, pages of 16; one slot at
      its last row; a GQA group of 4; the same bits on a second launch), the decode
-     attention of one layer (T=384 at pos 200, T=2048 at pos 2047; new
-     int8 rows and scales bit-equal), the fused MLP (M = 1 on its "gemv"
+     attention of one layer (T=384 at pos 200, T=2048 at pos 2047, T=4096
+     at pos 4095, and Mistral-7B's GQA groups of 4 at T=2048, pos 2047; new
+     int8 rows and scales bit-equal, the same bits on a second launch,
+     torch.sum over the same bytes beside it), the fused MLP (M = 1 on its "gemv"
      instance, 128 and 2048 on its "mma" instance, with the P1/P2 split of
      the latter's time from torch.profiler; also timed against the unfused
      route and against the first port's CUDA-core kernels on the same
@@ -116,7 +119,8 @@ Phases:
      and 8 paged batcher steps with 8 active slots, 8 PagedBatcher steps
      with 4 active slots (the paged flash decode), one
      k=4 speculative round on the planted 7B pair, 8 decode steps of the
-     unfused planted model and one 2048-token perplexity batch.
+     unfused planted model (after a 128-token prompt, T=512, and after a
+     1920-token prompt, T=2048) and one 2048-token perplexity batch.
 
 Earlier lines report each phase; the line before the last is a JSON object
 with every kernel's launches, error, time, plain time, library time (torch's
@@ -187,8 +191,10 @@ def _bits_dtype(m) -> str:
 # 4-bit instances run flat_gemv.cuh), every mega4_kernel instance (model_mega4.cu, over
 # flat_gemv.cuh; BIAS=1 streams bias tables), gemv16_kernel
 # (dequant_matmul.cu), the fused MLP's tensor-core kernels (mlp_fused.cu:
-# the M <= 8 kernel, P1 and P2 above) and the paged flash decode's
+# the M <= 8 kernel, P1 and P2 above), the paged flash decode's
 # paged_split_kernel (paged_attention.cu: q and pool dtypes, q heads an item)
+# and the decode attention's decode_split_kernel (decode_attention.cu: q/k/v
+# dtype, q heads an item, head widths)
 PTXAS_KERNELS = (
     ("model_fused", r"batch_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb(\d)ELb(\d)E",
      lambda m: f"batch_kernel<{_bits_dtype(m)}, {m.group(2)}, {m.group(3)}, GEN={m.group(4)}, "
@@ -205,43 +211,55 @@ PTXAS_KERNELS = (
     ("paged_attention", r"paged_split_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)Li(\d)E",
      lambda m: f"paged_split_kernel<q {_bits_dtype(m)}, pool "
                f"{'float' if m.group(2) == 'f' else 'bf16'}, {m.group(3)} heads>"),
+    ("decode_attention", r"decode_split_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb([01])E",
+     lambda m: f"decode_split_kernel<{_bits_dtype(m)}, {m.group(2)} heads, " + (
+         "D = 128 row groups>" if m.group(4) == "1" else f"D <= {128 * int(m.group(3))}>")),
     ("mlp_fused",
      r"mlp_mma_kernelINS_7MlpTileILi(\d+)ELi(\d)ELi(\d)ELi(\d)ELi\d+ELi\d+EEELb([01])E",
      lambda m: f"mlp_mma_kernel<{'P1' if m.group(5) == '1' else 'P2'}, [{m.group(1)}, 128] on "
                f"{m.group(2)} x {m.group(3)} warps, {m.group(4)} plane(s)>"))
 
 
-def ptxas_report() -> list:
-    """Registers and spill bytes of each kernel instance of PTXAS_KERNELS,
-    from ptxas's report of its source's build: [{"instance", "registers",
-    "spill_stores", "spill_loads"}], logged one a line."""
+def ptxas_rows(text: str, pattern: str, label) -> list:
+    """The instances whose mangled name matches `pattern` in an nvcc log
+    with ptxas's report: [{"instance": label(match), "registers",
+    "spill_stores", "spill_loads", "stack"}] in the log's order."""
     import re
 
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(pattern, m.group(1))
+            cur = None
+            if k:
+                cur = {"instance": label(k), "spill_stores": 0, "spill_loads": 0, "stack": 0}
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
+def ptxas_report() -> list:
+    """Registers and spill bytes of each kernel instance of PTXAS_KERNELS,
+    from ptxas's report of its source's build (`ptxas_rows`), logged one a
+    line."""
     from mi_optimize_tpu_torch.ops import _build
 
     rows = []
     for source, pattern, label in PTXAS_KERNELS:
-        cur, found = None, 0
-        for line in _build.ptxas_log(source).splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                k = re.search(pattern, m.group(1))
-                cur = None
-                if k:
-                    cur = {"instance": label(k), "spill_stores": 0, "spill_loads": 0}
-                    rows.append(cur)
-                    found += 1
-                continue
-            if cur is None:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m:
-                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                cur["registers"] = int(m.group(1))
+        found = ptxas_rows(_build.ptxas_log(source), pattern, label)
         if not found:
             raise AssertionError(f"ptxas reported no instance of {pattern} in {source}.cu")
+        rows += found
     for r in rows:
         log(f"  ptxas: {r['instance']}: {r.get('registers')} registers, {r['spill_stores']} "
             f"bytes spill stores, {r['spill_loads']} bytes spill loads")
@@ -1287,12 +1305,16 @@ def check_paged_attention(cfg, dev, flush, reps, positions=(37, 200, 333, 511), 
 
 
 def check_decode_attention(cfg, dev, flush, reps, cases=((384, 200), (2048, 2047))):
-    """The decode attention (B6) at one layer of the 7B model: bf16 q/k/v
-    rows over an int8 cache whose rows t < pos are live. The new row's codes
-    and scales must be bit-equal to the plain version's; the f32 output is
-    held within F32_TOL of max|plain|. The library yardstick is
-    F.scaled_dot_product_attention over the history already dequantized to
-    f32 (the new row included), as the paged flash decode's row has it."""
+    """The decode attention (B6) at one layer of `cfg`: bf16 q/k/v rows over
+    an int8 cache whose rows t < pos are live, at each (T, pos) of `cases`.
+    The new row's codes and scales must be bit-equal to the plain version's;
+    the f32 output is held within F32_TOL of max|plain|; a second launch over
+    a fresh copy of the cache must give the same bits (output and cache).
+    The library yardstick is F.scaled_dot_product_attention over the history
+    already dequantized to f32 (the new row included), as the paged flash
+    decode's row has it. Beside the kernel, `torch.sum` over a tensor of the
+    row's bytes after the same L2 flush: the floor of a plain read of those
+    bytes under this timing."""
     import torch
     import torch.nn.functional as F
 
@@ -1300,6 +1322,7 @@ def check_decode_attention(cfg, dev, flush, reps, cases=((384, 200), (2048, 2047
     from mi_optimize_tpu_torch.ops import decode_attention as da
 
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    heads = f"H={H}" if Hkv == H else f"H={H} Hkv={Hkv}"
     gen = torch.Generator(device=dev).manual_seed(12)
     rows = []
     for T, pos in cases:
@@ -1312,16 +1335,21 @@ def check_decode_attention(cfg, dev, flush, reps, cases=((384, 200), (2048, 2047
         kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=D, max_len=T)
         mine = [t.clone() for t in cache]
         plain_c = [t.clone() for t in cache]
+        again = [t.clone() for t in cache]
         run = lambda: da.fused_decode_attention(q, k, v, cos, sin, *mine, pos, **kw)[0]
         plain = lambda: da.fused_decode_attention_ref(q, k, v, cos, sin, *plain_c, pos, **kw)[0]
         got, ref = run(), plain()
         torch.cuda.synchronize()
-        what = f"decode_attention T={T} pos={pos}"
+        what = f"decode_attention {heads} T={T} pos={pos}"
         same = [bool(torch.equal(a, b)) for a, b in zip(mine, plain_c)]
         log(f"  {what}: new k/v codes and scales bit-equal: {same}")
         if not all(same):
             raise AssertionError(f"{what}: codes or scales differ from the plain version's")
         err = check_close(what, got, ref, F32_TOL)
+        got2 = da.fused_decode_attention(q, k, v, cos, sin, *again, pos, **kw)[0]
+        if not (torch.equal(got, got2) and all(torch.equal(a, b) for a, b in zip(mine, again))):
+            raise AssertionError(f"{what}: a second launch gave other bits")
+        log(f"  {what}: the same bits on a second launch")
         n = pos + 1
         kd = (mine[0][:n].float() * mine[2][:n, :, None]).transpose(0, 1)[None].contiguous()
         vd = (mine[1][:n].float() * mine[3][:n, :, None]).transpose(0, 1)[None].contiguous()
@@ -1331,18 +1359,23 @@ def check_decode_attention(cfg, dev, flush, reps, cases=((384, 200), (2048, 2047
         lib = lambda: F.scaled_dot_product_attention(qr, kd, vd)
         lib_err = check_close("  F.scaled_dot_product_attention (pre-dequantized, f32)",
                               lib().reshape(1, H * D), ref, F32_TOL)
+        nb = n * Hkv * D * 2 + n * Hkv * 4 * 2 + nbytes(q, k, v) + H * D * 4
+        flat = torch.zeros(-(-nb // 4), dtype=torch.float32, device=dev)
         ms = time_ms(run, reps, flush)
         plain_ms = time_ms(plain, max(2, reps // 10), flush)
         lib_ms = time_ms(lib, reps, flush)
-        nb = n * Hkv * D * 2 + n * Hkv * 4 * 2 + nbytes(q, k, v) + H * D * 4
+        sum_ms = time_ms(lambda: flat.sum(), reps, flush)
+        del kd, vd, flat
         fl = 4.0 * n * H * D
         b_ms, b_by = bound(nb, fl)
         log(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms "
-            f"(pre-dequantized SDPA)  bound {b_ms:.4f} ms ({b_by}), {nb / 1e6:.3f} MB")
-        rows.append(dict(name="decode_attention", shape=f"H={H} Hkv={Hkv} D={D} T={T} pos={pos} "
-                         "bf16 rows, int8 cache", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                         library_max_abs_err=lib_err, bytes=nb, flops=fl, codes="bit-equal"))
+            f"(pre-dequantized SDPA)  torch.sum over the same bytes {sum_ms:.4f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by}), {nb / 1e6:.3f} MB")
+        shape = f"H={H} Hkv={Hkv} D={D} T={T} pos={pos} bf16 rows, int8 cache"
+        rows.append(dict(name="decode_attention", shape=shape, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         library_max_abs_err=lib_err, sum_ms=sum_ms, bytes=nb, flops=fl,
+                         codes="bit-equal"))
     return rows
 
 
@@ -2736,8 +2769,13 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     report = {"gpu": smi, "device": torch.cuda.get_device_name(0)}
+    t_run, report["phase_at_s"] = time.perf_counter(), {}
 
-    log("phase 1: build")
+    def phase(name, what):  # a phase's header, with its start in seconds into the run
+        report["phase_at_s"][name] = time.perf_counter() - t_run
+        log(f"phase {name}: {what} (at {report['phase_at_s'][name]:.1f} s)")
+
+    phase("1", "build")
     t0 = time.perf_counter()
     _build.build_all()
     report["build_s"] = time.perf_counter() - t0
@@ -2793,7 +2831,7 @@ def main() -> int:
     log(f"  planted Llama-2-7B target and two 2-layer drafts built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("phase 2: kernels against their plain versions (bf16, Llama-2-7B shapes)")
+    phase("2", "kernels against their plain versions (bf16, Llama-2-7B shapes)")
     flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
     rows = check_dequant_matmul(model, cfg, dev, flush, reps=20)
     rows += check_block(model, cfg, dev, flush, reps=20)
@@ -2806,7 +2844,7 @@ def main() -> int:
     rows += check_mega_batch(model, sstack, smeta, cfg, dev, flush, 5, dense_positions)
     rows += check_mega_batch(model, sstack, smeta, cfg, dev, flush, 5, [0] * 8,
                              label="every slot at position 0, ")
-    log("phase 2b: the batched kernel's bf16 gate against three planted faults")
+    phase("2b", "the batched kernel's bf16 gate against three planted faults")
     report["planted_faults"] = planted_faults(model, sstack, smeta, cfg, dev, dense_positions)
     rows += check_mega_batch_paged(model, sstack, smeta, cfg, dev, flush, 5, dense_positions)
     rows += check_mega_batch_chunk(model, sstack, smeta, cfg, dev, flush, 5, [256], 8, True)
@@ -2831,14 +2869,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the unfused model's kernels: decode attention, fused MLP, W4A8 integer
     # product, on layer 0 of the unfused random-weight model (seed 0)
-    rows += check_decode_attention(cfg, dev, flush, reps=20)
+    rows += check_decode_attention(cfg, dev, flush, reps=20,
+                                   cases=((384, 200), (2048, 2047), (4096, 4095)))
+    rows += check_decode_attention(dataclasses.replace(cfg, num_kv_heads=cfg.num_heads // 4),
+                                   dev, flush, reps=20, cases=((2048, 2047),))
     ublk = unfused(dataclasses.replace(cfg, num_layers=1)).params["layers"][0]
     rows += check_mlp_fused(ublk, cfg, dev, flush, reps=5)
     rows += check_w4a8(ublk, cfg, dev, flush, reps=5)
     del ublk
     torch.cuda.empty_cache()
 
-    log("phase 3: serving at Llama-2-7B width and depth (int4 g128, bf16, int8 KV cache)")
+    phase("3", "serving at Llama-2-7B width and depth (int4 g128, bf16, int8 KV cache)")
     counts = {k: 0 for k in KERNELS}
 
     def tally(c):
@@ -2981,7 +3022,7 @@ def main() -> int:
     tally(c)
     log(f"  launches over the served paths: {counts}")
 
-    log("phase 4: small f32 model on the card vs the plain versions on the CPU")
+    phase("4", "small f32 model on the card vs the plain versions on the CPU")
     cs = counters()
     core, mcore = cs["dequant_matmul"], cs["mlp_fused_cuda_core"]
     setattr(core[0], core[1], 0)
@@ -3001,13 +3042,15 @@ def main() -> int:
     if not counts["dequant_matmul"]:
         raise AssertionError("the f32 paths launched no CUDA-core dequant_matmul kernel")
 
-    log("phase 5: where the time goes (torch.profiler, Llama-2-7B, T=512)")
+    phase("5", "where the time goes (torch.profiler, Llama-2-7B, T=512)")
     amodel, astack, ameta = asymmetric()
     report["profile"] = profile_windows(
         model, fstack, fmeta, cfg, dev,
         extra={"decode_loop_model_16": (model_loop_window(amodel, astack, ameta, cfg, dev), 16),
                "spec_round": (spec_round_window(target, draft, cfg, dev), 1),
                "generate_unfused_8": (unfused_decode_window(ptarget, cfg, dev), 8),
+               "generate_unfused_long_8": (unfused_decode_window(ptarget, cfg, dev, S=1920,
+                                                                 T=2048), 8),
                "ppl_2048": (ppl_window(rmodel, cfg, dev), 2048)})
     del amodel, astack, ameta
 
@@ -3024,6 +3067,8 @@ def main() -> int:
                               codes=r.get("codes"), cuda_core_ms=r.get("cuda_core_ms"),
                               baseline_name=r.get("baseline_name"))
                          for k, r in zip(kernels, rows)]
+    report["run_s"] = time.perf_counter() - t_run
+    log(f"run: {report['run_s']:.1f} s from the build's start")
     if args.baseline:
         report["baseline"] = compare_baseline(report, args.baseline)
     if args.report:

@@ -4,15 +4,16 @@ phase, on one NVIDIA GPU.
 
     python3 scripts/torch_flat_phases.py [--sass] [--seg KSEG]
 
-Copies mi_optimize_tpu_torch/csrc/ to build/flat_phases/, where thread 0 of
+Copies mi_optimize_tpu_torch/csrc/ to build/flat_phases/csrc/, where thread 0 of
 every block of model_flat_kernel<T, 4> (flat4_model in flat_model.cuh) stamps
 %globaltimer at each step of its phase loop: before and after the residual,
 after the GEMV, after priming the next GEMV, after the grid barrier, and in P1
-after attention and its barrier. It builds the copy with the package's nvcc
-flags, times the package's own build and the stamped copy with CUDA events at
-Llama-2-7B (random int4 g128 weights, bf16, T = 384, positions 200 and 0), and
-prints, over layers 1..L-1, the mean and the slowest block's microseconds of
-each segment (a barrier's is the wait of the blocks that reached it first).
+after attention and its barrier (scripts/torch_kernel_tools.py). It builds
+the copy with the package's nvcc flags, times the package's own build and
+the stamped copy with CUDA events at Llama-2-7B (random int4 g128 weights,
+bf16, T = 384, positions 200 and 0), and prints, over layers 1..L-1, the
+mean and the slowest block's microseconds of each segment (a barrier's is
+the wait of the blocks that reached it first).
 `--seg KSEG` also times the multi-token kernel (model_flat_seg_kernel<T, 4>,
 the same loop once a token) for KSEG tokens from position 200 and prints its
 last token's segments, which overwrite the earlier tokens' stamps.
@@ -27,22 +28,16 @@ import argparse
 import ctypes
 import os
 import re
-import shutil
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, "scripts"))
 
-STAMPS = """
-__device__ unsigned long long g_ft[136][8][272];
-__device__ __forceinline__ unsigned long long gtime() {
-  unsigned long long t; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); return t; }
-#define FT(l, k) if (threadIdx.x == 0) g_ft[l][k][blockIdx.x] = gtime();
-extern "C" int mi_flat_timers(void* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_ft, sizeof(g_ft));
-}
-"""
+# thread 0 of each block stamps step k of loop step l (136 steps at most, 272 blocks)
+STAMP_DIMS = (136, 8, 272)
+FT_MACRO = "#define FT(l, k) if (threadIdx.x == 0) g_pt[l][k][blockIdx.x] = gtime();"
 # (line of flat4_model, the same line with its stamp)
 STAMP_AT = [
     ("    const bool lm = st == 4 * L;\n", "    const bool lm = st == 4 * L;\n    FT(st, 0)\n"),
@@ -63,33 +58,16 @@ SEGMENTS = [(0, "P1", "residual", 0, 1), (0, "P1", "qkv GEMV", 1, 2), (0, "P1", 
             (3, "P5", "barrier", 3, 4)]
 
 
-def stamped_copy():
-    """A copy of csrc/ under build/flat_phases/ with the stamps in
-    flat_model.cuh (the loop that model_flat.cu's kernel runs). Returns the
-    copy's model_flat.cu."""
-    from mi_optimize_tpu_torch.ops import _build
-
-    dst = os.path.join(HERE, "build", "flat_phases")
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(_build.CSRC, dst)
-    p = os.path.join(dst, "flat_model.cuh")
-    inc = '#include "flat_gemv.cuh"\n'
-    s = open(p).read().replace(inc, inc + STAMPS)
-    for old, new in STAMP_AT:
-        if s.count(old) != 1:
-            raise SystemExit(f"flat_model.cuh changed: no single line {old.strip()!r} to stamp")
-        s = s.replace(old, new)
-    open(p, "w").write(s)
-    return os.path.join(dst, "model_flat.cu")
-
-
 def ptxas_line(log):
     """Registers and spills of model_flat_kernel<bf16, 4> from an nvcc log."""
-    for line in log.splitlines():
-        if "Compiling entry" in line and "model_flat_kernelI13__nv_bfloat16Li4E" in line:
-            info = log.split(line, 1)[1].splitlines()[1:3]
-            return "; ".join(x.split(":", 1)[-1].strip() for x in info)
-    raise SystemExit("ptxas reported no model_flat_kernel<bf16, 4>")
+    import chip_smoke
+
+    rows = chip_smoke.ptxas_rows(log, r"model_flat_kernelI13__nv_bfloat16Li4E", lambda m: "")
+    if not rows:
+        raise SystemExit("ptxas reported no model_flat_kernel<bf16, 4>")
+    r = rows[0]
+    return (f"{r['stack']} bytes stack frame, {r['spill_stores']} bytes spill stores, "
+            f"{r['spill_loads']} bytes spill loads; {r.get('registers')} registers")
 
 
 def sass_counts(lib, cuobjdump, kernel="model_flat_kernel"):
@@ -123,6 +101,7 @@ def main() -> int:
         print("torch_flat_phases: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    import torch_kernel_tools as tk
     from mi_optimize_tpu_torch.models import llama
     from mi_optimize_tpu_torch.models.llama import LlamaConfig
     from mi_optimize_tpu_torch.models.model import Model
@@ -133,15 +112,13 @@ def main() -> int:
     from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
 
     print(f"gpu: {cs.nvidia_smi_line()}")
-    src = stamped_copy()
-    out = src[:-len(".cu")] + ".so"
-    proc = subprocess.Popen([_build.nvcc_path(), *_build.FLAGS, "-o", out, src],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # the stamps in flat_model.cuh (the loop that model_flat.cu's kernel runs)
+    src = tk.stamped_copy("flat_phases", "flat_model.cuh", '#include "flat_gemv.cuh"\n',
+                          tk.stamp_prelude(STAMP_DIMS, FT_MACRO), STAMP_AT)
+    out = os.path.join(src, "model_flat.so")
+    proc = tk.start_build(src, "model_flat.cu", out)
     plain = _build.load("model_flat")  # the package's build, meanwhile
-    log, _ = proc.communicate()
-    if proc.returncode:
-        print(log[-4000:])
-        return 1
+    log = tk.finish_build(proc, "the stamped copy")
     print(f"ptxas (package): {ptxas_line(_build.ptxas_log('model_flat'))}")
     print(f"ptxas (stamped): {ptxas_line(log)}")
     stamped = ctypes.CDLL(out)
@@ -162,9 +139,7 @@ def main() -> int:
     def report(what, run):
         ms = {lib: cs.time_ms(lambda: run(lib), 10, flush)
               for lib in (plain, stamped)}  # the stamps are the last timed launch's
-        buf = np.zeros((136, 8, 272), np.uint64)
-        if stamped.mi_flat_timers(buf.ctypes.data_as(ctypes.c_void_p)) != 0:
-            raise RuntimeError("reading the stamps failed")
+        buf = tk.read_stamps(stamped, STAMP_DIMS)
         t = buf[:, :, :264].astype(np.float64) / 1e3
         layer = np.mean([t[4 * (l + 1), 0, 0] - t[4 * l, 0, 0] for l in range(1, L - 1)])
         lm = t[4 * L, 2] - t[4 * L, 1]

@@ -9,52 +9,35 @@ at Llama-2-7B width.
 Each DIR holds a copy of mi_optimize_tpu_torch/csrc (model_flat.cu and the
 headers it includes), edited; the package's own csrc may be one of them.
 Each is built with the package's nvcc flags (one nvcc each, all started
-together) into build/flat_variants/<i>.so. On chip_smoke.py's random-weight
-Llama-2-7B (int4 g128, bf16, seed 0) and its planted 2-layer draft, from
-position 200 of a random int8 history (chip_smoke.random_int8_cache), it
-checks that each build's segment gives the package build's bits, then times
-with CUDA events (chip_smoke.time_ms: L2 flushed before each call): kseg
-launches of the package build's flat kernel, one after the other (as
-chip_smoke.check_flat_seg times them), then in turn over the builds and
-again in reverse order the segment of kseg tokens and one flat launch.
+together) into build/flat_variants/<i>.so (scripts/torch_kernel_tools.py),
+and ptxas's rows of its 4-bit instances are printed. On chip_smoke.py's
+random-weight Llama-2-7B (int4 g128, bf16, seed 0) and its planted 2-layer
+draft, from position 200 of a random int8 history
+(chip_smoke.random_int8_cache), it checks that each build's segment gives
+the package build's bits, then times with CUDA events (chip_smoke.time_ms:
+L2 flushed before each call): kseg launches of the package build's flat
+kernel, one after the other (as chip_smoke.check_flat_seg times them), then
+in turn over the builds and again in reverse order the segment of kseg
+tokens and one flat launch.
 Prints one JSON list, a row a (build, model).
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import re
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, "scripts"))
+
+# the 4-bit flat instances whose ptxas rows are printed
+PTXAS_PATTERN = r"(model_flat(?:_seg)?_kernel)I(f|13__nv_bfloat16)Li4E"
 
 
-def ptxas_rows(log: str) -> dict:
-    """{kernel label: [registers, spill stores, spill loads, stack frame
-    bytes]} of the 4-bit flat instances in ptxas's report."""
-    rows, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            k = re.search(r"(model_flat(?:_seg)?_kernel)I(f|13__nv_bfloat16)Li4E", m.group(1))
-            cur = f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, 4>" if k else None
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            rows[cur] = [None, int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur in rows:
-            rows[cur][0] = int(m.group(1))
-        m = re.search(r"(\d+) bytes stack frame", line)
-        if m and cur in rows:
-            rows[cur].append(int(m.group(1)))
-    return rows
+def ptxas_label(m):
+    return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, 4>"
 
 
 def main() -> int:
@@ -70,36 +53,19 @@ def main() -> int:
         print("torch_flat_variants: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
+    import torch_kernel_tools as tk
     from mi_optimize_tpu_torch.models import llama
     from mi_optimize_tpu_torch.models.llama import LlamaConfig
     from mi_optimize_tpu_torch.models.model import Model
     from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
-    from mi_optimize_tpu_torch.ops import _build
     from mi_optimize_tpu_torch.ops import model_flat as mf
     from mi_optimize_tpu_torch.serving.flatdecode import stack_cache_flat, stack_flat
     from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
     from mi_optimize_tpu_torch.utils.planted import planted_pair
 
     chip_smoke.log(f"gpu: {chip_smoke.nvidia_smi_line()}")
-    out = os.path.join(HERE, "build", "flat_variants")
-    os.makedirs(out, exist_ok=True)
-    jobs = []
-    for i, d in enumerate(args.dirs):
-        so = os.path.join(out, f"{i}.so")
-        cmd = [_build.nvcc_path(), *_build.FLAGS, "-o", so, os.path.join(d, "model_flat.cu")]
-        jobs.append((d, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT, text=True)))
-    libs = []
-    for d, so, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            print(f"nvcc failed for {d}:\n{log}")
-            return 1
-        rows = ptxas_rows(log)
-        chip_smoke.log(f"  {d}: " + "; ".join(f"{k} {v[0]} registers, {v[1]}/{v[2]} bytes "
-                                              f"spilled, {v[3:]} bytes stack"
-                                              for k, v in sorted(rows.items())))
-        libs.append((d, ctypes.CDLL(so), rows))
+    libs = [(d, lib, rows) for d, (lib, rows) in zip(args.dirs, tk.build_copies(
+        args.dirs, "model_flat.cu", "flat_variants", PTXAS_PATTERN, ptxas_label))]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, T, pos0, kseg = "cuda", 384, 200, args.kseg

@@ -4,7 +4,7 @@ time, block by block, on one NVIDIA GPU.
 
     python3 scripts/torch_paged_phases.py [--rows 8,8b,8c] [--reps N]
 
-Copies mi_optimize_tpu_torch/csrc/ to build/paged_phases/, where thread 0 of
+Copies mi_optimize_tpu_torch/csrc/ to build/paged_phases/csrc/, where thread 0 of
 every block of paged_split_kernel stamps %globaltimer and its SM: at entry,
 once its first slab has landed, after its slab loop, after its arrival (the
 last item only) and after its merge. It builds the copy with the package's
@@ -28,35 +28,16 @@ import ctypes
 import dataclasses
 import json
 import os
-import shutil
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, "scripts"))
 
-MAXB = 8192
-STAMPS = f"""
-__device__ unsigned long long g_pt[6][{MAXB}];
-__device__ __forceinline__ unsigned long long gtime() {{
-  unsigned long long t; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); return t; }}
-__device__ __forceinline__ unsigned smid() {{
-  unsigned s; asm volatile("mov.u32 %0, %%smid;" : "=r"(s)); return s; }}
-#define PT_(k) if (threadIdx.x == 0) g_pt[k][blockIdx.x + gridDim.x * (blockIdx.y + \\
-    gridDim.y * blockIdx.z)] = gtime();
-extern "C" int mi_paged_timers(void* out) {{
-  return (int)cudaMemcpyFromSymbol(out, g_pt, sizeof(g_pt));
-}}
-extern "C" int mi_paged_timers_clear() {{
-  static unsigned long long zero[6][{MAXB}];
-  return (int)cudaMemcpyToSymbol(g_pt, zero, sizeof(g_pt));
-}}
-"""
 # (a line of paged_split_kernel, the same line with its stamp); stamp 5 is the SM
 STAMP_AT = [
     ("  const int c = blockIdx.x, b = blockIdx.z;\n",
-     "  PT_(0)\n  if (threadIdx.x == 0) g_pt[5][blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y "
-     "* blockIdx.z)] = smid() + 1;\n  const int c = blockIdx.x, b = blockIdx.z;\n"),
+     "  PT_(0)\n  PT_SM(5)\n  const int c = blockIdx.x, b = blockIdx.z;\n"),
     ("    fetch(u + RING - 1);        // into the stage slab u - 1 left\n",
      "    fetch(u + RING - 1);        // into the stage slab u - 1 left\n    if (u == 0) PT_(1)\n"),
     ("  cp_async_wait<0>();\n", "  cp_async_wait<0>();\n  PT_(2)\n"),
@@ -64,31 +45,6 @@ STAMP_AT = [
     ("    out[(bh0 + h) * D + tid] = from_f<TQ>(A / L);\n  }\n}\n",
      "    out[(bh0 + h) * D + tid] = from_f<TQ>(A / L);\n  }\n  PT_(4)\n}\n"),
 ]
-
-
-def stamped_build(build_dir):
-    """The stamped copy of paged_attention.cu built into build_dir; the
-    path of its library."""
-    from mi_optimize_tpu_torch.ops import _build
-
-    src = os.path.join(build_dir, "csrc")
-    shutil.rmtree(src, ignore_errors=True)
-    shutil.copytree(_build.CSRC, src)
-    path = os.path.join(src, "paged_attention.cu")
-    text = open(path).read()
-    head, body = text.split("namespace {\n", 1)
-    for old, new in STAMP_AT:
-        if body.count(old) != 1:
-            raise RuntimeError(f"stamp anchor not found once: {old!r}")
-        body = body.replace(old, new)
-    with open(path, "w") as f:
-        f.write(head + STAMPS + "namespace {\n" + body)
-    lib = os.path.join(build_dir, "libpaged_stamped.so")
-    cmd = [_build.nvcc_path(), *_build.FLAGS, "-o", lib, path]
-    out = subprocess.run(cmd, capture_output=True, text=True)
-    if out.returncode:
-        raise RuntimeError(out.stdout + out.stderr)
-    return lib
 
 
 def row_inputs(cfg, positions, P=16, pps=32, dev="cuda"):
@@ -144,14 +100,17 @@ def main() -> int:
         print("torch_paged_phases: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
+    import torch_kernel_tools as tk
     from mi_optimize_tpu_torch.models.llama import LlamaConfig
     from mi_optimize_tpu_torch.ops import _build
     from mi_optimize_tpu_torch.ops import paged_attention as pa
 
     chip_smoke.log(f"gpu: {chip_smoke.nvidia_smi_line()}")
-    build_dir = os.path.join(HERE, "build", "paged_phases")
-    os.makedirs(build_dir, exist_ok=True)
-    stamped = ctypes.CDLL(stamped_build(build_dir))
+    src = tk.stamped_copy("paged_phases", "paged_attention.cu", '#include "decode_common.cuh"\n',
+                          tk.stamp_prelude((6, tk.MAXB)), STAMP_AT)
+    lib = os.path.join(os.path.dirname(src), "libpaged_stamped.so")
+    tk.finish_build(tk.start_build(src, "paged_attention.cu", lib), "the stamped copy")
+    stamped = ctypes.CDLL(lib)
     own = _build.load("paged_attention")
     cfg = LlamaConfig.llama2_7b()
     rows = {"8": (cfg, (37, 200, 333, 511)), "8b": (cfg, (511,)),
@@ -169,11 +128,10 @@ def main() -> int:
         # the same after a flush that reads (L2 left clean, not dirty), and a
         # library read of the row's live k/v bytes (torch.sum) after each
         res["read_flushed_ms"] = read_flushed_ms(run, args.reps, flush)
-        kv = torch.empty(sum(p + 1 for p in positions) * c.num_kv_heads * c.head_dim * 2,
-                         device="cuda")
-        res["sum_of_live_bytes_ms"] = chip_smoke.time_ms(lambda: kv.sum(), args.reps, flush)
-        res["sum_of_live_bytes_read_flushed_ms"] = read_flushed_ms(lambda: kv.sum(), args.reps,
-                                                                   flush)
+        kv_bytes = sum(p + 1 for p in positions) * c.num_kv_heads * c.head_dim * 2 * 4
+        res["sum_of_live_bytes_ms"] = tk.sum_ms(kv_bytes, args.reps, flush)
+        res["sum_of_live_bytes_read_flushed_ms"] = tk.sum_ms(kv_bytes, args.reps, flush,
+                                                             read_flushed_ms)
         run()
         torch.cuda.synchronize()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -194,16 +152,14 @@ def main() -> int:
         _build._libs["paged_attention"] = stamped
         try:
             want = run()
-            stamped.mi_paged_timers_clear()
+            tk.clear_stamps(stamped)
             flush.zero_()
             torch.cuda._sleep(chip_smoke.SPIN_CYCLES)
             got = run()
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError("the stamped copy gave other bits")
-            t = np.zeros((6, MAXB), np.uint64)
-            if stamped.mi_paged_timers(t.ctypes.data_as(ctypes.c_void_p)):
-                raise RuntimeError("reading the stamps failed")
+            t = tk.read_stamps(stamped, (6, tk.MAXB))
         finally:
             _build._libs["paged_attention"] = own
         live = t[5] > 0

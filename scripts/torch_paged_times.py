@@ -18,7 +18,8 @@ row a (row, chunk): ms, bound ms, library ms. `--batcher N` instead times N
 chip_smoke.py (int4 g128, bf16, seed 0; pages of 16, an f32 pool; prompts of
 16-200 tokens from seed 11, as chip_smoke's `paged_batcher_step_4` window),
 five times: the wall of each run (host clock, ending in a synchronize) and,
-from torch.profiler over a sixth run, the device time by kernel. `--tree`
+from torch.profiler over a sixth run, the device time by kernel
+(scripts/torch_kernel_tools.py). `--tree`
 runs the package and chip_smoke.py of another checkout (a parent commit
 unpacked with `git archive`), so that both kernels are timed on the same
 card in one call.
@@ -39,8 +40,6 @@ ROWS = {"8": dict(), "8b": dict(positions=(511,)), "8c": dict(gqa=4)}
 def batcher_window(steps):
     """Walls and device time of `steps` PagedBatcher steps (see the module
     docstring)."""
-    import time
-
     import numpy as np
     import torch
 
@@ -50,6 +49,7 @@ def batcher_window(steps):
     from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
     from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
     from mi_optimize_tpu_torch.serving.paged import PagedBatcher
+    from torch_kernel_tools import device_window
 
     cfg = LlamaConfig.llama2_7b()
     model = fuse_for_serving(Model(config=cfg, params=build_quantized_llama(
@@ -58,23 +58,7 @@ def batcher_window(steps):
     rng = np.random.default_rng(11)
     for n in rng.integers(16, 201, 4):
         b.add_request(rng.integers(0, cfg.vocab_size, (int(n),)), max_new_tokens=7 * steps + 8)
-    run = lambda: [b.step() for _ in range(steps)]
-    run()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    walls, by_name = device_window(lambda: [b.step() for _ in range(steps)])
     if any(r is None for r in b.slot_req):
         raise AssertionError("a slot freed during the window")
     res = dict(steps=steps, walls_ms=walls, device_ms=sum(by_name.values()),
@@ -96,6 +80,7 @@ def main() -> int:
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
     import torch
 
     if not torch.cuda.is_available():

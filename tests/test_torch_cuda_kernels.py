@@ -16,7 +16,9 @@ also at the narrowest widths its plan takes; the same bits on a second
 launch, and with 4-bit words those of kseg one-token flat launches; its
 plan refused as the flat kernel's is), and the speculative paths and
 batchers against the CPU; the decode attention (codes and scales bitwise
-against its plain version), the fused MLP (M from 1 to 130, int2/4/8,
+against its plain version; split over the live rows: chunk boundaries,
+T = 4096 at its last row, GQA groups of 4 and 12, NaN in the rows past the
+position, the same bits on a second launch), the fused MLP (M from 1 to 130, int2/4/8,
 per-group and per-channel, the same bits on every run), the W4A8 integer
 product (bitwise), the unfused path (generate, compute_ppl, int4 and W4A8)
 against the CPU, and the W4A8 activation and KV quantizers and
@@ -1259,10 +1261,20 @@ def test_spec_batchers_random_weights_match_the_cpu(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,Hkv,D,T,pos", [
     (32, 32, 128, 384, 200), (32, 32, 128, 2048, 2047), (4, 2, 128, 64, 0), (4, 2, 64, 96, 63),
-    (8, 2, 32, 40, 17), (4, 4, 16, 24, 23), (2, 1, 256, 50, 9)])
+    (8, 2, 32, 40, 17), (4, 4, 16, 24, 23), (2, 1, 256, 50, 9),
+    # on and next to the split's chunk boundaries (chunks of 32 rows up to 16
+    # chunks, 64 from position 512: decode_attention.split_plan)
+    (32, 32, 128, 384, 63), (32, 32, 128, 384, 64), (32, 32, 128, 384, 65),
+    (32, 32, 128, 384, 127), (32, 32, 128, 384, 128), (8, 2, 256, 300, 192),
+    (32, 32, 128, 1024, 511), (32, 32, 128, 1024, 512),
+    # Llama-2-7B's full context; Mistral-7B's groups of 4; a group of 12 in two items
+    (32, 32, 128, 4096, 4095), (32, 8, 128, 2048, 2047), (32, 8, 128, 384, 200),
+    (12, 1, 128, 200, 130), (4, 4, 20, 72, 70)])
 def test_decode_attention(dev, dtype, H, Hkv, D, T, pos):
     """The new row's codes and scales bit-equal to the plain version's, the
-    history untouched, the output to RTOL."""
+    history untouched, the output to RTOL; then, over a fresh copy of the
+    cache with NaN in the scales of every row t > pos (rows the split must
+    never read), a second launch gives the same bits."""
     g = torch.Generator().manual_seed(T + pos + D)
     q = torch.randn(1, H * D, generator=g).to(dtype).to(dev)
     k = (2 * torch.randn(1, Hkv * D, generator=g)).to(dtype).to(dev)
@@ -1275,14 +1287,21 @@ def test_decode_attention(dev, dtype, H, Hkv, D, T, pos):
     fields = ("k", "v", "k_scale", "v_scale")
     mine = [cache[f][0].clone() for f in fields]
     plain = [cache[f][0].clone() for f in fields]
+    again = [cache[f][0].clone() for f in fields]
+    for t in again[2:]:
+        t[pos + 1:] = float("nan")
     before = decode_attention.launches
     out = decode_attention.fused_decode_attention(q, k, v, cos, sin, *mine, pos, **kw)[0]
     ref = decode_attention.fused_decode_attention_ref(q, k, v, cos, sin, *plain, pos, **kw)[0]
+    out2 = decode_attention.fused_decode_attention(q, k, v, cos, sin, *again, pos, **kw)[0]
     torch.cuda.synchronize()
-    assert decode_attention.launches == before + 1 and out.dtype == torch.float32
+    assert decode_attention.launches == before + 2 and out.dtype == torch.float32
     for a, b in zip(mine, plain):
         assert torch.equal(a, b)
     _close(out, ref)
+    assert torch.equal(out2, out)
+    for a, b in zip(again, mine):
+        assert torch.equal(a[:pos + 1], b[:pos + 1])
 
 
 def _mlp_lins(dev, bits, groupsize, down_qtype, K=256, inter=512, seed=0):
