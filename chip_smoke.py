@@ -56,6 +56,14 @@ Phases:
      kernels' gate (`hold_rows` in bf16 and f32 over the first 2 layers at
      full width; at full depth layer 0's rows, the scales and, in f32, the
      slots at positions >= 64);
+     then the calibration rows (quant/, plain torch): one Llama-2-7B layer of
+     bf16 fp weights from seed 0, Hessians from 16 x 512 tokens of the
+     wikitext fixture; GPTQ int4 g128 affine with act-order on q_proj and
+     down_proj on the card and on the CPU from the same H (`gptq_7b`: at
+     least 99% of the codes equal, each row's first difference one code,
+     scales within 1e-3 up to it; the card call again with TF32 allowed
+     around it: the same codes), and RTN on the same weights (`rtn_7b`:
+     words, scales and zeros bit-equal);
   2b. the bf16 gate against three faults planted in the batched kernel's
      outputs (another slot's history, a row from position p - 1, a scale
      from amax / 128): it must reject each;
@@ -102,6 +110,21 @@ Phases:
         the phase, restored after): `generate` on the planted target (the
         integer product at the prefill), and `compute_ppl` on the
         random-weight model against the fake-quant route, within 1e-2;
+     n. `quantize` an fp Llama-2-7B (bf16, seed 0, CALIB_LAYERS layers at
+        full width) by GPTQ int4 g128 affine, act-order off, calibrated on
+        32 x 512 wikitext tokens through `get_calibrate_loader`; its
+        perplexity by `Benchmark.eval_ppl` (2 x 2048 wikitext test tokens,
+        the fused route within 1e-2 of dequantize-then-matmul: dequant
+        matmul, fused MLP); `fuse_for_serving` and 128 tokens of
+        `decode_loop_model` (the whole-model kernel's bias-table route);
+        RTN on the same fp model; on layer 0's and the last layer's
+        calibration inputs GPTQ's output error at most RTN's on each of the
+        seven linears;
+     o. the north-star config (act-order on) on the first 2 layers of that
+        fp model, served unfused: `generate` (dequant matmul through each
+        linear's permutation, decode attention; no fused-model decode
+        kernel and no fused MLP may launch) and `compute_ppl` (routes within
+        1e-2);
      every kernel must have launched on its path, no path may launch the
      CUDA-core dequant_matmul kernels (every served linear is bf16 int4),
      and every planted path's tokens must equal the planted chain exactly;
@@ -113,6 +136,10 @@ Phases:
      an unfused model's generate and compute_ppl, int4 and W4A8) agree
      with the plain versions run on the CPU; these f32 paths are where the
      CUDA-core dequant_matmul kernels run, and their launches are counted;
+     and a small f32 model quantized on the card and on the CPU: RTN's words
+     equal, GPTQ (act-order) within `hold_codes` of the CPU's GPTQ from the
+     card's own Hessians and its perplexity within 1e-3 (the CPU's own
+     calibration is reported);
   5. where the time goes: torch.profiler device time by kernel and the
      device busy share over a prefill, flat decode, per-layer decode, 16
      tokens of decode_loop_model on the asymmetric grid, 8 batcher steps
@@ -120,7 +147,9 @@ Phases:
      with 4 active slots (the paged flash decode), one
      k=4 speculative round on the planted 7B pair, 8 decode steps of the
      unfused planted model (after a 128-token prompt, T=512, and after a
-     1920-token prompt, T=2048) and one 2048-token perplexity batch.
+     1920-token prompt, T=2048), one 2048-token perplexity batch and
+     GPTQ on the seven linears of one 7B layer (`gptq_layer_7b`, one run,
+     the profiler's raw events summed).
 
 Earlier lines report each phase; the line before the last is a JSON object
 with every kernel's launches, error, time, plain time, library time (torch's
@@ -2099,8 +2128,566 @@ def serve_model_loop(model, stack, meta, cfg, dev, S=128, n=128):
 
 
 # ---------------------------------------------------------------------------
+# calibration: quantize (GPTQ, RTN) an fp Llama-2-7B made on the card
+# ---------------------------------------------------------------------------
+
+# path n's calibration set, as QuantConfig.from_dict's calibrate_config; the
+# datasets layer loads it from data/wikitext (the train split falls back to
+# validation)
+CALIB = {"name": "wikitext2", "split": "train", "nsamples": 32, "seqlen": 512}
+CALIB_LAYERS = 8            # path n's depth: at 32 layers the phase took over 150 s (PERF.md §6)
+GPTQ_AFFINE = {"algo": "gptq", "wbit": "int4", "w_qtype": "per_group", "w_groupsize": 128,
+               "w_qscheme": "affine", "blocksize": 128, "percdamp": 0.01}
+RTN_AFFINE = {"algo": "rtn", "wbit": "int4", "w_qtype": "per_group", "w_groupsize": 128,
+              "w_has_zero": True}
+LINEAR_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+LEAD = {"q_proj": "q_proj", "k_proj": "q_proj", "v_proj": "q_proj", "o_proj": "o_proj",
+        "gate_proj": "gate_proj", "up_proj": "gate_proj", "down_proj": "down_proj"}
+CODE_SHARE = 0.99           # GPTQ card vs CPU: codes equal; each row's first difference one
+CODE_SCALE_RTOL = 1e-3      # ... and scales within this up to each row's first differing code
+# the card's Hessians against the CPU's from the same inputs, relative in the
+# Frobenius norm: bf16 forwards (a 7B layer) differ in an element's last bit,
+# 2^-8 of it; f32 forwards in about 1e-7
+HESS_BF16_RTOL = 1e-3
+HESS_F32_RTOL = 1e-5
+
+
+def fp_llama(cfg, dev):
+    """The fp Llama made on the card from seed 0 in bf16 (llama.init_params)."""
+    import torch
+
+    from mi_optimize_tpu_torch.models.llama import init_params
+    from mi_optimize_tpu_torch.models.model import Model
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return Model(config=cfg, params=init_params(cfg, gen, dtype=torch.bfloat16, device=dev))
+
+
+def fp_block_pass(params, cfg, batches, dev):
+    """For each block in turn, (layer, block, inputs): the inputs are the
+    embedding of each calibration batch, then the fp blocks' outputs (what
+    calibration feeds a block with block_sequential off)."""
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+
+    S = batches[0].shape[-1]
+    cos, sin = llama.rope_tables(cfg, torch.arange(S, device=dev))
+    mask = llama.causal_mask(S, dev)
+    xs = [params["embed"][torch.as_tensor(b, device=dev)] for b in batches]
+    for i, blk in enumerate(params["layers"]):
+        yield i, blk, xs, (cos, sin, mask)
+        if i + 1 < len(params["layers"]):
+            with torch.no_grad():
+                xs = [llama.block_apply(blk, x, cos, sin, mask, cfg, fused=False)[0] for x in xs]
+
+
+def block_captures(blk, xs, rope, cfg):
+    """Each batch's captured inputs of the fp block's linears."""
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+
+    for x in xs:
+        with torch.no_grad():
+            yield llama.block_apply(blk, x, *rope, cfg, capture=True, fused=False)[2]
+
+
+def layer_hessians(blk, xs, rope, cfg):
+    """H = (2/n)·ΣX^TX of each group's input, by the port's reducers."""
+    from mi_optimize_tpu_torch.quant.base import finalize_hessian, init_stats, update_stats_device
+
+    leads = sorted(set(LEAD.values()))
+    stats = {n: init_stats(("xtx",), blk[n].in_features, xs[0].device) for n in leads}
+    for caps in block_captures(blk, xs, rope, cfg):
+        for n in leads:
+            stats[n] = update_stats_device(("xtx",), stats[n], caps[n])
+    return {n: finalize_hessian(s) for n, s in stats.items()}
+
+
+def fro_rel(got, want):
+    """‖got − want‖_F / ‖want‖_F, in float64."""
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def gptq_grid(Q, s, z, perm, g=128):
+    """The integer grid of GPTQ's fake-quantized Q [out, in] in its group
+    (act-order) column order."""
+    import torch
+
+    Qp = Q if perm is None else Q[:, perm]
+    out_f = Qp.shape[0]
+    return torch.round(Qp.reshape(out_f, -1, g) / s[:, :, None] + z[:, :, None]).reshape(out_f, -1)
+
+
+def hold_codes(what, got, want, s_got=None, s_want=None, g=128):
+    """GPTQ's rule between two runs: at least CODE_SHARE of the codes equal;
+    in each row, every code before its first difference equal, that first
+    difference one code (a rounding tie that the two runs' last bits put on
+    either side: GPTQ's error feedback carries it into the row's later
+    columns and groups, by more than one code at times), and the scales
+    within CODE_SCALE_RTOL up to it. Returns (share, largest difference,
+    scale rel)."""
+    import torch
+
+    diff = (got.double() - want.double()).abs()
+    share, worst = float((diff == 0).double().mean()), float(diff.max())
+    # each row's first difference (argmax finds the first nonzero entry)
+    first = float(diff.gather(1, torch.argmax((diff != 0).to(torch.int8), dim=1)[:, None]).max())
+    srel = 0.0
+    if s_got is not None:
+        same = (diff == 0).reshape(diff.shape[0], -1, g).all(-1).cumprod(-1).bool()
+        if bool(same.any()):
+            srel = float(((s_got - s_want).abs() / s_want)[same].max())
+    rows = float((diff != 0).any(1).double().mean())
+    ok = share >= CODE_SHARE and first <= 1 and srel <= CODE_SCALE_RTOL
+    log(f"  {what}: {share:.6f} of codes equal (rule >= {CODE_SHARE}); {rows:.4%} of rows "
+        f"differ, each first by {first:.0f} (<= 1), then by up to {worst:.0f}; scales "
+        f"{srel:.2e} relative up to each row's first difference (<= {CODE_SCALE_RTOL}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: GPTQ's codes on the card disagree with the CPU's")
+    return share, worst, srel
+
+
+def timed_s(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_calibration_7b(cfg, dev):
+    """Rows gptq_7b and rtn_7b: one Llama-2-7B layer at full width (bf16 fp
+    weights from seed 0 on the card), Hessians from 16 x 512 tokens of the
+    wikitext fixture (ByteTokenizer), held against the CPU's Hessians from
+    the same inputs (the layer's forwards and reductions on the CPU in bf16)
+    within HESS_BF16_RTOL. GPTQ int4 g128 affine with act-order on q_proj
+    and down_proj on the card and on the CPU from the same H (copied over),
+    held by `hold_codes`; the card call again with TF32 allowed around
+    it (restored after): the same codes; RTN int4 g128 affine on the same
+    weights: words, scales and zeros bit-equal card vs CPU. Returns (rows,
+    the layer and its Hessians for phase 5)."""
+    import torch
+
+    from mi_optimize_tpu_torch.datasets.calibration import get_wikitext2
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.quant.config import QuantConfig
+    from mi_optimize_tpu_torch.quant.gptq import gptq_quantize_matrix
+    from mi_optimize_tpu_torch.quant.rtn import RTNAlgo
+
+    c1 = dataclasses.replace(cfg, num_layers=1)
+    fp = fp_llama(c1, dev)
+    batches = get_wikitext2(ByteTokenizer(), split="train", nsamples=16, seqlen=512, seed=0)
+    _, blk, xs, rope = next(fp_block_pass(fp.params, c1, batches, dev))
+    H, h_s = timed_s(lambda: layer_hessians(blk, xs, rope, c1))
+    t0 = time.perf_counter()
+    H_cpu = layer_hessians(_to(blk, "cpu"), [x.cpu() for x in xs], _to(list(rope), "cpu"), c1)
+    hc_s = time.perf_counter() - t0
+    hess = {n: fro_rel(H[n].cpu(), H_cpu[n]) for n in H}
+    ok = max(hess.values()) <= HESS_BF16_RTOL
+    log(f"  Hessians of layer 0's four groups from 16 x 512 tokens: card {h_s:.2f} s, CPU "
+        f"{hc_s:.2f} s; card vs CPU relative (Frobenius) " +
+        ", ".join(f"{n} {r:.2e}" for n, r in hess.items()) +
+        f" (<= {HESS_BF16_RTOL}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("gptq_7b: the card's Hessians disagree with the CPU's")
+    del xs, H_cpu
+    kw = dict(bits=4, groupsize=128, actorder=True, symmetric=False, percdamp=0.01)
+    rtn = RTNAlgo(QuantConfig(**RTN_AFFINE))
+    rows = []
+    for name in ("q_proj", "down_proj"):
+        W, h = blk[name].weight, H[LEAD[name]]
+        shape = f"{name} {W.shape[1]}->{W.shape[0]}"
+        (Qg, sg, zg, pg), card_s = timed_s(lambda: gptq_quantize_matrix(W, h, **kw))
+        t0 = time.perf_counter()
+        Qc, sc, zc, pc = gptq_quantize_matrix(W.cpu(), h.cpu(), **kw)
+        cpu_s = time.perf_counter() - t0
+        if not torch.equal(pg.cpu(), pc):
+            raise AssertionError(f"gptq_7b {shape}: the act-order permutation differs")
+        got = gptq_grid(Qg, sg, zg, pg).cpu()
+        share, worst, srel = hold_codes(f"gptq_7b {shape}, card vs CPU", got,
+                                        gptq_grid(Qc, sc, zc, pc), sg.cpu(), sc)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            (Qt, st, zt, pt), tf32_s = timed_s(lambda: gptq_quantize_matrix(W, h, **kw))
+            kept = torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        same_tf32 = torch.equal(gptq_grid(Qt, st, zt, pt).cpu(), got) and torch.equal(st, sg)
+        log(f"  gptq_7b {shape}: card {card_s:.3f} s ({tf32_s:.3f} s with TF32 allowed around "
+            f"it: {'the same codes and scales' if same_tf32 else 'DIFFERENT codes'}), CPU "
+            f"{cpu_s:.3f} s")
+        if not same_tf32 or not kept:
+            raise AssertionError(f"gptq_7b {shape}: TF32 moved GPTQ's codes or was not restored")
+        rows.append(dict(name="gptq_7b", shape=shape, card_s=card_s, cpu_s=cpu_s,
+                         card_tf32_s=tf32_s, codes_equal=share, max_code_diff=worst,
+                         scale_rel=srel, hessian_rel=hess[LEAD[name]],
+                         hessian_card_s=h_s, hessian_cpu_s=hc_s))
+        del Qg, Qc, Qt
+        lin = blk[name]
+        qg, rcard_s = timed_s(lambda: rtn.quantize_linear(lin, {}))
+        t0 = time.perf_counter()
+        qc = rtn.quantize_linear(_to(lin, "cpu"), {})
+        rcpu_s = time.perf_counter() - t0
+        same = all(torch.equal(getattr(qg, f).cpu(), getattr(qc, f))
+                   for f in ("packed", "w_scale", "w_zero"))
+        log(f"  rtn_7b {shape}: words, scales and zeros card vs CPU "
+            f"{'bit-equal' if same else 'DIFFERENT'}; card {rcard_s * 1e3:.1f} ms, CPU "
+            f"{rcpu_s * 1e3:.1f} ms")
+        if not same:
+            raise AssertionError(f"rtn_7b {shape}: the card's RTN differs from the CPU's")
+        rows.append(dict(name="rtn_7b", shape=shape, card_s=rcard_s, cpu_s=rcpu_s,
+                         bit_equal=True))
+    return rows, (blk, H)
+
+
+class gptq_calls:
+    """While active: the seconds inside GPTQAlgo.quantize_linear
+    (synchronized), and with keep=True every call's (fp linear, stats,
+    result) in call order (layer by layer, GROUP_ORDER). Given `results`,
+    each call returns the next of them in place of running GPTQ."""
+
+    def __init__(self, keep=False, results=None):
+        self.keep, self.results, self.calls, self.s = keep, results, [], 0.0
+
+    def __enter__(self):
+        from mi_optimize_tpu_torch.quant import gptq
+
+        self.cls, self.orig = gptq.GPTQAlgo, gptq.GPTQAlgo.quantize_linear
+
+        def spy(algo, lin, stats):
+            if self.results is not None:
+                out, s = self.results[len(self.calls)], 0.0
+            else:
+                out, s = timed_s(lambda: self.orig(algo, lin, stats))
+            self.s += s
+            if self.keep:
+                self.calls.append((lin, dict(stats), out))
+            return out
+
+        self.cls.quantize_linear = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.quantize_linear = self.orig
+
+
+def output_errors(fp_blk, qblks, xs, rope, cfg):
+    """{model: {linear: ‖X(Ŵ−W)ᵀ‖²}} over the batches, X the fp block's
+    captured input of each linear, Ŵ the quantized model's weights."""
+    import torch
+
+    from mi_optimize_tpu_torch.models.quant_linear import dequant_weight
+
+    D = {k: {n: dequant_weight(b[n]).float() - fp_blk[n].weight.float() for n in LINEAR_NAMES}
+         for k, b in qblks.items()}
+    err = {k: {n: 0.0 for n in LINEAR_NAMES} for k in qblks}
+    for caps in block_captures(fp_blk, xs, rope, cfg):
+        for n in LINEAR_NAMES:
+            X = caps[n].float().reshape(-1, caps[n].shape[-1])
+            for k in qblks:
+                err[k][n] += float((X @ D[k][n].t()).double().square().sum())
+    return err
+
+
+def serve_calibrated(fp, cfg, dev):
+    """Path n: quantize the fp model (GPTQ int4 g128 affine, act-order off;
+    calibration CALIB through get_calibrate_loader), then: its perplexity on
+    2 x 2048 tokens of the wikitext test fixture through Benchmark.eval_ppl,
+    the fused route (dequant_matmul, fused MLP) against the
+    dequantize-then-matmul route within 1e-2; fuse_for_serving, a 128-token
+    prefill and 128 tokens of decode_loop_model (the whole-model kernel's
+    bias-table route); the same fp model quantized by RTN (dataless); and the
+    gate: on layer 0's and the last layer's calibration inputs, GPTQ's output
+    error ‖X(Ŵ−W)ᵀ‖² at most RTN's on each of the seven linears."""
+    import torch
+
+    from mi_optimize_tpu_torch.datasets.calibration import get_calibrate_loader
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.eval.benchmark import Benchmark
+    from mi_optimize_tpu_torch.quant import QuantConfig, quantize
+    from mi_optimize_tpu_torch.serving.flatdecode import stack_flat
+    from mi_optimize_tpu_torch.serving.megadecode import stack_serving
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+
+    tok, L = ByteTokenizer(), cfg.num_layers
+    qcfg = QuantConfig.from_dict(dict(GPTQ_AFFINE, actorder=False, calibrate_config=CALIB))
+    with gptq_calls() as gt:
+        qm, calib_s = timed_s(lambda: quantize(fp, qcfg, tokenizer=tok, device=dev))
+    log(f"  quantize (GPTQ int4 g128 affine, {CALIB['nsamples']} x {CALIB['seqlen']} wikitext "
+        f"tokens, {L} layers): {calib_s:.1f} s, {calib_s / L:.3f} s a layer, of which GPTQ's "
+        f"column loops {gt.s / L:.3f} s and the calibration forwards and stats "
+        f"{(calib_s - gt.s) / L:.3f} s")
+    res = dict(layers=L, calib_s=calib_s, s_per_layer=calib_s / L, gptq_s_per_layer=gt.s / L)
+    ppl = {}
+    for fused in (True, False):
+        ppl[fused], ppl_s = timed_s(lambda: Benchmark(fused=fused, device=dev).eval_ppl(
+            qm, tok, ["wikitext2"], seqlen=2048, nsamples=2)["wikitext2"])
+        res["eval_ppl_s" if fused else "eval_ppl_unfused_route_s"] = ppl_s
+    rel = abs(ppl[True] - ppl[False]) / ppl[False]
+    log(f"  Benchmark.eval_ppl wikitext2, 2 x 2048 tokens: fused {ppl[True]:.4f}, "
+        f"dequantize-then-matmul {ppl[False]:.4f}: relative difference {rel:.3e} vs 1e-2 -> "
+        f"{'ok' if rel <= 1e-2 else 'FAIL'}")
+    if not (rel <= 1e-2 and ppl[True] > 1.0):
+        raise AssertionError("path n: the fused route's perplexity disagrees")
+    res.update(ppl=ppl[True], ppl_unfused_route=ppl[False], ppl_rel_diff=rel)
+    sm = fuse_for_serving(qm)
+    st = stack_serving(sm)
+    if st is None or stack_flat(sm, st) is not None:
+        raise AssertionError("path n: the calibrated model should take the bias-table route")
+    res["decode"] = serve_model_loop(sm, st[0], st[1], cfg, dev)
+    del sm, st
+    rm, rtn_s = timed_s(lambda: quantize(fp, QuantConfig.from_dict(RTN_AFFINE), device=dev))
+    log(f"  quantize (RTN int4 g128 affine, dataless): {rtn_s:.2f} s")
+    res["rtn_s"] = rtn_s
+    batches = get_calibrate_loader(tok, qcfg.calibrate)
+    gate = {}
+    for i, blk, xs, rope in fp_block_pass(fp.params, cfg, batches, dev):
+        if i not in (0, L - 1):
+            continue
+        errs = output_errors(blk, {"gptq": qm.params["layers"][i], "rtn": rm.params["layers"][i]},
+                             xs, rope, cfg)
+        gate[i] = {n: [errs["gptq"][n], errs["rtn"][n]] for n in LINEAR_NAMES}
+        log(f"  layer {i}, GPTQ/RTN output error ‖X(Ŵ−W)ᵀ‖² on its calibration inputs: " +
+            ", ".join(f"{n} {g / r:.3f}" for n, (g, r) in gate[i].items()))
+        bad = [n for n, (g, r) in gate[i].items() if not g <= r]
+        if bad:
+            raise AssertionError(f"path n, layer {i}: GPTQ's output error exceeds RTN's on {bad}")
+    res["output_error_gptq_rtn"] = gate
+    return res
+
+
+def serve_actorder(fp, cfg, dev, S=128, n=32):
+    """Path o: the north-star config (GPTQ int4 g128 affine, act-order on:
+    every linear keeps its permutation) on the first 2 layers of the fp
+    model, served unfused: generate with an S-token prompt and n new tokens
+    (the decode attention, dequant_matmul through each linear's gather; the
+    fused MLP declines permuted linears), and compute_ppl's fused route
+    within 1e-2 of the dequantize-then-matmul route on 2 x 2048 tokens of the
+    wikitext test fixture."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.datasets.calibration import get_wikitext2
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.quant import QuantConfig, quantize
+    from mi_optimize_tpu_torch.serving import engine
+
+    c2 = dataclasses.replace(cfg, num_layers=2)
+    fp2 = Model(config=c2, params=dict(fp.params, layers=fp.params["layers"][:2]))
+    tok = ByteTokenizer()
+    qcfg = QuantConfig.from_dict(dict(GPTQ_AFFINE, actorder=True, calibrate_config=CALIB))
+    qm, calib_s = timed_s(lambda: quantize(fp2, qcfg, tokenizer=tok, device=dev))
+    if any(b[k].perm is None for b in qm.params["layers"] for k in LINEAR_NAMES):
+        raise AssertionError("path o: an act-order linear lost its permutation")
+    log(f"  quantize (GPTQ int4 g128 affine, act-order, 2 layers): {calib_s:.1f} s")
+    prompt = np.random.default_rng(33).integers(0, cfg.vocab_size, (1, S))
+    walls = {}
+    for k in (n, 1):
+        toks, walls[k] = timed_s(lambda: engine.generate(qm, prompt, max_new_tokens=k,
+                                                         cache_dtype=torch.int8))
+        new = toks[0, S:]
+        if new.shape[0] != k or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+            raise AssertionError("path o: generate returned out-of-range tokens")
+    decode = (walls[n] - walls[1]) * 1e3 / (n - 1)
+    log(f"  generate, {S}-token prompt + {n} tokens: {walls[n] * 1e3:.1f} ms; decode "
+        f"{decode:.3f} ms/token; first tokens {toks[0, S:S + 8].tolist()}")
+    batches = get_wikitext2(tok, split="test", nsamples=2, seqlen=2048)
+    ppl, ms = timed_ppl(qm, batches, True)
+    ppl_ref, ms_ref = timed_ppl(qm, batches, False)
+    rel = abs(ppl - ppl_ref) / ppl_ref
+    log(f"  compute_ppl, 2 x 2048 wikitext tokens: fused {ppl:.4f} ({ms:.1f} ms/batch), "
+        f"dequantize-then-matmul {ppl_ref:.4f} ({ms_ref:.1f} ms/batch): relative difference "
+        f"{rel:.3e} vs 1e-2 -> {'ok' if rel <= 1e-2 else 'FAIL'}")
+    if not (rel <= 1e-2 and ppl > 1.0):
+        raise AssertionError("path o: the fused route's perplexity disagrees")
+    return dict(calib_s=calib_s, generate_ms=walls[n] * 1e3, decode_ms_per_token=decode,
+                ppl=ppl, ppl_unfused_route=ppl_ref, ppl_rel_diff=rel, ms_per_batch=ms)
+
+
+def small_calibration_check(dev):
+    """A small f32 model quantized on the card and on the CPU from the same
+    4 x 128 wikitext calibration tokens. RTN int4 g128 affine: words equal,
+    the two models' CPU perplexities (2 x 256 test tokens) within 1e-3
+    relative. GPTQ int4 g128 affine with act-order: the card's Hessians of
+    every call within HESS_F32_RTOL of the CPU driver's on the same
+    quantized states (its GPTQ calls given the card's results); every
+    linear of the card's model against GPTQ on the CPU from the card's own
+    Hessians (copied over), by `hold_codes` in natural column order, and
+    that replayed model's CPU perplexity within 1e-3 of the card model's.
+    The CPU's own calibration of GPTQ is reported, not held: its Hessians come
+    from the CPU's forwards, which round apart from the card's in the last
+    bits, and GPTQ on these rank-deficient Hessians (ByteTokenizer's few
+    distinct ids) turns that into other codes at rounding ties and carries
+    them on (on one CPU, 1 against 8 threads: 61% of layer 1's down_proj
+    codes equal, perplexities 2e-3 apart)."""
+    import torch
+
+    from mi_optimize_tpu_torch.core import packing
+    from mi_optimize_tpu_torch.core.qparams import qrange
+    from mi_optimize_tpu_torch.datasets.calibration import get_wikitext2
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.eval.ppl import compute_ppl
+    from mi_optimize_tpu_torch.models.llama import GROUP_ORDER, LlamaConfig, init_params
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.quant import QuantConfig, quantize
+    from mi_optimize_tpu_torch.quant.gptq import GPTQAlgo
+
+    cfg = LlamaConfig(vocab_size=320, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    cpu = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    for blk in cpu["layers"]:
+        for k in ("input_norm", "post_norm"):
+            blk[k] = 1.0 + 0.1 * torch.randn(cfg.hidden_size, generator=gen)
+    tok = ByteTokenizer()
+    calib = get_wikitext2(tok, split="train", nsamples=4, seqlen=128, seed=0)
+    test = get_wikitext2(tok, split="test", nsamples=2, seqlen=256)
+
+    def natural(lin):
+        s = lin.spec
+        q = packing.unpack_weight(lin.packed.cpu(), s.wbit, qrange(s.wbit, s.w_unsigned),
+                                  lin.in_features)
+        return (q if lin.perm is None else q[:, torch.argsort(lin.perm.cpu())]).reshape(-1)
+
+    def ppl(params):
+        return compute_ppl(Model(config=cfg, params=_to(params, "cpu")), test)
+
+    def codes(params):
+        return torch.cat([natural(b[n]) for b in params["layers"] for n in LINEAR_NAMES])
+
+    res = {}
+    for what, qd in (("RTN", RTN_AFFINE), ("GPTQ act-order", dict(GPTQ_AFFINE, actorder=True))):
+        qcfg = QuantConfig(**qd)
+        qc = quantize(Model(config=cfg, params=cpu), qcfg, calib_data=calib, device="cpu")
+        with gptq_calls(keep=True) as rec:
+            qg = quantize(Model(config=cfg, params=_to(cpu, dev)), qcfg, calib_data=calib,
+                          device=dev)
+        p_card, p_cpu = ppl(qg.params), ppl(qc.params)
+        a, b = codes(qg.params), codes(qc.params)
+        share, rel = float((a == b).double().mean()), abs(p_card - p_cpu) / p_cpu
+        res[what] = dict(ppl_card=p_card, ppl_cpu=p_cpu, codes_equal_cpu_calibration=share)
+        if what == "RTN":
+            log(f"  small f32 model, RTN: words card vs CPU {'equal' if share == 1 else 'DIFFER'}; "
+                f"CPU perplexity of the card-quantized model {p_card:.6f}, of the CPU-quantized "
+                f"one {p_cpu:.6f} (relative {rel:.2e} vs 1e-3)")
+            if share != 1 or not rel <= 1e-3:
+                raise AssertionError("small model, RTN: the card's quantization disagrees")
+            continue
+        algo, names = GPTQAlgo(qcfg), [n for g in GROUP_ORDER for n in g]
+        replay = [dict(b) for b in qg.params["layers"]]
+        got, want = [], []
+        for k, (lin, st, out) in enumerate(rec.calls):
+            rep = algo.quantize_linear(_to(lin, "cpu"), _to(st, "cpu"))
+            replay[k // len(names)][names[k % len(names)]] = rep
+            got.append(natural(out))
+            want.append(natural(rep))
+        if len(rec.calls) != len(names) * cfg.num_layers:
+            raise AssertionError("small GPTQ model: a linear was not quantized by GPTQ")
+        # the card's calibration forwards and Hessian reductions: the CPU's
+        # driver, each of its GPTQ calls given the card's result, walks the
+        # card's quantized states and must see the card's stats
+        with gptq_calls(keep=True, results=[_to(c[2], "cpu") for c in rec.calls]) as cpu_rec:
+            quantize(Model(config=cfg, params=cpu), qcfg, calib_data=calib, device="cpu")
+        pairs = [(c[1], d[1]) for c, d in zip(rec.calls, cpu_rec.calls)]
+        hess = max(fro_rel(st["xtx"].cpu(), cst["xtx"]) for st, cst in pairs)
+        ok = (len(cpu_rec.calls) == len(rec.calls) and hess <= HESS_F32_RTOL
+              and all(int(st["nsamples"]) == int(cst["nsamples"]) for st, cst in pairs))
+        log(f"  small f32 model, GPTQ: the Hessians of the card's calibration against the CPU "
+            f"driver's on the card's quantized states, all {len(pairs)} calls: largest relative "
+            f"(Frobenius) {hess:.2e} (<= {HESS_F32_RTOL}), nsamples equal -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("small model, GPTQ: the card's calibration stats disagree")
+        res[what].update(hessian_rel=hess)
+        hold_codes("small GPTQ model, every linear against the CPU's GPTQ from the card's "
+                   "Hessians", torch.cat(got)[None], torch.cat(want)[None])
+        p_rep = ppl(dict(qg.params, layers=replay))
+        rel_rep = abs(p_card - p_rep) / p_rep
+        log(f"  small f32 model, GPTQ: CPU perplexity of the card-quantized model {p_card:.6f}, "
+            f"of its CPU replay {p_rep:.6f} (relative {rel_rep:.2e} vs 1e-3); the CPU's own "
+            f"calibration (reported): {share:.5f} of codes equal, perplexity {p_cpu:.6f} "
+            f"(relative {rel:.2e})")
+        res[what].update(ppl_replay=p_rep)
+        if not rel_rep <= 1e-3:
+            raise AssertionError("small model, GPTQ: the card's quantization disagrees")
+    return res
+
+
+def gptq_layer_window(state):
+    """Phase 5's gptq_layer_7b: GPTQ int4 g128 affine with act-order on the
+    seven linears of one Llama-2-7B layer from its four Hessians (phase 2's)."""
+    from mi_optimize_tpu_torch.quant.gptq import gptq_quantize_matrix
+
+    blk, H = state
+    kw = dict(bits=4, groupsize=128, actorder=True, symmetric=False, percdamp=0.01)
+    return lambda: [gptq_quantize_matrix(blk[n].weight, H[LEAD[n]], **kw) for n in LINEAR_NAMES]
+
+
+# ---------------------------------------------------------------------------
 # phase 5: where the time goes on the main path
 # ---------------------------------------------------------------------------
+
+def device_ms_by_name(prof, raw):
+    """Device time (ms) of each kernel and copy name in a finished
+    torch.profiler run. raw=True sums the Kineto events themselves, which
+    skips the profiler's event tree (minutes to build for the few hundred
+    thousand launches of a GPTQ layer)."""
+    import torch
+
+    by_name = {}
+    if raw:
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_async():
+                by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
+        return by_name
+    for e in prof.key_averages():
+        # device-side events only: a CPU op's device time repeats its kernels'
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    return by_name
+
+
+def profile_window(name, fn, n_tok, reps=3, raw=False):
+    """One window of profile_windows: the wall (best of `reps` after a
+    warm-up; reps=1: one run, no warm-up), the device time by kernel from
+    torch.profiler and the busy share."""
+    import torch
+
+    if reps > 1:
+        fn()
+        torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = min(walls)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = device_ms_by_name(prof, raw)
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    busy = f"{dev_ms / wall:.3f}" if dev_ms else "not measured"
+    unit = ("step" if "_step_" in name else "round" if "round" in name
+            else "layer" if "layer_" in name else "token")
+    log(f"  {name}: wall {wall:.3f} ms ({wall / n_tok:.3f} ms/{unit}), device "
+        f"{dev_ms:.3f} ms, busy share {busy}")
+    for k, v in top:
+        log(f"      {v:9.3f} ms  {k[:90]}")
+    return {"wall_ms": wall, "wall_ms_per_token": wall / n_tok, "device_ms": dev_ms or None,
+            "busy_share": dev_ms / wall if dev_ms else None,
+            "top_kernels_ms": [[k, v] for k, v in top]}
+
 
 def profile_windows(model, fstack, fmeta, cfg, dev, extra=None):
     """For a 128-token prefill, 16 tokens of decode_loop_flat, 8 tokens of
@@ -2156,39 +2743,11 @@ def profile_windows(model, fstack, fmeta, cfg, dev, extra=None):
         pbatch.add_request(rng.integers(0, cfg.vocab_size, (int(n),)), max_new_tokens=96)
     windows["paged_batcher_step_4"] = (lambda: [pbatch.step() for _ in range(8)], 8)
     windows.update(extra or {})
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     out = {}
-    for name, (fn, n_tok) in windows.items():
-        fn()
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        wall = min(walls)
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.key_averages():
-            # device-side events only: a CPU op's device time repeats its kernels'
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-                by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
-        dev_ms = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    for name, (fn, n_tok, *opt) in windows.items():
+        out[name] = profile_window(name, fn, n_tok, **(opt[0] if opt else {}))
         if not all(r is not None for b in (batcher, paged, pbatch) for r in b.slot_req):
             raise AssertionError("a batcher slot freed during the profile window")
-        out[name] = {"wall_ms": wall, "wall_ms_per_token": wall / n_tok,
-                     "device_ms": dev_ms or None, "busy_share": dev_ms / wall if dev_ms else None,
-                     "top_kernels_ms": [[k, v] for k, v in top]}
-        busy = f"{dev_ms / wall:.3f}" if dev_ms else "not measured"
-        unit = "step" if "_step_" in name else "round" if "round" in name else "token"
-        log(f"  {name}: wall {wall:.3f} ms ({wall / n_tok:.3f} ms/{unit}), device "
-            f"{dev_ms:.3f} ms, busy share {busy}")
-        for k, v in top:
-            log(f"      {v:9.3f} ms  {k[:90]}")
     return out
 
 
@@ -2878,6 +3437,9 @@ def main() -> int:
     rows += check_w4a8(ublk, cfg, dev, flush, reps=5)
     del ublk
     torch.cuda.empty_cache()
+    # calibration on one fp layer: GPTQ and RTN, card against CPU
+    report["calibration_rows"], calib_layer = check_calibration_7b(cfg, dev)
+    torch.cuda.empty_cache()
 
     phase("3", "serving at Llama-2-7B width and depth (int4 g128, bf16, int8 KV cache)")
     counts = {k: 0 for k in KERNELS}
@@ -3020,6 +3582,27 @@ def main() -> int:
                          "w4a8_matmul"),
         lambda: serve_w4a8(ptarget, m_t, rmodel, cfg))
     tally(c)
+    log(f" n. quantize an fp Llama-2-7B (bf16, seed 0, {CALIB_LAYERS} layers) by GPTQ on "
+        "wikitext, then serve it and measure its perplexity")
+    fp = fp_llama(dataclasses.replace(cfg, num_layers=CALIB_LAYERS), dev)
+    report["calibrated"], c = run_path(
+        "quantize + eval_ppl + decode_loop_model", ("dequant_matmul_mma", "mlp_fused",
+                                                    "mlp_fused_mma", "model_decode_mega",
+                                                    "model_decode_mega4"),
+        lambda: serve_calibrated(fp, fp.config, dev))
+    tally(c)
+    log(" o. the north-star config (act-order) on the first 2 layers, served unfused")
+    report["calibrated_actorder"], c = run_path(
+        "quantize act-order + generate + compute_ppl", ("dequant_matmul_gemv16",
+                                                        "dequant_matmul_mma", "decode_attention"),
+        lambda: serve_actorder(fp, cfg, dev))
+    tally(c)
+    if c["block_decode_mega"] or c["model_decode_flat"] or c["model_decode_mega"] \
+            or c["mlp_fused"]:
+        raise AssertionError("path o launched a fused-model decode kernel or the fused MLP on "
+                             "permuted linears")
+    del fp
+    torch.cuda.empty_cache()
     log(f"  launches over the served paths: {counts}")
 
     phase("4", "small f32 model on the card vs the plain versions on the CPU")
@@ -3033,6 +3616,7 @@ def main() -> int:
     small_spec_check(dev)
     small_spec_batchers_check(dev)
     small_unfused_check(dev)
+    report["small_calibration"] = small_calibration_check(dev)
     # the CUDA-core dequant_matmul kernels serve the f32 models: their launches are
     # these paths' (the bf16 served paths above must launch none)
     counts["dequant_matmul"] = getattr(*core)
@@ -3051,7 +3635,8 @@ def main() -> int:
                "generate_unfused_8": (unfused_decode_window(ptarget, cfg, dev), 8),
                "generate_unfused_long_8": (unfused_decode_window(ptarget, cfg, dev, S=1920,
                                                                  T=2048), 8),
-               "ppl_2048": (ppl_window(rmodel, cfg, dev), 2048)})
+               "ppl_2048": (ppl_window(rmodel, cfg, dev), 2048),
+               "gptq_layer_7b": (gptq_layer_window(calib_layer), 1, dict(reps=1, raw=True))})
     del amodel, astack, ameta
 
     kernels = []

@@ -17,7 +17,28 @@ models for exact token gates (`utils.planted`); and the unfused model that
 quantization returns (separate q/k/v and gate/up), for `generate` and
 `eval.ppl.compute_ppl`, through the decode attention (`ops.decode_attention`),
 the fused MLP (`ops.mlp_fused`) and, with `MI_W4A8_INT=1`, the W4A8 integer
-product (`ops.w4a8_matmul`).
+product (`ops.w4a8_matmul`). `quant.quantize` makes that model from an fp
+one (RTN, GPTQ; layer-sequential calibration on wikitext2 / PTB / C4 from
+`datasets.calibration`), and `eval.benchmark.Benchmark` measures its
+perplexity.
+
+The top-level exports mirror the reference package's: `quantize`,
+`Benchmark`, `QuantizedLinear`, `Precision` and `as_precision`.
 """
+from .precision import Precision, as_precision  # noqa: F401
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy, so that `import mi_optimize_tpu_torch` stays light
+    if name == "quantize":
+        from .quant.api import quantize
+        return quantize
+    if name == "Benchmark":
+        from .eval.benchmark import Benchmark
+        return Benchmark
+    if name == "QuantizedLinear":
+        from .models.quant_linear import QuantizedLinear
+        return QuantizedLinear
+    raise AttributeError(name)

@@ -1,1 +1,1 @@
-"""Evaluation: perplexity (eval.ppl)."""
+"""Evaluation: perplexity (eval.ppl) and the Benchmark facade (eval.benchmark)."""

@@ -1,0 +1,81 @@
+"""Benchmark facade: the evaluation entry point.
+
+Port of mi_optimize_tpu/eval/benchmark.py's perplexity family (wikitext2 /
+PTB / C4, token-weighted NLL then exp, through eval.ppl.compute_ppl). The
+evaluation runs on `device` ("cuda" unless the caller asks for the CPU); a
+model whose tensors live elsewhere is moved there for the call. C-Eval,
+CMMLU, BOSS and lm-eval (ROADMAP.md A11) and the latency benchmark
+(ROADMAP.md A5) are not ported yet.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Dict
+
+from ..core.device import resolve_device
+from ..models.model import Model
+from .ppl import compute_ppl
+
+log = logging.getLogger(__name__)
+
+
+class Benchmark:
+    def __init__(self, fused: bool = True, device=None):
+        self.fused = fused
+        self.device = device
+
+    def _ppl(self, model: Model, batches) -> float:
+        dev = resolve_device(self.device)
+        if model.params["embed"].device != dev:
+            from ..quant.calibrate import to_device
+
+            model = Model(config=model.config, params=to_device(model.params, dev),
+                          family=model.family)
+        return compute_ppl(model, batches, fused=self.fused)
+
+    # ---------------- perplexity ----------------
+    def eval_wiki2_ppl(self, model: Model, tokenizer, seqlen=2048, nsamples=40):
+        from ..datasets.calibration import get_wikitext2
+
+        batches = get_wikitext2(tokenizer, split="test", nsamples=nsamples, seqlen=seqlen)
+        return self._ppl(model, batches)
+
+    def eval_ptb_ppl(self, model: Model, tokenizer, seqlen=2048, nsamples=None):
+        from ..datasets.calibration import get_ptb
+
+        batches = get_ptb(tokenizer, split="test", seqlen=seqlen)
+        if nsamples:
+            batches = batches[:nsamples]
+        return self._ppl(model, batches)
+
+    def eval_c4_ppl(self, model: Model, tokenizer, seqlen=2048, nsamples=40):
+        from ..datasets.calibration import get_c4
+
+        batches = get_c4(tokenizer, nsamples=nsamples, seqlen=seqlen)
+        return self._ppl(model, batches)
+
+    def eval_ppl(self, model: Model, tokenizer, test_dataset="wikitext2", **kw) -> Dict[str, float]:
+        names = test_dataset.split(",") if isinstance(test_dataset, str) else test_dataset
+        out = {}
+        for name in names:
+            fn = {"wikitext2": self.eval_wiki2_ppl, "ptb": self.eval_ptb_ppl,
+                  "c4": self.eval_c4_ppl}[name]
+            out[name] = fn(model, tokenizer, **kw)
+            log.info("ppl[%s] = %.4f", name, out[name])
+        return out
+
+    # ---------------- not ported yet ----------------
+    def eval_ceval(self, *a, **kw):
+        raise NotImplementedError("C-Eval is not ported yet (ROADMAP.md A11)")
+
+    def eval_cmmlu(self, *a, **kw):
+        raise NotImplementedError("CMMLU is not ported yet (ROADMAP.md A11)")
+
+    def eval_boss(self, *a, **kw):
+        raise NotImplementedError("BOSS is not ported yet (ROADMAP.md A11)")
+
+    def eval_lmeval(self, *a, **kw):
+        raise NotImplementedError("the lm-eval adapter is not ported yet (ROADMAP.md A11)")
+
+    def eval_latency(self, *a, **kw):
+        raise NotImplementedError("the latency benchmark is not ported yet (ROADMAP.md A5)")

@@ -80,6 +80,8 @@ def mlp_supported(gate, up, down, hidden, inter) -> bool:
     for lin in (gate, up, down):
         if lin.packed is None or lin.bias is not None or lin.smooth_factor is not None:
             return False
+        if lin.perm is not None:
+            return False  # GPTQ act-order: the kernels read x in natural order
         s = lin.spec
         if s.wbit not in (2, 4, 8) or s.abit is not None:
             return False

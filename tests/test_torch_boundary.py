@@ -27,6 +27,9 @@ from mi_optimize_tpu_torch.serving.flatdecode import (decode_loop_flat, decode_l
 from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
 from mi_optimize_tpu_torch.serving.speculative import speculative_generate
 from mi_optimize_tpu_torch.utils.planted import build_planted_llama, planted_pair
+from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+from mi_optimize_tpu_torch.eval.benchmark import Benchmark
+from mi_optimize_tpu_torch.quant import QuantConfig, get_algo, quantize
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,6 +55,16 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert bad.strip() == "[]"
 
 
+def test_top_level_exports_and_algorithms_not_ported():
+    import mi_optimize_tpu_torch as pt
+
+    assert pt.quantize is quantize and pt.Benchmark is Benchmark
+    assert pt.QuantizedLinear.__module__ == "mi_optimize_tpu_torch.models.quant_linear"
+    assert pt.as_precision("int4") is pt.Precision.INT4
+    with pytest.raises(NotImplementedError, match="A8"):
+        get_algo("awq", QuantConfig(algo="awq"))
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -62,6 +75,10 @@ def _no_cuda(monkeypatch):
     lambda cfg: build_quantized_llama(cfg),
     lambda cfg: build_planted_llama(cfg, np.arange(cfg.vocab_size)),
     lambda cfg: planted_pair(cfg),
+    lambda cfg: quantize(Model(config=cfg, params=init_params(cfg, device="cpu")),
+                         QuantConfig(algo="rtn", wbit="int4")),
+    lambda cfg: Benchmark().eval_ppl(Model(config=cfg, params=init_params(cfg, device="cpu")),
+                                     ByteTokenizer(), ["wikitext2"], seqlen=64, nsamples=1),
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, call):
     _no_cuda(monkeypatch)

@@ -21,7 +21,9 @@ T = 4096 at its last row, GQA groups of 4 and 12, NaN in the rows past the
 position, the same bits on a second launch), the fused MLP (M from 1 to 130, int2/4/8,
 per-group and per-channel, the same bits on every run), the W4A8 integer
 product (bitwise), the unfused path (generate, compute_ppl, int4 and W4A8)
-against the CPU, and the W4A8 activation and KV quantizers and
+against the CPU, GPTQ's matrix solver and `quantize` (GPTQ and RTN) on a
+small model against the CPU (codes at least 99% equal, each row's first
+difference one code; RTN bitwise; the TF32-on call the same), and the W4A8 activation and KV quantizers and
 `find_qparams` bitwise against the CPU; the bf16 int4 dequant_matmul
 kernels (gemv16 up to 16 rows, mma above) at M from 1 to 2048, the same
 bits on a second launch; the flat decode kernel with 4-bit words (its
@@ -1448,3 +1450,128 @@ def test_unfused_path_matches_the_cpu(dev, monkeypatch, w4a8):
     assert delta == ((6 * L, 0, 7 * L + 2 * 7 * L) if w4a8 else (6 * L, 7 * L + 2 * L, 0))
     np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-3 if w4a8 else 1e-4)
+
+
+def _grid(Q, s, z, perm, g=128):
+    Qp = Q if perm is None else Q[:, perm]
+    return torch.round(Qp.reshape(Qp.shape[0], -1, g) / s[:, :, None]
+                       + z[:, :, None]).reshape(Qp.shape[0], -1)
+
+
+def _hold_codes(got, want, s_got=None, s_want=None, g=128):
+    """GPTQ card vs CPU: at least 99% of the codes equal; in each row the
+    codes before its first difference equal and that difference one code (a
+    rounding tie that the two devices' last bits put on either side; GPTQ's
+    error feedback carries it into the row's later columns, by more than one
+    code at times), the scales within 1e-3 relative up to it."""
+    d = (got.cpu().double() - want.double()).abs()
+    first = torch.argmax((d != 0).to(torch.int8), dim=1)
+    assert float(d.gather(1, first[:, None]).max()) <= 1
+    assert float((d == 0).double().mean()) >= 0.99
+    if s_got is not None:
+        same = (d == 0).reshape(d.shape[0], -1, g).all(-1).cumprod(-1).bool()
+        assert float(((s_got.cpu() - s_want).abs() / s_want)[same].max()) <= 1e-3
+
+
+@pytest.mark.parametrize("actorder", [True, False])
+@pytest.mark.parametrize("out_f,in_f", [(256, 512), (1024, 2048)])
+def test_gptq_matrix_matches_the_cpu(dev, out_f, in_f, actorder):
+    """GPTQ int4 g128 affine from the same W and H on the card and on the
+    CPU (the same permutation, `_hold_codes`); the card call again with TF32
+    allowed around it gives the same codes and scales and leaves the flag
+    as it was."""
+    from mi_optimize_tpu_torch.quant.gptq import gptq_quantize_matrix
+
+    g = torch.Generator().manual_seed(out_f)
+    W = torch.randn(out_f, in_f, generator=g) * in_f ** -0.5
+    X = torch.randn(2 * in_f, in_f, generator=g)
+    X[:, : in_f // 8] *= 3.0
+    H = X.t() @ X * 0.5
+    kw = dict(bits=4, groupsize=128, actorder=actorder, symmetric=False)
+    Qc, sc, zc, pc = gptq_quantize_matrix(W, H, **kw)
+    Qg, sg, zg, pg = gptq_quantize_matrix(W.to(dev), H.to(dev), **kw)
+    assert (pc is None and pg is None) or torch.equal(pg.cpu(), pc)
+    got = _grid(Qg, sg, zg, pg)
+    _hold_codes(got, _grid(Qc, sc, zc, pc), sg, sc)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        Qt, st, zt, pt = gptq_quantize_matrix(W.to(dev), H.to(dev), **kw)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(_grid(Qt, st, zt, pt), got) and torch.equal(st, sg)
+
+
+@pytest.mark.parametrize("algo", ["gptq", "rtn"])
+def test_quantize_matches_the_cpu(dev, monkeypatch, algo):
+    """quantize of a small f32 model on the card. RTN: the words of the
+    CPU's quantize from the same calibration batches. GPTQ (act-order, g128
+    affine): the Hessians of every call within 1e-5 (relative, Frobenius)
+    of the CPU driver's on the card's quantized states (each of its GPTQ
+    calls given the card's result); every linear within `_hold_codes` (in
+    natural column order) of GPTQ on the CPU from the card's own Hessians,
+    and the two models' CPU perplexities within 1e-3 relative. (The CPU's
+    own calibration rounds its
+    forwards apart from the card's in the last bits, and GPTQ on these
+    rank-deficient Hessians turns that into other codes: it is not held.)"""
+    from mi_optimize_tpu_torch.quant import QuantConfig, quantize
+    from mi_optimize_tpu_torch.quant.gptq import GPTQAlgo
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    p = llama.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    rng = np.random.default_rng(7)
+    calib = [rng.integers(0, 256, (1, 128)) for _ in range(4)]
+    test = [rng.integers(0, 256, (2, 128)) for _ in range(2)]
+    qcfg = QuantConfig(algo=algo, wbit="int4", w_qtype="per_group", w_groupsize=128,
+                       w_has_zero=True)
+    calls = []
+    orig = GPTQAlgo.quantize_linear
+
+    def spy(self, lin, stats):
+        out = orig(self, lin, stats)
+        calls.append((lin, stats, out))
+        return out
+
+    monkeypatch.setattr(GPTQAlgo, "quantize_linear", spy)
+    qg = quantize(Model(config=cfg, params=_to(p, dev)), qcfg, calib_data=calib, device=dev)
+    monkeypatch.setattr(GPTQAlgo, "quantize_linear", orig)
+    names = ("k_proj", "v_proj", "q_proj", "o_proj", "up_proj", "gate_proj", "down_proj")
+
+    def natural(lin):
+        s = lin.spec
+        q = packing.unpack_weight(lin.packed.cpu(), s.wbit, qrange(s.wbit, s.w_unsigned),
+                                  lin.in_features).float()
+        return q if lin.perm is None else q[:, torch.argsort(lin.perm.cpu())]
+
+    if algo == "rtn":
+        qc = quantize(Model(config=cfg, params=p), qcfg, calib_data=calib, device="cpu")
+        for bg, bc in zip(qg.params["layers"], qc.params["layers"]):
+            for n in names:
+                assert torch.equal(bg[n].packed.cpu(), bc[n].packed)
+        layers = qc.params["layers"]
+    else:
+        assert len(calls) == len(names) * cfg.num_layers
+        cpu_stats = []
+
+        def given(self, lin, stats):
+            cpu_stats.append(stats)
+            return _to(calls[len(cpu_stats) - 1][2], "cpu")
+
+        monkeypatch.setattr(GPTQAlgo, "quantize_linear", given)
+        quantize(Model(config=cfg, params=p), qcfg, calib_data=calib, device="cpu")
+        monkeypatch.setattr(GPTQAlgo, "quantize_linear", orig)
+        assert len(cpu_stats) == len(calls)
+        for (_, st, _), cst in zip(calls, cpu_stats):
+            assert int(st["nsamples"]) == int(cst["nsamples"])
+            xtx, want = st["xtx"].cpu().double(), cst["xtx"].double()
+            assert float((xtx - want).norm() / want.norm()) <= 1e-5
+        layers = [dict(b) for b in qg.params["layers"]]
+        for k, (lin, stats, out) in enumerate(calls):
+            rep = GPTQAlgo(qcfg).quantize_linear(_to(lin, "cpu"), _to(stats, "cpu"))
+            layers[k // len(names)][names[k % len(names)]] = rep
+            _hold_codes(natural(out), natural(rep))
+    p_card = compute_ppl(Model(config=cfg, params=_to(qg.params, "cpu")), test)
+    p_cpu = compute_ppl(Model(config=cfg, params=_to(dict(qg.params, layers=layers), "cpu")),
+                        test)
+    np.testing.assert_allclose(p_card, p_cpu, rtol=1e-3)
