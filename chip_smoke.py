@@ -63,7 +63,22 @@ Phases:
      least 99% of the codes equal, each row's first difference one code,
      scales within 1e-3 up to it; the card call again with TF32 allowed
      around it: the same codes), and RTN on the same weights (`rtn_7b`:
-     words, scales and zeros bit-equal);
+     words, scales and zeros bit-equal); on the same layer, from its 8192
+     sampled tokens, absmean and absmax (the port's reducers) and its card
+     Hessians, each on the card and on the CPU from the same inputs: AWQ
+     int4 g128 on q_proj and down_proj (`awq_7b`: the ratio index equal or
+     within 1e-4 of the CPU's minimum loss, at least 99% of the clip
+     indices and of the codes equal, the same codes with TF32 allowed),
+     SmoothQuant W8A8 on q_proj (`smoothquant_7b`: smooth scales within
+     1e-6, 99.9% of the words equal, each within one), the W8A8 route at
+     q_proj's and down_proj's shapes at M = 1, 128 and 2048 (`w8a8_7b`: its
+     int32 sums equal to the plain version's on the card, outputs within
+     1e-6; timed beside torch._int_mm alone and B1 on the RTN int4 linear of
+     the same weights), FP8 E4M3 and E5M2 on q_proj (`fp8_7b`: native
+     storage dequantized to the fake grid bit for bit, card == CPU), SpQR
+     and QuIP on q_proj from the same H and the same U and V (`spqr_7b`,
+     `quip_7b`: 99% of the codes equal, SpQR's outliers within 1%, QuIP's
+     output error within 1%);
   2b. the bf16 gate against three faults planted in the batched kernel's
      outputs (another slot's history, a row from position p - 1, a scale
      from amax / 128): it must reject each;
@@ -125,9 +140,24 @@ Phases:
         linear's permutation, decode attention; no fused-model decode
         kernel and no fused MLP may launch) and `compute_ppl` (routes within
         1e-2);
-     every kernel must have launched on its path, no path may launch the
-     CUDA-core dequant_matmul kernels (every served linear is bf16 int4),
-     and every planted path's tokens must equal the planted chain exactly;
+     p. AWQ int4 g128 of the same fp model's first ALGO_LAYERS = 4 layers
+        (CALIB), served unfused (every linear carries its smooth factor,
+        which the fused kernels decline): `generate` (B1 gemv16, B6; no fused-model
+        decode kernel, no fused MLP), `Benchmark.eval_ppl` (routes within
+        1e-2), AWQ's and RTN's output errors on layer 0's and the last
+        layer's calibration inputs (reported);
+     q. SmoothQuant W8A8 (alpha 0.5, int8 per-channel weights, int8
+        per-token activations) of the same 4 layers: `generate` through the
+        W8A8 route (torch._int_mm; its call counter above 0) and B6, its
+        perplexity within 1e-2 of the fake-quant route and 5% of the fp
+        model's;
+     r. ZeroQuant, FP8 E4M3 (native float8 weights), AWQ+GPTQ and
+        SmoothQuant+GPTQ on the first 2 layers: perplexities finite, routes
+        within 1e-2, ZeroQuant's 8-bit linears on B1's CUDA-core kernel;
+     every kernel must have launched on its path, no path but r may launch
+     the CUDA-core dequant_matmul kernels (every other served linear is bf16
+     int4), and every planted path's tokens must equal the planted chain
+     exactly;
   4. check the outputs: tokens in range, logits finite, and on a small f32
      model the card's prefill logits and greedy tokens (generate, the flat
      loop, the batcher with a mid-flight join, decode_loop_model on an
@@ -139,7 +169,12 @@ Phases:
      and a small f32 model quantized on the card and on the CPU: RTN's words
      equal, GPTQ (act-order) within `hold_codes` of the CPU's GPTQ from the
      card's own Hessians and its perplexity within 1e-3 (the CPU's own
-     calibration is reported);
+     calibration is reported); the other nine algorithm configurations:
+     every call's stats within 1e-5 of the CPU calibration's on the card's
+     quantized states (1e-2 where the forwards quantize activations), then
+     each linear on the CPU from the card's stats (RTN, SmoothQuant,
+     ZeroQuant, FP8 bit-equal; AWQ, both combos, SpQR and QuIP 99% of the
+     codes);
   5. where the time goes: torch.profiler device time by kernel and the
      device busy share over a prefill, flat decode, per-layer decode, 16
      tokens of decode_loop_model on the asymmetric grid, 8 batcher steps
@@ -149,7 +184,8 @@ Phases:
      unfused planted model (after a 128-token prompt, T=512, and after a
      1920-token prompt, T=2048), one 2048-token perplexity batch and
      GPTQ on the seven linears of one 7B layer (`gptq_layer_7b`, one run,
-     the profiler's raw events summed).
+     the profiler's raw events summed), and AWQ of the same layer from its
+     four groups' stats (`awq_layer_7b`).
 
 Earlier lines report each phase; the line before the last is a JSON object
 with every kernel's launches, error, time, plain time, library time (torch's
@@ -2136,6 +2172,7 @@ def serve_model_loop(model, stack, meta, cfg, dev, S=128, n=128):
 # validation)
 CALIB = {"name": "wikitext2", "split": "train", "nsamples": 32, "seqlen": 512}
 CALIB_LAYERS = 8            # path n's depth: at 32 layers the phase took over 150 s (PERF.md §6)
+ALGO_LAYERS = 4             # paths p and q: at 8 layers the other algorithms took over 200 s
 GPTQ_AFFINE = {"algo": "gptq", "wbit": "int4", "w_qtype": "per_group", "w_groupsize": 128,
                "w_qscheme": "affine", "blocksize": 128, "percdamp": 0.01}
 RTN_AFFINE = {"algo": "rtn", "wbit": "int4", "w_qtype": "per_group", "w_groupsize": 128,
@@ -2270,7 +2307,8 @@ def check_calibration_7b(cfg, dev):
     held by `hold_codes`; the card call again with TF32 allowed around
     it (restored after): the same codes; RTN int4 g128 affine on the same
     weights: words, scales and zeros bit-equal card vs CPU. Returns (rows,
-    the layer and its Hessians for phase 5)."""
+    the layer, its Hessians, its inputs and rope tables, for the other
+    algorithms' rows and phase 5)."""
     import torch
 
     from mi_optimize_tpu_torch.datasets.calibration import get_wikitext2
@@ -2295,7 +2333,7 @@ def check_calibration_7b(cfg, dev):
         f" (<= {HESS_BF16_RTOL}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("gptq_7b: the card's Hessians disagree with the CPU's")
-    del xs, H_cpu
+    del H_cpu
     kw = dict(bits=4, groupsize=128, actorder=True, symmetric=False, percdamp=0.01)
     rtn = RTNAlgo(QuantConfig(**RTN_AFFINE))
     rows = []
@@ -2343,22 +2381,26 @@ def check_calibration_7b(cfg, dev):
             raise AssertionError(f"rtn_7b {shape}: the card's RTN differs from the CPU's")
         rows.append(dict(name="rtn_7b", shape=shape, card_s=rcard_s, cpu_s=rcpu_s,
                          bit_equal=True))
-    return rows, (blk, H)
+    return rows, (blk, H, xs, rope)
 
 
-class gptq_calls:
-    """While active: the seconds inside GPTQAlgo.quantize_linear
-    (synchronized), and with keep=True every call's (fp linear, stats,
-    result) in call order (layer by layer, GROUP_ORDER). Given `results`,
-    each call returns the next of them in place of running GPTQ."""
+class algo_calls:
+    """While active: the seconds inside `cls.quantize_linear` (GPTQAlgo's
+    when cls is None; synchronized), and with keep=True every call's (fp
+    linear, stats, result) in call order (layer by layer, GROUP_ORDER).
+    Given `results`, each call returns the next of them in place of running
+    the algorithm."""
 
-    def __init__(self, keep=False, results=None):
+    def __init__(self, keep=False, results=None, cls=None):
         self.keep, self.results, self.calls, self.s = keep, results, [], 0.0
+        self.cls = cls
 
     def __enter__(self):
-        from mi_optimize_tpu_torch.quant import gptq
+        if self.cls is None:
+            from mi_optimize_tpu_torch.quant.gptq import GPTQAlgo
 
-        self.cls, self.orig = gptq.GPTQAlgo, gptq.GPTQAlgo.quantize_linear
+            self.cls = GPTQAlgo
+        self.orig = self.cls.quantize_linear
 
         def spy(algo, lin, stats):
             if self.results is not None:
@@ -2379,12 +2421,17 @@ class gptq_calls:
 
 def output_errors(fp_blk, qblks, xs, rope, cfg):
     """{model: {linear: ‖X(Ŵ−W)ᵀ‖²}} over the batches, X the fp block's
-    captured input of each linear, Ŵ the quantized model's weights."""
+    captured input of each linear, Ŵ the quantized model's effective weights
+    (divided by the smooth factor where there is one)."""
     import torch
 
     from mi_optimize_tpu_torch.models.quant_linear import dequant_weight
 
-    D = {k: {n: dequant_weight(b[n]).float() - fp_blk[n].weight.float() for n in LINEAR_NAMES}
+    def effective(lin):  # a smoothed linear computes (x / s) @ dq(W·s)^T
+        w = dequant_weight(lin).float()
+        return w if lin.smooth_factor is None else w / lin.smooth_factor.float()[None, :]
+
+    D = {k: {n: effective(b[n]) - fp_blk[n].weight.float() for n in LINEAR_NAMES}
          for k, b in qblks.items()}
     err = {k: {n: 0.0 for n in LINEAR_NAMES} for k in qblks}
     for caps in block_captures(fp_blk, xs, rope, cfg):
@@ -2417,7 +2464,7 @@ def serve_calibrated(fp, cfg, dev):
 
     tok, L = ByteTokenizer(), cfg.num_layers
     qcfg = QuantConfig.from_dict(dict(GPTQ_AFFINE, actorder=False, calibrate_config=CALIB))
-    with gptq_calls() as gt:
+    with algo_calls() as gt:
         qm, calib_s = timed_s(lambda: quantize(fp, qcfg, tokenizer=tok, device=dev))
     log(f"  quantize (GPTQ int4 g128 affine, {CALIB['nsamples']} x {CALIB['seqlen']} wikitext "
         f"tokens, {L} layers): {calib_s:.1f} s, {calib_s / L:.3f} s a layer, of which GPTQ's "
@@ -2566,7 +2613,7 @@ def small_calibration_check(dev):
     for what, qd in (("RTN", RTN_AFFINE), ("GPTQ act-order", dict(GPTQ_AFFINE, actorder=True))):
         qcfg = QuantConfig(**qd)
         qc = quantize(Model(config=cfg, params=cpu), qcfg, calib_data=calib, device="cpu")
-        with gptq_calls(keep=True) as rec:
+        with algo_calls(keep=True) as rec:
             qg = quantize(Model(config=cfg, params=_to(cpu, dev)), qcfg, calib_data=calib,
                           device=dev)
         p_card, p_cpu = ppl(qg.params), ppl(qc.params)
@@ -2593,7 +2640,7 @@ def small_calibration_check(dev):
         # the card's calibration forwards and Hessian reductions: the CPU's
         # driver, each of its GPTQ calls given the card's result, walks the
         # card's quantized states and must see the card's stats
-        with gptq_calls(keep=True, results=[_to(c[2], "cpu") for c in rec.calls]) as cpu_rec:
+        with algo_calls(keep=True, results=[_to(c[2], "cpu") for c in rec.calls]) as cpu_rec:
             quantize(Model(config=cfg, params=cpu), qcfg, calib_data=calib, device="cpu")
         pairs = [(c[1], d[1]) for c, d in zip(rec.calls, cpu_rec.calls)]
         hess = max(fro_rel(st["xtx"].cpu(), cst["xtx"]) for st, cst in pairs)
@@ -2625,10 +2672,653 @@ def gptq_layer_window(state):
     seven linears of one Llama-2-7B layer from its four Hessians (phase 2's)."""
     from mi_optimize_tpu_torch.quant.gptq import gptq_quantize_matrix
 
-    blk, H = state
+    blk, H = state[:2]
     kw = dict(bits=4, groupsize=128, actorder=True, symmetric=False, percdamp=0.01)
     return lambda: [gptq_quantize_matrix(blk[n].weight, H[LEAD[n]], **kw) for n in LINEAR_NAMES]
 
+
+# ---------------------------------------------------------------------------
+# the other algorithms (quant/awq*, smoothquant, zeroquant, fp8, spqr*, quip*,
+# combos) and the W8A8 route (ops/int8_matmul: torch._int_mm)
+# ---------------------------------------------------------------------------
+
+AWQ_G128 = {"algo": "awq", "wbit": "int4", "w_groupsize": 128, "n_grid": 20, "max_shrink": 0.5}
+# SmoothQuant and ZeroQuant store their signed grid signed (w_unsign=False):
+# with the config default the reference clamps the negative codes to 0
+SQ_W8A8 = {"algo": "smoothquant", "wbit": "int8", "abit": "int8", "w_qtype": "per_channel",
+           "a_qtype": "per_token", "alpha": 0.5, "w_unsign": False}
+ZQ_W8A8 = {"algo": "zeroquant", "wbit": "int8", "abit": "int8", "w_groupsize": 128,
+           "w_unsign": False}
+FP8_E4M3 = {"algo": "fp8", "wbit": "int8", "abit": "int8", "fp8_format": "e4m3"}
+AWQ_GPTQ = {"algo": "awq+gptq", "wbit": "int4", "w_qtype": "per_group", "w_groupsize": 128,
+            "w_has_zero": True}
+SQ_GPTQ = {"algo": "smoothquant+gptq", "wbit": "int8", "abit": "int8", "w_qtype": "per_channel",
+           "a_qtype": "per_token", "w_has_zero": True, "alpha": 0.5}
+SPQR_G16 = {"algo": "spqr", "wbit": "int4", "w_groupsize": 16, "outlier_relative_threshold": 0.2,
+            "qq_scale_bits": 3, "qq_groupsize": 16}
+QUIP_B = {"algo": "quip", "wbit": "int4", "qfn": "b"}
+ALGO_SHARE = 0.99           # card vs CPU from the same stats: codes (and AWQ's clip indices)
+AWQ_LOSS_RTOL = 1e-4        # AWQ: another ratio only within this of the CPU's minimum loss
+W8A8_RTOL = 1e-6
+
+
+def layer_stats(blk, xs, rope, cfg, kinds=("inputs", "absmean", "absmax")):
+    """The port's reducers over the fp block's captured inputs: {lead linear:
+    stats} of its four groups (sampled inputs on the host)."""
+    from mi_optimize_tpu_torch.quant.base import init_stats, update_stats_device, update_stats_host
+
+    leads = sorted(set(LEAD.values()))
+    dev_kinds = tuple(k for k in kinds if k != "inputs")
+    stats = {n: init_stats(kinds, blk[n].in_features, xs[0].device) for n in leads}
+    for caps in block_captures(blk, xs, rope, cfg):
+        for n in leads:
+            st = stats[n]
+            dev = update_stats_device(dev_kinds, {k: v for k, v in st.items() if k != "inputs"},
+                                      caps[n])
+            stats[n] = dict(update_stats_host(kinds, st, caps[n]), **dev)
+    return stats
+
+
+def lin_codes(lin):
+    """The integer grid [out, in] of a packed linear, on the CPU."""
+    from mi_optimize_tpu_torch.core import packing
+    from mi_optimize_tpu_torch.core.qparams import qrange
+
+    s = lin.spec
+    return packing.unpack_weight(lin.packed.cpu(), s.wbit, qrange(s.wbit, s.w_unsigned),
+                                 lin.in_features)
+
+
+def share_equal(a, b):
+    return float((a == b).double().mean())
+
+
+def awq_parts(lin, stats, qcfg):
+    """AWQ of one linear, with the ratio losses and the ratio and clip
+    indices its searches chose."""
+    from unittest import mock
+
+    from mi_optimize_tpu_torch.quant import awq_impl
+
+    rec = {"idx": []}
+    sl, fe = awq_impl.scale_losses, awq_impl._first_within_eps
+
+    def losses(*a, **k):
+        out = sl(*a, **k)
+        rec["losses"] = out[0]
+        return out
+
+    def first(errs, *a, **k):
+        idx = fe(errs, *a, **k)
+        rec["idx"].append(idx)
+        return idx
+
+    with mock.patch.object(awq_impl, "scale_losses", losses), \
+            mock.patch.object(awq_impl, "_first_within_eps", first):
+        out = awq_impl.awq_quantize_linear(qcfg, lin, stats)
+    return out, rec["losses"], int(rec["idx"][0]), rec["idx"][1]
+
+
+def check_awq_7b(blk, stats, dev):
+    """Row awq_7b: AWQ int4 g128 on q_proj and down_proj, on the card and on
+    the CPU from the same sampled inputs and absmean sums (copied over). The
+    ratio index equal, or the card's within AWQ_LOSS_RTOL of the CPU's
+    minimum loss as the CPU evaluates it; at least ALGO_SHARE of the
+    [oc, group] clip indices and of the codes equal; the card call again with
+    TF32 allowed around it: the same codes."""
+    import torch
+
+    from mi_optimize_tpu_torch.quant.config import QuantConfig
+
+    qcfg = QuantConfig(**AWQ_G128)
+    rows = []
+    for name in ("q_proj", "down_proj"):
+        lin, st = blk[name], stats[LEAD[name]]
+        shape = f"{name} {lin.in_features}->{lin.out_features}"
+        (qg, lg, rg, cg), card_s = timed_s(lambda: awq_parts(lin, st, qcfg))
+        t0 = time.perf_counter()
+        qc, lc, rc, cc = awq_parts(_to(lin, "cpu"), _to(st, "cpu"), qcfg)
+        cpu_s = time.perf_counter() - t0
+        lmin = float(lc.min())
+        ratio_rel = (float(lc[rg]) - lmin) / lmin
+        clip_eq = share_equal(cg.cpu(), cc)
+        codes = lin_codes(qg)
+        code_eq = share_equal(codes, lin_codes(qc))
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            (qt, _, _, _), tf32_s = timed_s(lambda: awq_parts(lin, st, qcfg))
+            kept = torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        same_tf32 = torch.equal(lin_codes(qt), codes)
+        ok = ((rg == rc or ratio_rel <= AWQ_LOSS_RTOL) and clip_eq >= ALGO_SHARE
+              and code_eq >= ALGO_SHARE and same_tf32 and kept)
+        log(f"  awq_7b {shape}: ratio index card {rg}, CPU {rc} (the card's {ratio_rel:.2e} "
+            f"above the CPU's minimum loss); clip indices {clip_eq:.6f} equal, codes "
+            f"{code_eq:.6f} (>= {ALGO_SHARE}); TF32 allowed: "
+            f"{'the same codes' if same_tf32 else 'DIFFERENT codes'}; card {card_s:.3f} s "
+            f"({tf32_s:.3f} s with TF32 allowed), CPU {cpu_s:.3f} s -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"awq_7b {shape}: the card's AWQ disagrees with the CPU's")
+        rows.append(dict(name="awq_7b", shape=shape, card_s=card_s, cpu_s=cpu_s,
+                         card_tf32_s=tf32_s, ratio_card=rg, ratio_cpu=rc, ratio_rel=ratio_rel,
+                         clip_equal=clip_eq, codes_equal=code_eq))
+    return rows
+
+
+def check_smoothquant_7b(blk, stats, dev):
+    """Row smoothquant_7b: SmoothQuant W8A8 on q_proj, card against CPU from
+    the same absmax: smooth scales within 1e-6 relative, at least 99.9% of
+    the int8 words equal, each off by at most one. Returns (rows, the card's
+    linear)."""
+    import torch
+
+    from mi_optimize_tpu_torch.quant.config import QuantConfig
+    from mi_optimize_tpu_torch.quant.smoothquant import SmoothQuantAlgo
+
+    algo = SmoothQuantAlgo(QuantConfig(**SQ_W8A8))
+    lin, st = blk["q_proj"], {"absmax": stats["q_proj"]["absmax"]}
+    qg, card_s = timed_s(lambda: algo.quantize_linear(lin, st))
+    t0 = time.perf_counter()
+    qc = algo.quantize_linear(_to(lin, "cpu"), _to(st, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    srel = float(((qg.smooth_factor.cpu() - qc.smooth_factor).abs() / qc.smooth_factor).max())
+    a, b = lin_codes(qg), lin_codes(qc)
+    eq, worst = share_equal(a, b), int((a - b).abs().max())
+    ok = srel <= 1e-6 and eq >= 0.999 and worst <= 1
+    log(f"  smoothquant_7b q_proj: smooth scales card vs CPU {srel:.2e} relative (<= 1e-6); "
+        f"int8 words {eq:.6f} equal (>= 0.999), at most {worst} apart (<= 1); card "
+        f"{card_s * 1e3:.1f} ms, CPU {cpu_s * 1e3:.1f} ms -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("smoothquant_7b: the card's SmoothQuant disagrees with the CPU's")
+    return [dict(name="smoothquant_7b", shape="q_proj 4096->4096", card_s=card_s, cpu_s=cpu_s,
+                 smooth_rel=srel, words_equal=eq, max_word_diff=worst)], qg
+
+
+def check_w8a8_7b(blk, stats, rtn_lins, dev, flush, reps):
+    """Row w8a8_7b: the W8A8 route (ops/int8_matmul: activations on the
+    dynamic int8 grid, the int32 product by torch._int_mm) on SmoothQuant
+    W8A8 linears of q_proj's and down_proj's shapes at M = 1, 128 and 2048,
+    against its plain version on the card (the sums in float64): the int32
+    accumulators equal and the outputs within W8A8_RTOL; timed beside
+    torch._int_mm alone on the pre-quantized operands and B1 (gemv16 at
+    M = 1, mma above) on the RTN int4 g128 linear of the same weights."""
+    import torch
+
+    from mi_optimize_tpu_torch.ops import dequant_matmul as dm
+    from mi_optimize_tpu_torch.ops import int8_matmul as i8
+    from mi_optimize_tpu_torch.ops.w4a8_matmul import quantize_activations
+    from mi_optimize_tpu_torch.quant.config import QuantConfig
+    from mi_optimize_tpu_torch.quant.smoothquant import SmoothQuantAlgo
+
+    algo = SmoothQuantAlgo(QuantConfig(**SQ_W8A8))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    for name in ("q_proj", "down_proj"):
+        lin = algo.quantize_linear(blk[name], {"absmax": stats[LEAD[name]]["absmax"]})
+        N, K = lin.out_features, lin.in_features
+        wi8 = i8.weight_int8(lin)
+        sw = lin.w_scale.reshape(1, -1)
+        for M in (1, 128, 2048):
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            xi, sx = quantize_activations(x.float(), "per_token")
+            acc = i8.w8a8_matmul_int(xi, wi8)
+            ref = i8.w8a8_matmul_ref(xi, wi8)
+            y = i8.w8a8_matmul(x.float(), lin)
+            y_ref = ref.float() * sx * sw
+            err = float((y - y_ref).abs().max())
+            same_acc = torch.equal(acc, ref)
+            ok = same_acc and err <= W8A8_RTOL * float(y_ref.abs().max())
+
+            def plain():
+                xi_p, sx_p = quantize_activations(x.float(), "per_token")
+                return (i8.w8a8_matmul_ref(xi_p, i8.weight_int8(lin)).float() * sx_p
+                        * sw).to(x.dtype)
+
+            ms = time_ms(lambda: i8.w8a8_matmul(x, lin), reps, flush)
+            plain_ms = time_ms(plain, max(2, reps // 5), flush)
+            int_mm_ms = time_ms(lambda: i8.w8a8_matmul_int(xi, wi8), reps, flush)
+            b1_route = dm.route(M, torch.bfloat16, 4, 128)
+            b1_ms = time_ms(lambda: dm.dequant_matmul(x, rtn_lins[name]), reps, flush)
+            nb = nbytes(x, lin.packed, lin.w_scale) + M * N * 2
+            b_ms, b_by = bound(nb, 2.0 * M * N * K, INT8_OPS)
+            log(f"  w8a8_7b {name} M={M} K={K} N={N}: int32 sums card vs plain "
+                f"{'equal' if same_acc else 'DIFFERENT'}, outputs {err:.3e} (<= {W8A8_RTOL} of "
+                f"max); route {ms:.4f} ms, torch._int_mm alone {int_mm_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, B1 {b1_route} on the int4 g128 linear {b1_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"w8a8_7b {name} M={M}: the route disagrees with its plain "
+                                     "version")
+            rows.append(dict(name="w8a8_7b", shape=f"{name} M={M} K={K} N={N}", ms=ms,
+                             plain_ms=plain_ms, int_mm_ms=int_mm_ms, b1_route=b1_route,
+                             b1_int4_ms=b1_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+    return rows
+
+
+def check_fp8_7b(blk, dev):
+    """Row fp8_7b: FP8 E4M3 and E5M2 on q_proj: the native float8 weights
+    dequantize to the float32 fake grid bit for bit on the card, and the
+    card's fake-quantized weights, scales and native bytes are the CPU's."""
+    import torch
+
+    from mi_optimize_tpu_torch.models.quant_linear import dequant_weight
+    from mi_optimize_tpu_torch.quant.config import QuantConfig
+    from mi_optimize_tpu_torch.quant.fp8 import FP8Algo, fp8_quantize_value
+
+    rows = []
+    lin = blk["q_proj"]
+    for fmt in ("e4m3", "e5m2"):
+        kw = dict(FP8_E4M3, fp8_format=fmt)
+        out = {}
+        for pack in (True, False):
+            algo = FP8Algo(QuantConfig(**kw, pack=pack))
+            out[pack], card_s = timed_s(lambda: algo.quantize_linear(lin, {}))
+            out[pack, "cpu"] = algo.quantize_linear(_to(lin, "cpu"), {})
+        # the fake grid in float32 (pack=False rounds it to the bf16 linear's dtype)
+        grid = fp8_quantize_value(lin.weight.float(), out[True].w_scale, fmt)
+        native = torch.equal(dequant_weight(out[True]), grid)
+        same = (torch.equal(out[False].weight.cpu(), out[False, "cpu"].weight)
+                and torch.equal(out[False].w_scale.cpu(), out[False, "cpu"].w_scale)
+                and torch.equal(out[True].weight.cpu().view(torch.uint8),
+                                out[True, "cpu"].weight.view(torch.uint8)))
+        ok = native and same and out[True].weight.dtype == (
+            torch.float8_e4m3fn if fmt == "e4m3" else torch.float8_e5m2)
+        log(f"  fp8_7b {fmt} q_proj: native {out[True].weight.dtype} dequantized to the fake "
+            f"grid {'bit for bit' if native else 'DIFFERENTLY'}; card vs CPU "
+            f"{'bit-equal' if same else 'DIFFERENT'}; card {card_s * 1e3:.1f} ms -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fp8_7b {fmt}: the card's FP8 disagrees")
+        rows.append(dict(name="fp8_7b", shape=f"{fmt} q_proj 4096->4096", card_s=card_s,
+                         native_exact=native, card_cpu_equal=same))
+    return rows
+
+
+def spqr_codes(Q, s, z, g=16, bits=4, qq_bits=3, qq_g=16):
+    """(codes on SpQR's double-quantized grid, outlier mask) of its Q."""
+    import torch
+
+    from mi_optimize_tpu_torch.quant.spqr_impl import _double_quant
+
+    Q, s, z = Q.cpu(), s.cpu(), z.cpu()
+    o, c = Q.shape
+    qs = torch.stack([_double_quant(s[:, k], qq_bits, qq_g) for k in range(s.shape[1])], 1)
+    qz = torch.stack([_double_quant(z[:, k], qq_bits, qq_g) for k in range(s.shape[1])], 1)
+    Qg = Q.reshape(o, -1, g)
+    codes = torch.clamp(torch.round(Qg / torch.clamp(qs, min=1e-9)[:, :, None] + qz[:, :, None]),
+                        0, 2 ** bits - 1)
+    out = ((codes - qz[:, :, None]) * qs[:, :, None] - Qg).abs() > 1e-5 * qs[:, :, None].abs()
+    return codes.reshape(o, c), out.reshape(o, c)
+
+
+def check_spqr_quip_7b(blk, H, stats, dev):
+    """Rows spqr_7b and quip_7b on q_proj from the same Hessian (phase 2's
+    card H, copied to the CPU) and, for QuIP, the same U and V (drawn once on
+    the host): at least ALGO_SHARE of the codes equal; SpQR's outlier count
+    within 1% of the CPU's; QuIP's output error ‖X(Ŵ−W)ᵀ‖² on the sampled
+    calibration inputs within 1% of the CPU's."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.quant import quip_impl
+    from mi_optimize_tpu_torch.quant.spqr_impl import spqr_quantize_matrix
+
+    W, h = blk["q_proj"].weight, H["q_proj"]
+    kw = dict(bits=4, blocksize=128, groupsize=16, qq_bits=3, qq_groupsize=16,
+              rel_threshold=0.2)
+    (Qg, sg, zg, ng), card_s = timed_s(lambda: spqr_quantize_matrix(W, h, **kw))
+    t0 = time.perf_counter()
+    Qc, sc, zc, nc = spqr_quantize_matrix(W.cpu(), h.cpu(), **kw)
+    cpu_s = time.perf_counter() - t0
+    (cg, og), (cc, oc) = spqr_codes(Qg, sg, zg), spqr_codes(Qc, sc, zc)
+    eq, n_g, n_c = share_equal(cg, cc), float(ng), float(nc)
+    ok = eq >= ALGO_SHARE and abs(n_g - n_c) <= 0.01 * n_c
+    log(f"  spqr_7b q_proj (int4 g16, 3-bit qparams in 16s): codes {eq:.6f} equal (>= "
+        f"{ALGO_SHARE}); outliers card {n_g:.0f}, CPU {n_c:.0f} (within 1%), positions "
+        f"{share_equal(og, oc):.6f} equal; card {card_s:.2f} s, CPU {cpu_s:.2f} s -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("spqr_7b: the card's SpQR disagrees with the CPU's")
+    rows = [dict(name="spqr_7b", shape="q_proj 4096->4096", card_s=card_s, cpu_s=cpu_s,
+                 codes_equal=eq, outliers_card=n_g, outliers_cpu=n_c)]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    U = quip_impl.rand_ortho_butterfly(rng, W.shape[0])
+    V = quip_impl.rand_ortho_butterfly(rng, W.shape[1])
+    uv_s = time.perf_counter() - t0
+    codes, orig = [], quip_impl.round_ldl_gptqequiv
+
+    def spy(w, Hh, nbits, blocksize=128):
+        out = orig(w, Hh, nbits, blocksize=blocksize)
+        codes.append(out.cpu())
+        return out
+
+    with mock.patch.object(quip_impl, "round_ldl_gptqequiv", spy):
+        Wg, qcard_s = timed_s(lambda: quip_impl.quip_quantize_matrix(W, h, bits=4, U=U, V=V))
+        t0 = time.perf_counter()
+        Wc = quip_impl.quip_quantize_matrix(W.cpu(), h.cpu(), bits=4, U=U, V=V)
+        qcpu_s = time.perf_counter() - t0
+    X = torch.cat([a.to(dev) for a in stats["q_proj"]["inputs"]])
+    Wf = W.float()
+    errs = [float((X @ (Wq.to(dev) - Wf).t()).double().square().sum()) for Wq in (Wg, Wc)]
+    eq = share_equal(codes[0], codes[1])
+    rel = abs(errs[0] - errs[1]) / errs[1]
+    ok = eq >= ALGO_SHARE and rel <= 0.01
+    log(f"  quip_7b q_proj (int4, qfn b): codes {eq:.6f} equal (>= {ALGO_SHARE}); output error "
+        f"card {errs[0]:.6e}, CPU {errs[1]:.6e} ({rel:.2e} relative, <= 1e-2); U and V "
+        f"{uv_s:.2f} s on the host; card {qcard_s:.2f} s, CPU {qcpu_s:.2f} s -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("quip_7b: the card's QuIP disagrees with the CPU's")
+    rows.append(dict(name="quip_7b", shape="q_proj 4096->4096", card_s=qcard_s, cpu_s=qcpu_s,
+                     uv_host_s=uv_s, codes_equal=eq, output_error_card=errs[0],
+                     output_error_cpu=errs[1]))
+    return rows
+
+
+def check_algorithms_7b(cfg, state, dev, flush):
+    """Phase 2's rows of the other algorithms on the layer and inputs of
+    check_calibration_7b (its card Hessians for SpQR and QuIP): awq_7b,
+    smoothquant_7b, w8a8_7b, fp8_7b, spqr_7b and quip_7b. Returns (rows, the
+    layer's stats for phase 5's awq_layer_7b)."""
+    from mi_optimize_tpu_torch.quant.config import QuantConfig
+    from mi_optimize_tpu_torch.quant.rtn import RTNAlgo
+
+    blk, H, xs, rope = state
+    c1 = dataclasses.replace(cfg, num_layers=1)
+    stats, st_s = timed_s(lambda: layer_stats(blk, xs, rope, c1))
+    log(f"  the layer's AWQ and SmoothQuant stats (8192 sampled tokens, absmean, absmax of its "
+        f"four groups' inputs): {st_s:.2f} s")
+    rows = check_awq_7b(blk, stats, dev)
+    sq_rows, _ = check_smoothquant_7b(blk, stats, dev)
+    rows += sq_rows
+    rtn = RTNAlgo(QuantConfig(**RTN_AFFINE))
+    rtn_lins = {n: rtn.quantize_linear(blk[n], {}) for n in ("q_proj", "down_proj")}
+    rows += check_w8a8_7b(blk, stats, rtn_lins, dev, flush, reps=20)
+    del rtn_lins
+    rows += check_fp8_7b(blk, dev)
+    rows += check_spqr_quip_7b(blk, H, stats, dev)
+    return rows, stats
+
+
+def awq_layer_window(state, stats):
+    """Phase 5's awq_layer_7b: AWQ int4 g128 of one Llama-2-7B layer's seven
+    linears from its four groups' stats (phase 2's)."""
+    from mi_optimize_tpu_torch.quant.awq_impl import awq_quantize_linear
+    from mi_optimize_tpu_torch.quant.config import QuantConfig
+
+    blk, qcfg = state[0], QuantConfig(**AWQ_G128)
+    return lambda: [awq_quantize_linear(qcfg, blk[n], stats[LEAD[n]]) for n in LINEAR_NAMES]
+
+
+FUSED_DECODE = ("block_decode_mega", "model_decode_flat", "model_decode_mega",
+                "model_decode_mega_batch", "mlp_fused")
+
+
+def served_generate(qm, cfg, what, S=128, n=32):
+    """generate on a quantized model served unfused: an S-token prompt and n
+    new tokens (and 1, for the decode ms/token); tokens in range."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+
+    prompt = np.random.default_rng(37).integers(0, cfg.vocab_size, (1, S))
+    walls = {}
+    for k in (n, 1):
+        toks, walls[k] = timed_s(lambda: engine.generate(qm, prompt, max_new_tokens=k,
+                                                         cache_dtype=torch.int8))
+        new = toks[0, S:]
+        if new.shape[0] != k or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+            raise AssertionError(f"{what}: generate returned out-of-range tokens")
+    decode = (walls[n] - walls[1]) * 1e3 / (n - 1)
+    log(f"  {what} generate, {S}-token prompt + {n} tokens: {walls[n] * 1e3:.1f} ms; decode "
+        f"{decode:.3f} ms/token; first tokens {toks[0, S:S + 8].tolist()}")
+    return dict(generate_ms=walls[n] * 1e3, decode_ms_per_token=decode)
+
+
+def eval_routes(qm, tok, dev, what, tol=1e-2):
+    """Benchmark.eval_ppl on 2 x 2048 wikitext test tokens by the fused route
+    and by dequantize-then-matmul (fused=False): finite, within `tol`."""
+    from mi_optimize_tpu_torch.eval.benchmark import Benchmark
+
+    ppl, secs = {}, {}
+    for fused in (True, False):
+        ppl[fused], secs[fused] = timed_s(lambda: Benchmark(fused=fused, device=dev).eval_ppl(
+            qm, tok, ["wikitext2"], seqlen=2048, nsamples=2)["wikitext2"])
+    rel = abs(ppl[True] - ppl[False]) / ppl[False]
+    ok = rel <= tol and 1.0 < ppl[True] < float("inf")
+    log(f"  {what} Benchmark.eval_ppl wikitext2, 2 x 2048 tokens: fused {ppl[True]:.4f} "
+        f"({secs[True]:.2f} s), dequantize-then-matmul {ppl[False]:.4f}: relative difference "
+        f"{rel:.3e} vs {tol} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the fused route's perplexity disagrees")
+    return dict(ppl=ppl[True], ppl_unfused_route=ppl[False], ppl_rel_diff=rel,
+                eval_ppl_s=secs[True])
+
+
+def no_fused_decode(what, counts):
+    bad = [k for k in FUSED_DECODE if counts[k]]
+    if bad:
+        raise AssertionError(f"{what} launched {bad}: smooth-factor models are served unfused")
+
+
+def serve_awq(fp, cfg, dev):
+    """Path p: AWQ int4 g128 of the fp model (calibration CALIB through
+    get_calibrate_loader); generate (B1 gemv16 and B6; no fused-model decode
+    kernel and no fused MLP: every linear carries its smooth factor);
+    Benchmark.eval_ppl, the fused route (B1 mma) within 1e-2 of
+    dequantize-then-matmul; and, reported, AWQ's and RTN's (int4 g128
+    affine) output errors ‖X(Ŵ−W)ᵀ‖² on layer 0's and the last layer's
+    calibration inputs."""
+    from mi_optimize_tpu_torch.datasets.calibration import get_calibrate_loader
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.quant import QuantConfig, quantize
+
+    tok, L = ByteTokenizer(), cfg.num_layers
+    qcfg = QuantConfig.from_dict(dict(AWQ_G128, calibrate_config=CALIB))
+    qm, calib_s = timed_s(lambda: quantize(fp, qcfg, tokenizer=tok, device=dev))
+    log(f"  quantize (AWQ int4 g128, {CALIB['nsamples']} x {CALIB['seqlen']} wikitext tokens, "
+        f"{L} layers): {calib_s:.1f} s, {calib_s / L:.3f} s a layer")
+    res = dict(layers=L, calib_s=calib_s, s_per_layer=calib_s / L)
+    res.update(served_generate(qm, cfg, "AWQ"))
+    res.update(eval_routes(qm, tok, dev, "AWQ"))
+    rm = quantize(fp, QuantConfig.from_dict(RTN_AFFINE), device=dev)
+    batches = get_calibrate_loader(tok, qcfg.calibrate)
+    errs = {}
+    for i, blk, xs, rope in fp_block_pass(fp.params, cfg, batches, dev):
+        if i not in (0, L - 1):
+            continue
+        e = output_errors(blk, {"awq": qm.params["layers"][i], "rtn": rm.params["layers"][i]},
+                          xs, rope, cfg)
+        errs[i] = {n: [e["awq"][n], e["rtn"][n]] for n in LINEAR_NAMES}
+        log(f"  layer {i}, AWQ/RTN output error ‖X(Ŵ−W)ᵀ‖² on its calibration inputs "
+            f"(reported): " + ", ".join(f"{n} {a / r:.3f}" for n, (a, r) in errs[i].items()))
+    res["output_error_awq_rtn"] = errs
+    return res
+
+
+def serve_smoothquant(fp, cfg, dev):
+    """Path q: SmoothQuant W8A8 (alpha 0.5, int8 per-channel weights, int8
+    dynamic per-token activations) of the fp model: generate (the W8A8 route,
+    B6); Benchmark.eval_ppl: the W8A8 route within 1e-2 of the fake-quant
+    route (fused=False) and within 5% of the fp model's perplexity."""
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.eval.benchmark import Benchmark
+    from mi_optimize_tpu_torch.quant import QuantConfig, quantize
+
+    tok, L = ByteTokenizer(), cfg.num_layers
+    qcfg = QuantConfig.from_dict(dict(SQ_W8A8, calibrate_config=CALIB))
+    qm, calib_s = timed_s(lambda: quantize(fp, qcfg, tokenizer=tok, device=dev))
+    log(f"  quantize (SmoothQuant W8A8, {L} layers): {calib_s:.1f} s, {calib_s / L:.3f} s a layer")
+    res = dict(layers=L, calib_s=calib_s, s_per_layer=calib_s / L)
+    fp_ppl = Benchmark(device=dev).eval_ppl(fp, tok, ["wikitext2"], seqlen=2048,
+                                            nsamples=2)["wikitext2"]
+    res.update(served_generate(qm, cfg, "SmoothQuant W8A8"))
+    res.update(eval_routes(qm, tok, dev, "SmoothQuant W8A8 (route: torch._int_mm)"))
+    rel = abs(res["ppl"] - fp_ppl) / fp_ppl
+    log(f"  SmoothQuant W8A8 perplexity {res['ppl']:.4f} against the fp model's {fp_ppl:.4f}: "
+        f"{rel:.3e} relative (<= 0.05) -> {'ok' if rel <= 0.05 else 'FAIL'}")
+    if not rel <= 0.05:
+        raise AssertionError("path q: the W8A8 model's perplexity is off the fp model's")
+    res.update(fp_ppl=fp_ppl, fp_rel=rel)
+    return res
+
+
+def serve_other_algos(fp, cfg, dev):
+    """Path r: ZeroQuant (int8 g128, int8 per-token), FP8 E4M3 (native
+    storage), AWQ+GPTQ (int4 g128) and SmoothQuant+GPTQ (int8 per channel,
+    int8 per-token) on the first 2 layers of the fp model; each perplexity
+    finite, the fused route within 1e-2 of dequantize-then-matmul; FP8's
+    weights float8_e4m3fn."""
+    import torch
+
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.ops import dequant_matmul
+    from mi_optimize_tpu_torch.quant import QuantConfig, quantize
+
+    c2 = dataclasses.replace(cfg, num_layers=2)
+    fp2 = Model(config=c2, params=dict(fp.params, layers=fp.params["layers"][:2]))
+    tok, res = ByteTokenizer(), {}
+    for name, qd in (("zeroquant", ZQ_W8A8), ("fp8", dict(FP8_E4M3, pack=True)),
+                     ("awq+gptq", AWQ_GPTQ), ("smoothquant+gptq", SQ_GPTQ)):
+        qcfg = QuantConfig.from_dict(dict(qd, calibrate_config=CALIB))
+        qm, calib_s = timed_s(lambda: quantize(fp2, qcfg, tokenizer=tok, device=dev))
+        log(f"  quantize ({name}, 2 layers): {calib_s:.1f} s")
+        if name == "fp8" and qm.params["layers"][0]["q_proj"].weight.dtype != torch.float8_e4m3fn:
+            raise AssertionError("path r: FP8's stored weights are not float8_e4m3fn")
+        before = dequant_matmul.launches
+        res[name] = dict(calib_s=calib_s, **eval_routes(qm, tok, dev, name))
+        if name == "zeroquant" and dequant_matmul.launches == before:
+            raise AssertionError("path r: ZeroQuant's 8-bit linears launched no CUDA-core "
+                                 "dequant_matmul kernel")
+    return res
+
+
+# stats of calibration forwards that quantize activations (SmoothQuant's
+# per-token int8 grid): a code at a rounding tie moves a step, 1/127 of its
+# row's absmax, where the two devices' last bits differ
+ACT_STATS_RTOL = 1e-2
+# (name, config, the rule card vs CPU from the same stats: "exact" words,
+# scales and zeros; "codes" the codes, or the weights where unpacked; "ldl"
+# QuIP's codes in the rotated domain, where one flipped code moves every
+# weight of its row and column after the inverse rotation)
+SMALL_ALGOS = (
+    ("RTN", RTN_AFFINE, "exact"), ("SmoothQuant", SQ_W8A8, "exact"),
+    ("ZeroQuant", ZQ_W8A8, "exact"), ("FP8", dict(FP8_E4M3, pack=True), "exact"),
+    ("AWQ", AWQ_G128, "codes"), ("AWQ+GPTQ", AWQ_GPTQ, "codes"),
+    ("SmoothQuant+GPTQ", SQ_GPTQ, "codes"), ("SpQR", SPQR_G16, "codes"),
+    ("QuIP", QUIP_B, "ldl"))
+
+
+def _stats_rel(a, b):
+    """The largest relative (Frobenius) difference over two calls' stats;
+    counts must be equal."""
+    import torch
+
+    worst = 0.0
+    for k in b:
+        if k in ("nsamples", "ntokens"):
+            if float(a[k]) != float(b[k]):
+                return float("inf")
+            continue
+        x, y = (torch.cat(a[k]), torch.cat(b[k])) if k == "inputs" else (a[k], b[k])
+        worst = max(worst, fro_rel(x.cpu(), y.cpu()) if float(y.norm()) else float(x.norm()))
+    return worst
+
+
+def _same_linear(got, want, rule):
+    """(share of equal codes or weights, bit-equal words, scales and zeros)
+    of two linears of one algorithm."""
+    import torch
+
+    if got.packed is not None:
+        a, b = lin_codes(got), lin_codes(want)
+    else:
+        a, b = got.weight.cpu().float(), want.weight.cpu().float()
+        if rule == "codes":  # unpacked (SpQR, QuIP): weights equal within 1e-5 of the max
+            a = torch.where((a - b).abs() <= 1e-5 * b.abs().max(), b, a)
+    exact = all(torch.equal(getattr(got, f).cpu().view(torch.uint8), getattr(want, f).cpu().view(
+        torch.uint8)) for f in ("packed", "weight", "w_scale", "w_zero")
+        if getattr(want, f) is not None)
+    return share_equal(a, b), exact
+
+
+def small_algorithms_check(dev):
+    """The other nine algorithm configurations on the small f32 model of
+    `small_calibration_check`, quantized on the card: every calibration call's
+    stats within HESS_F32_RTOL (relative, Frobenius; counts equal; where the
+    forwards quantize activations, ACT_STATS_RTOL) of the CPU calibration's
+    on the card's quantized states (its calls given the card's results);
+    then each linear on the CPU from the card's stats: RTN, SmoothQuant,
+    ZeroQuant and FP8 bit-equal (words or float8 bytes, scales, zeros);
+    AWQ, AWQ+GPTQ, SmoothQuant+GPTQ, SpQR and QuIP at least ALGO_SHARE of
+    the codes (of the weights where unpacked; QuIP's LDL codes) equal."""
+    import torch
+
+    from mi_optimize_tpu_torch.datasets.calibration import get_wikitext2
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig, init_params
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.quant import QuantConfig, get_algo, quantize, quip_impl
+
+    cfg = LlamaConfig(vocab_size=320, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    cpu = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    calib = get_wikitext2(ByteTokenizer(), split="train", nsamples=4, seqlen=128, seed=0)
+    res = {}
+    for name, qd, rule in SMALL_ALGOS:
+        qcfg = QuantConfig(**qd)
+        algo = get_algo(qcfg.algo, qcfg)
+        ldl, orig_ldl = [], quip_impl.round_ldl_gptqequiv
+
+        def spy(w, Hh, nbits, blocksize=128):
+            out = orig_ldl(w, Hh, nbits, blocksize=blocksize)
+            ldl.append(out.cpu())
+            return out
+
+        quip_impl.round_ldl_gptqequiv = spy
+        try:
+            with algo_calls(keep=True, cls=type(algo)) as rec:
+                quantize(Model(config=cfg, params=_to(cpu, dev)), qcfg, calib_data=calib,
+                         device=dev)
+            with algo_calls(keep=True, cls=type(algo),
+                            results=[_to(c[2], "cpu") for c in rec.calls]) as cpu_rec:
+                quantize(Model(config=cfg, params=cpu), qcfg, calib_data=calib, device="cpu")
+            n_card, shares, exact = len(ldl), [], True
+            for lin, st, out in rec.calls:
+                share, same = _same_linear(
+                    out, algo.quantize_linear(_to(lin, "cpu"), _to(st, "cpu")), rule)
+                shares.append(share)
+                exact = exact and same
+        finally:
+            quip_impl.round_ldl_gptqequiv = orig_ldl
+        n = len(LINEAR_NAMES) * cfg.num_layers
+        stats_rel = max((_stats_rel(c[1], d[1]) for c, d in zip(rec.calls, cpu_rec.calls)),
+                        default=0.0)
+        if rule == "ldl":  # the card's codes, then the CPU replay's, call by call
+            shares = [share_equal(a, b) for a, b in zip(ldl[:n_card], ldl[n_card:])]
+            if len(ldl) != 2 * n:
+                raise AssertionError("small model, QuIP: its LDL rounding was not called")
+        low = min(shares)
+        rtol = ACT_STATS_RTOL if qcfg.quantize_acts and qcfg.algo != "fp8" else HESS_F32_RTOL
+        ok = (len(rec.calls) == len(cpu_rec.calls) == n and stats_rel <= rtol
+              and (exact if rule == "exact" else low >= ALGO_SHARE))
+        log(f"  small f32 model, {name}: stats of all {len(rec.calls)} calls card vs the CPU "
+            f"calibration's {stats_rel:.2e} (<= {rtol}); each linear on the CPU from the "
+            f"card's stats: " + (f"words, scales and zeros {'bit-equal' if exact else 'DIFFER'}"
+                                 if rule == "exact" else
+                                 f"at least {low:.6f} of the codes equal (>= {ALGO_SHARE})") +
+            f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"small model, {name}: the card's quantization disagrees")
+        res[name] = dict(stats_rel=stats_rel, min_codes_equal=low, bit_equal=exact)
+    return res
 
 # ---------------------------------------------------------------------------
 # phase 5: where the time goes on the main path
@@ -3194,9 +3884,9 @@ KERNELS = {
 
 def counters():
     """(module, attribute) of each kernel's launch counter."""
-    from mi_optimize_tpu_torch.ops import (block_fused, decode_attention, dequant_matmul, mlp_fused,
-                                           model_flat, model_flat_seg, model_fused, paged_attention,
-                                           w4a8_matmul)
+    from mi_optimize_tpu_torch.ops import (block_fused, decode_attention, dequant_matmul,
+                                           int8_matmul, mlp_fused, model_flat, model_flat_seg,
+                                           model_fused, paged_attention, w4a8_matmul)
 
     return {"dequant_matmul": (dequant_matmul, "launches"),
             "dequant_matmul_gemv16": (dequant_matmul, "launches_gemv16"),
@@ -3217,15 +3907,18 @@ def counters():
             "mlp_fused_gemv": (mlp_fused, "launches_gemv"),
             "mlp_fused_mma": (mlp_fused, "launches_mma"),
             "mlp_fused_cuda_core": (mlp_fused, "launches_cuda_core"),
-            "w4a8_matmul": (w4a8_matmul, "launches")}
+            "w4a8_matmul": (w4a8_matmul, "launches"),
+            # the W8A8 route's torch._int_mm calls (a library call, not a kernel row)
+            "w8a8_int_mm": (int8_matmul, "launches")}
 
 
-def run_path(name, needs, fn):
+def run_path(name, needs, fn, cuda_core=False):
     """Drive one path with every launch counter at 0 just before it and read
-    just after; fail unless each kernel in `needs` launched, and if the CUDA-core
-    dequant_matmul or mlp_fused kernels launched (every served linear is bf16
-    int4: the tensor-core kernels' inputs). Returns (the path's result with its
-    peak memory, its counts)."""
+    just after; fail unless each kernel in `needs` launched, and, unless
+    `cuda_core` (a path with 8-bit linears), if the CUDA-core dequant_matmul or
+    mlp_fused kernels launched (every other served linear is bf16 int4: the
+    tensor-core kernels' inputs). Returns (the path's result with its peak
+    memory, its counts)."""
     import torch
 
     cs = counters()
@@ -3240,7 +3933,7 @@ def run_path(name, needs, fn):
     missing = [k for k in needs if counts[k] == 0]
     if missing:
         raise AssertionError(f"{name} launched no {missing} kernel")
-    if counts["dequant_matmul"] or counts["mlp_fused_cuda_core"]:
+    if not cuda_core and (counts["dequant_matmul"] or counts["mlp_fused_cuda_core"]):
         raise AssertionError(f"{name} took the CUDA-core dequant_matmul or mlp_fused kernels "
                              "for bf16 int4 linears")
     return res, counts
@@ -3440,9 +4133,14 @@ def main() -> int:
     # calibration on one fp layer: GPTQ and RTN, card against CPU
     report["calibration_rows"], calib_layer = check_calibration_7b(cfg, dev)
     torch.cuda.empty_cache()
+    # the other algorithms and the W8A8 route on the same layer, card against CPU
+    new_s = {}  # the seconds of the other algorithms' rows, paths p-r, phase 4, window
+    (report["algorithm_rows"], calib_stats), new_s["phase 2 rows"] = timed_s(
+        lambda: check_algorithms_7b(cfg, calib_layer, dev, flush))
+    torch.cuda.empty_cache()
 
     phase("3", "serving at Llama-2-7B width and depth (int4 g128, bf16, int8 KV cache)")
-    counts = {k: 0 for k in KERNELS}
+    counts = {k: 0 for k in counters()}
 
     def tally(c):
         for k, n in c.items():
@@ -3601,7 +4299,30 @@ def main() -> int:
             or c["mlp_fused"]:
         raise AssertionError("path o launched a fused-model decode kernel or the fused MLP on "
                              "permuted linears")
-    del fp
+    t_algos = time.perf_counter()
+    fpa = Model(config=dataclasses.replace(cfg, num_layers=ALGO_LAYERS),
+                params=dict(fp.params, layers=fp.params["layers"][:ALGO_LAYERS]))
+    log(f" p. AWQ int4 g128 of the fp Llama-2-7B's first {ALGO_LAYERS} layers, served unfused")
+    report["awq"], c = run_path(
+        "AWQ: quantize + generate + eval_ppl", ("dequant_matmul_gemv16", "dequant_matmul_mma",
+                                                "decode_attention"),
+        lambda: serve_awq(fpa, fpa.config, dev))
+    tally(c)
+    no_fused_decode("path p", c)
+    log(f" q. SmoothQuant W8A8 of the same {ALGO_LAYERS} layers, served unfused")
+    report["smoothquant_w8a8"], c = run_path(
+        "SmoothQuant W8A8: quantize + generate + eval_ppl", ("decode_attention", "w8a8_int_mm"),
+        lambda: serve_smoothquant(fpa, fpa.config, dev))
+    tally(c)
+    no_fused_decode("path q", c)
+    log(" r. ZeroQuant, FP8, AWQ+GPTQ and SmoothQuant+GPTQ on the first 2 layers")
+    report["other_algorithms"], c = run_path(
+        "ZeroQuant, FP8, AWQ+GPTQ, SmoothQuant+GPTQ: quantize + eval_ppl",
+        ("dequant_matmul", "dequant_matmul_mma"), lambda: serve_other_algos(fp, cfg, dev),
+        cuda_core=True)
+    tally(c)
+    new_s["paths p-r"] = time.perf_counter() - t_algos
+    del fp, fpa
     torch.cuda.empty_cache()
     log(f"  launches over the served paths: {counts}")
 
@@ -3617,11 +4338,14 @@ def main() -> int:
     small_spec_batchers_check(dev)
     small_unfused_check(dev)
     report["small_calibration"] = small_calibration_check(dev)
-    # the CUDA-core dequant_matmul kernels serve the f32 models: their launches are
-    # these paths' (the bf16 served paths above must launch none)
-    counts["dequant_matmul"] = getattr(*core)
-    counts["mlp_fused_cuda_core"] = getattr(*mcore)
-    log(f"  CUDA-core dequant_matmul kernels (f32 x): {counts['dequant_matmul']} launches; "
+    report["small_algorithms"], new_s["phase 4 small algorithms"] = timed_s(
+        lambda: small_algorithms_check(dev))
+    # the CUDA-core dequant_matmul kernels serve the f32 models and path r's 8-bit
+    # linears: their launches are these paths' (the bf16 int4 paths must launch none)
+    counts["dequant_matmul"] += getattr(*core)
+    counts["mlp_fused_cuda_core"] += getattr(*mcore)
+    log(f"  CUDA-core dequant_matmul kernels (f32 x, path r's 8-bit words): "
+        f"{counts['dequant_matmul']} launches; "
         f"CUDA-core mlp_fused kernels: {counts['mlp_fused_cuda_core']}")
     if not counts["dequant_matmul"]:
         raise AssertionError("the f32 paths launched no CUDA-core dequant_matmul kernel")
@@ -3636,8 +4360,14 @@ def main() -> int:
                "generate_unfused_long_8": (unfused_decode_window(ptarget, cfg, dev, S=1920,
                                                                  T=2048), 8),
                "ppl_2048": (ppl_window(rmodel, cfg, dev), 2048),
-               "gptq_layer_7b": (gptq_layer_window(calib_layer), 1, dict(reps=1, raw=True))})
+               "gptq_layer_7b": (gptq_layer_window(calib_layer), 1, dict(reps=1, raw=True)),
+               "awq_layer_7b": (awq_layer_window(calib_layer, calib_stats), 1,
+                                dict(reps=1, raw=True))})
     del amodel, astack, ameta
+    new_s["awq_layer_7b window"] = report["profile"]["awq_layer_7b"]["wall_ms"] * 2e-3
+    report["new_parts_s"] = dict(new_s, total=sum(new_s.values()))
+    log("  the other algorithms' parts: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in report["new_parts_s"].items()))
 
     kernels = []
     for r in rows:

@@ -17,10 +17,12 @@ models for exact token gates (`utils.planted`); and the unfused model that
 quantization returns (separate q/k/v and gate/up), for `generate` and
 `eval.ppl.compute_ppl`, through the decode attention (`ops.decode_attention`),
 the fused MLP (`ops.mlp_fused`) and, with `MI_W4A8_INT=1`, the W4A8 integer
-product (`ops.w4a8_matmul`). `quant.quantize` makes that model from an fp
-one (RTN, GPTQ; layer-sequential calibration on wikitext2 / PTB / C4 from
-`datasets.calibration`), and `eval.benchmark.Benchmark` measures its
-perplexity.
+product (`ops.w4a8_matmul`), and the W8A8 integer product
+(`ops.int8_matmul`, torch._int_mm). `quant.quantize` makes that model from
+an fp one (RTN, GPTQ, AWQ, SmoothQuant, ZeroQuant, FP8, SpQR, QuIP,
+AWQ+GPTQ, SmoothQuant+GPTQ; layer-sequential calibration on wikitext2 / PTB
+/ C4 from `datasets.calibration`), and `eval.benchmark.Benchmark` measures
+its perplexity.
 
 The top-level exports mirror the reference package's: `quantize`,
 `Benchmark`, `QuantizedLinear`, `Precision` and `as_precision`.

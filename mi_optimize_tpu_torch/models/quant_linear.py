@@ -8,9 +8,13 @@ weights, fake-quantized weights, or packed int weights plus qparams, and
        -> fake-quant activations     (static scale or dynamic per-token/tensor)
        -> x @ dequant(W)^T + bias    (packed path: ops.dequant_matmul)
 
-With `MI_W4A8_INT=1` (read at each call), packed int4 linears with dynamic
-symmetric int8 activations take the integer product of ops.w4a8_matmul at
-32 rows or more, as the reference does; the W8A8 route is not ported.
+Packed 8-bit symmetric per-channel or per-tensor linears with dynamic
+symmetric int8 activations (SmoothQuant's W8A8) take the exact integer
+product of ops.int8_matmul. With `MI_W4A8_INT=1` (read at each call), packed
+int4 linears with dynamic symmetric int8 activations take the integer
+product of ops.w4a8_matmul at 32 rows or more, as the reference does. FP8
+linears (fp8_format) fake-quantize their activations on the fp8 grid
+(quant.fp8.fp8_fake_quant).
 
 Packed words are the int32 bit-view of the reference's uint32 words-major
 [in*wbit/32, out] layout (core/packing.py).
@@ -114,19 +118,13 @@ def dequant_weight(q: QuantizedLinear) -> torch.Tensor:
     return w
 
 
-def _supports_w8a8(s: QuantSpec) -> bool:
-    return (s.wbit == 8 and s.w_symmetric and s.w_qtype in ("per_channel", "per_tensor")
-            and s.abit == 8 and s.a_dynamic and s.a_symmetric and not s.a_unsigned
-            and s.a_qtype in ("per_token", "per_tensor") and s.fp8_format is None
-            and not s.quant_out)
-
-
 def _quant_activations(q: QuantizedLinear, x: torch.Tensor) -> torch.Tensor:
     s = q.spec
     if s.abit is None:
         return x
     if s.fp8_format is not None:
-        raise NotImplementedError("fp8 activation quantization is not ported yet (ROADMAP.md A8)")
+        from ..quant.fp8 import fp8_fake_quant  # local import: quant imports this module
+        return fp8_fake_quant(x, s.fp8_format)
     if s.a_dynamic:
         dq, _, _ = qparams.quantize_dequantize(
             x, s.abit, s.a_qtype, s.a_groupsize, s.a_symmetric, s.a_unsigned)
@@ -149,10 +147,14 @@ def quant_linear_apply(q: QuantizedLinear, x: torch.Tensor, *, fused: bool = Tru
     s = q.spec
     if q.perm is not None and q.packed is not None and fused:
         x = torch.index_select(x, -1, q.perm.to(torch.long))
-    if q.packed is not None and fused and _supports_w8a8(s):
-        raise NotImplementedError(
-            "the W8A8 int8 matmul route is not ported yet (ROADMAP.md A8)")
     if q.packed is not None and fused:
+        from ..ops.int8_matmul import supports_native_int8, w8a8_matmul
+        if supports_native_int8(s):
+            # W8A8: the integers stay integer through an exact int32 product
+            y = w8a8_matmul(x, q)
+            if q.bias is not None:
+                y = y + q.bias
+            return y.to(in_dtype)
         from ..ops.w4a8_matmul import supports_w4a8, w4a8_matmul
         if (supports_w4a8(s) and math.prod(x.shape[:-1]) >= 32
                 and os.environ.get("MI_W4A8_INT") == "1"):

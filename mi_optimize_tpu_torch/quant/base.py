@@ -16,8 +16,9 @@ Reducers:
   inputs   a host-side sample of raw input tokens, capped at
            MAX_INPUT_SAMPLE_TOKENS (AWQ's grid-search loss).
 
-Only `rtn` and `gptq` are ported; `get_algo` raises NotImplementedError for
-the reference's other algorithms (ROADMAP.md A8).
+The algorithms register themselves when their modules are imported
+(quant/__init__.py imports them all): rtn, gptq, awq, smoothquant (also
+"smooth"), zeroquant, fp8, spqr, quip, awq+gptq and smoothquant+gptq.
 """
 from __future__ import annotations
 
@@ -30,10 +31,6 @@ from ..models.quant_linear import QuantizedLinear
 from .config import QuantConfig
 
 MAX_INPUT_SAMPLE_TOKENS = 8192  # cap for the host-side 'inputs' sample
-
-# the reference's algorithms that the port does not have yet
-NOT_PORTED = ("awq", "smoothquant", "smooth", "zeroquant", "fp8", "spqr", "quip",
-              "awq+gptq", "smoothquant+gptq")
 
 
 @contextlib.contextmanager
@@ -139,11 +136,7 @@ def register_algo(name: str):
 
 
 def get_algo(name: str, cfg: QuantConfig) -> BaseAlgo:
-    # registrations live in the algorithm modules; import side-effect
-    from . import gptq, rtn  # noqa: F401
+    # the algorithm modules register themselves when quant/__init__.py imports them
     if name not in _REGISTRY:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"algo {name!r} is not ported yet (ROADMAP.md A8); ported: {sorted(_REGISTRY)}")
         raise ValueError(f"unknown algo {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name](cfg)

@@ -55,14 +55,25 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert bad.strip() == "[]"
 
 
+PORTED_ALGOS = {"awq": "awq.AWQAlgo", "smoothquant": "smoothquant.SmoothQuantAlgo",
+                "smooth": "smoothquant.SmoothQuantAlgo", "zeroquant": "zeroquant.ZeroQuantAlgo",
+                "fp8": "fp8.FP8Algo", "spqr": "spqr.SpQRAlgo", "quip": "quip.QuIPAlgo",
+                "awq+gptq": "combos.AWQGPTQAlgo", "smoothquant+gptq": "combos.SmoothGPTQAlgo"}
+
+
 def test_top_level_exports_and_algorithms_not_ported():
+    """The top-level exports, and each of the nine algorithm names beyond
+    rtn and gptq gives its ported class (none is left unported)."""
     import mi_optimize_tpu_torch as pt
 
     assert pt.quantize is quantize and pt.Benchmark is Benchmark
     assert pt.QuantizedLinear.__module__ == "mi_optimize_tpu_torch.models.quant_linear"
     assert pt.as_precision("int4") is pt.Precision.INT4
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_algo("awq", QuantConfig(algo="awq"))
+    for name, where in PORTED_ALGOS.items():
+        algo = get_algo(name, QuantConfig(algo=name))
+        mod, cls = where.split(".")
+        assert type(algo).__module__ == f"mi_optimize_tpu_torch.quant.{mod}"
+        assert type(algo).__name__ == cls
 
 
 def _no_cuda(monkeypatch):

@@ -31,7 +31,9 @@ tensor-core GEMV, csrc/flat_gemv.cuh) in float32 and bfloat16 at g32 and g128
 with a ragged vocab, the same bits on a second launch, and its plan refused
 when the scratch it is given falls short; and the new int8 KV rows of the
 per-layer, flat and batched decode kernels bitwise against their plain
-versions.
+versions; the W8A8 route (torch._int_mm) against its plain version (the
+int32 sums equal), FP8's native float8 storage and AWQ of one linear
+against the CPU.
 
 Needs an NVIDIA GPU and nvcc; every test skips without one. On the card:
 
@@ -1575,3 +1577,81 @@ def test_quantize_matches_the_cpu(dev, monkeypatch, algo):
     p_cpu = compute_ppl(Model(config=cfg, params=_to(dict(qg.params, layers=layers), "cpu")),
                         test)
     np.testing.assert_allclose(p_card, p_cpu, rtol=1e-3)
+
+
+@pytest.mark.parametrize("qtype", ["per_channel", "per_tensor"])
+@pytest.mark.parametrize("M", [1, 16, 17, 128])
+def test_w8a8_route_matches_its_plain_version(dev, M, qtype):
+    """The W8A8 route (torch._int_mm on rows padded to a multiple of 8 and
+    at least 24) against its plain version on the card: the int32 sums
+    equal, the outputs within 1e-6 relative, launched once a call."""
+    from mi_optimize_tpu_torch.ops import int8_matmul
+    from mi_optimize_tpu_torch.ops.w4a8_matmul import quantize_activations
+
+    g = torch.Generator().manual_seed(M)
+    N, K = 384, 512
+    w = torch.randn(N, K, generator=g) * K ** -0.5
+    fake, scale, zero = qparams.quantize_dequantize(w, 8, qtype, -1, True, False)
+    ints = qparams.quantize_to_int(fake, scale, zero, 8, qtype, -1, False)
+    spec = QuantSpec(wbit=8, abit=8, w_qtype=qtype, a_qtype="per_token", w_unsigned=False,
+                     a_unsigned=False, w_packed=True)
+    lin = QuantizedLinear(spec=spec, out_features=N, in_features=K,
+                          packed=packing.pack_weight_device(ints, 8, qrange(8, False)).to(dev),
+                          w_scale=scale.to(dev), w_zero=zero.to(dev))
+    assert int8_matmul.supports_native_int8(spec)
+    x = (torch.randn(M, K, generator=g) * 2.0).to(dev)
+    xi, sx = quantize_activations(x, "per_token")
+    wi8 = int8_matmul.weight_int8(lin)
+    int8_matmul.launches = 0
+    acc = int8_matmul.w8a8_matmul_int(xi, wi8)
+    assert int8_matmul.launches == 1 and acc.dtype == torch.int32 and acc.shape == (M, N)
+    assert torch.equal(acc, int8_matmul.w8a8_matmul_ref(xi, wi8))
+    y = int8_matmul.w8a8_matmul(x, lin)
+    sw = lin.w_scale.reshape(1, -1) if lin.w_scale.numel() > 1 else lin.w_scale.reshape(1, 1)
+    _close(y, int8_matmul.w8a8_matmul_ref(xi, wi8).float() * sx * sw, rtol=1e-6)
+    _close(y.cpu(), int8_matmul.w8a8_matmul(x.cpu(), _to(lin, "cpu")), rtol=1e-6)
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_fp8_native_storage_on_the_card(dev, fmt):
+    """FP8 on the card: the native float8 weights dequantize to the float32
+    fake grid bit for bit, and weights, bytes and scales are the CPU's."""
+    from mi_optimize_tpu_torch.models.quant_linear import dequant_weight
+    from mi_optimize_tpu_torch.quant.config import QuantConfig
+    from mi_optimize_tpu_torch.quant.fp8 import FP8Algo, fp8_quantize_value
+
+    w = torch.randn(256, 512, generator=torch.Generator().manual_seed(3)) * 0.05
+    w[0, :4] = torch.tensor([0.0, 1e-9, 3.0, -2.0])
+    cfg = QuantConfig(algo="fp8", wbit="int8", abit="int8", fp8_format=fmt, pack=True)
+    got = FP8Algo(cfg).quantize_linear(QuantizedLinear.fp(w.to(dev)), {})
+    want = FP8Algo(cfg).quantize_linear(QuantizedLinear.fp(w), {})
+    assert got.weight.dtype == (torch.float8_e4m3fn if fmt == "e4m3" else torch.float8_e5m2)
+    assert torch.equal(dequant_weight(got), fp8_quantize_value(w.to(dev), got.w_scale, fmt))
+    assert torch.equal(got.weight.cpu().view(torch.uint8), want.weight.view(torch.uint8))
+    assert torch.equal(got.w_scale.cpu(), want.w_scale)
+    x = torch.randn(8, 512, generator=torch.Generator().manual_seed(4))
+    from mi_optimize_tpu_torch.quant.fp8 import fp8_fake_quant
+
+    assert torch.equal(fp8_fake_quant(x.to(dev), fmt).cpu(), fp8_fake_quant(x, fmt))
+
+
+def test_awq_linear_matches_the_cpu(dev):
+    """AWQ int4 g128 of one 256x512 linear on the card and on the CPU from
+    the same sampled inputs and absmean sums: the same smooth scales (its
+    candidates are correctly rounded powers over float64 means) and at least
+    99% of the codes equal."""
+    from mi_optimize_tpu_torch.quant.awq_impl import awq_quantize_linear
+    from mi_optimize_tpu_torch.quant.config import QuantConfig
+
+    g = torch.Generator().manual_seed(9)
+    w = torch.randn(256, 512, generator=g) * 512 ** -0.5
+    x = torch.randn(1024, 512, generator=g) * (0.2 + 5.0 * torch.rand(512, generator=g))
+    stats = {"inputs": [x], "abssum": x.abs().sum(0), "ntokens": torch.tensor(1024.0)}
+    cfg = QuantConfig(algo="awq", wbit="int4", w_groupsize=128)
+    got = awq_quantize_linear(cfg, QuantizedLinear.fp(w.to(dev)), _to(stats, dev))
+    want = awq_quantize_linear(cfg, QuantizedLinear.fp(w), stats)
+    assert torch.equal(got.smooth_factor.cpu(), want.smooth_factor)
+    s = got.spec
+    codes = [packing.unpack_weight(q.packed.cpu(), s.wbit, qrange(s.wbit, s.w_unsigned), 512)
+             for q in (got, want)]
+    assert float((codes[0] == codes[1]).double().mean()) >= 0.99

@@ -2,7 +2,7 @@
 (ops/dequant_matmul.py, interpret mode off-TPU), f32, rtol = atol = 2e-4:
 the two sum in different orders, and small M takes the grouped rescale on
 both sides while larger M dequantizes first."""
-import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -74,15 +74,27 @@ def test_quant_linear_apply_matches_jax(fused):
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4)
 
 
-def test_w8a8_route_is_not_ported_yet():
+@pytest.mark.parametrize("a_qtype", ["per_token", "per_tensor"])
+@pytest.mark.parametrize("M", [1, 17, 64])
+def test_w8a8_route_matches_jax(M, a_qtype):
+    """The W8A8 route of quant_linear_apply (packed 8-bit symmetric weights,
+    dynamic symmetric int8 activations: the exact integer product of
+    ops.int8_matmul) against JAX's, within 1e-6 relative."""
+    from mi_optimize_tpu.models.quant_linear import quant_linear_apply as jax_apply
     from mi_optimize_tpu_torch.models.quant_linear import quant_linear_apply
+    from mi_optimize_tpu_torch.ops import int8_matmul
 
     jl = _jax_lin(8, "per_channel", -1, seed=2)
+    jl = jl.replace(spec=jl.spec.replace(abit=8, a_qtype=a_qtype, a_unsigned=False),
+                    bias=jnp.asarray(np.random.default_rng(M).standard_normal(N), jnp.float32))
     tl = linear_from_jax(jax_tree(jl), "cpu")
-    tl = tl.replace(spec=dataclasses.replace(tl.spec, abit=8, a_qtype="per_token",
-                                             a_unsigned=False))
-    with pytest.raises(NotImplementedError, match="A8"):
-        quant_linear_apply(tl, torch.zeros(2, K))
+    assert int8_matmul.supports_native_int8(tl.spec)
+    x = np.random.default_rng(M + 1).standard_normal((M, K)).astype(np.float32)
+    ref = np.asarray(jax_apply(jl, jnp.asarray(x)))
+    with mock.patch.object(int8_matmul, "w8a8_matmul", wraps=int8_matmul.w8a8_matmul) as route:
+        got = quant_linear_apply(tl, torch.from_numpy(x))
+    assert route.call_count == 1
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("M,grouped", [(1, True), (19, True), (40, True), (64, False),

@@ -487,9 +487,12 @@ def test_quantize_moves_to_the_device_and_not_ported_algos_raise(e2e):
     cfg = QuantConfig(algo="gptq", wbit="int4", blocksize=32, w_has_zero=True)
     with pytest.raises(NotImplementedError, match="A9"):
         pt.quantize(pm, cfg, calib_data=batches, journal=object(), device="cpu")
-    for name in ("awq", "smoothquant", "zeroquant", "fp8", "spqr", "quip", "awq+gptq"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            get_algo(name, cfg)
+    # every algorithm the reference registers is ported
+    for name, cls in (("awq", "AWQAlgo"), ("smoothquant", "SmoothQuantAlgo"),
+                      ("smooth", "SmoothQuantAlgo"), ("zeroquant", "ZeroQuantAlgo"),
+                      ("fp8", "FP8Algo"), ("spqr", "SpQRAlgo"), ("quip", "QuIPAlgo"),
+                      ("awq+gptq", "AWQGPTQAlgo"), ("smoothquant+gptq", "SmoothGPTQAlgo")):
+        assert type(get_algo(name, cfg)).__name__ == cls
     with pytest.raises(ValueError, match="unknown algo"):
         get_algo("nope", cfg)
     # the fp model's tensors stay where they were; the result lives on `device`
