@@ -154,6 +154,28 @@ Phases:
      r. ZeroQuant, FP8 E4M3 (native float8 weights), AWQ+GPTQ and
         SmoothQuant+GPTQ on the first 2 layers: perplexities finite, routes
         within 1e-2, ZeroQuant's 8-bit linears on B1's CUDA-core kernel;
+     s. a checkpoint in the HF safetensors format written by the script
+        (meta-llama/Llama-2-7b-hf's published config.json cut to
+        CKPT_LAYERS = 4 layers; f16 weights from seed 0 at fp_llama's
+        scales, two shards): `load_llama_from_hf` onto the card (f32 equal
+        to what was written, bf16 equal to it rounded); `quantize` of the
+        bf16 model by GPTQ int4 g128 affine calibrated on the C-Eval
+        fixture, twice uninterrupted and once through a
+        `CalibrationJournal` stopped after block 1 and resumed (words,
+        scales and zeros equal); `save_model` / `load_model` (every array
+        bit-equal, the wikitext PPL of one 2048-token batch equal);
+        `Benchmark.eval_ceval` / `eval_cmmlu` (2 questions a subject, each
+        prediction held against an unpadded forward where the top two
+        letters are more than 2e-2 x max|logit| apart) and `eval_boss` (4
+        QA questions); the same questions through `generate` with the int8
+        cache (the decode attention), each step's logits within 5e-2 x
+        max|logit| of the float32 cache's; after
+        `fuse_for_serving`, `beam_search` (W=4, 32 tokens, a 150-token
+        prompt; one paged launch a step) against `dense_beam` on the
+        batched kernel's dense mode (a), W=1 against `PagedMegaBatcher`'s
+        greedy tokens, and W=4 on the planted target (the planted chain);
+        a `RunManifest` of its phases (beside `--report`, as
+        path_s_manifest.json) and a `Memory` round trip of the embedding;
      every kernel must have launched on its path, no path but r may launch
      the CUDA-core dequant_matmul kernels (every other served linear is bf16
      int4), and every planted path's tokens must equal the planted chain
@@ -2022,6 +2044,95 @@ def compare_with_generate(model, compare):
     return agree
 
 
+def dense_beam(model, prompt, W, max_new, lp=1.0, eos=None, max_len=256):
+    """The reference of serving.beam.beam_search (a copy of the JAX
+    package's tests/test_beam.py::_dense_beam on the port): the same scoring
+    and selection over the full [W, V] log-softmax in float64, each step one
+    launch of the batched kernel's dense mode (a) over a [L, W, Hkv, T, D]
+    cache, the reorder a gather of the parents' slot slabs in place of the
+    page tables. Returns [(new tokens, normalized score)], best first."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.serving.engine import init_cache, prefill
+    from mi_optimize_tpu_torch.serving.megadecode import (model_step_batch,
+                                                         stack_cache_batched, stack_serving)
+
+    def _log_softmax(x):
+        z = x.astype(np.float64) - x.max(axis=-1, keepdims=True)
+        return z - np.log(np.exp(z).sum(axis=-1, keepdims=True))
+
+    def _norm(score, length, lp):
+        return score / max(length, 1) ** lp
+
+    cfg = model.config
+    dev = model.params["embed"].device
+    stack, meta = stack_serving(model)
+    prompt = np.asarray(prompt).reshape(-1)
+    S = len(prompt)
+    one = init_cache(cfg, 1, max_len, torch.int8, device=dev)
+    logits0, one = prefill(model.params, cfg, torch.as_tensor(prompt[None, :], device=dev), one)
+    cache = {f: v.repeat_interleave(W, dim=1) for f, v in stack_cache_batched(one).items()}
+
+    logp0 = _log_softmax(logits0[0].to(torch.float32).cpu().numpy())
+    first = np.argsort(-logp0, kind="stable")[:W]
+    beams = [[int(t)] for t in first]
+    scores = np.array([logp0[t] for t in first])
+    last = np.array([int(t) for t in first])
+    positions = np.full(W, S, np.int64)
+    alive = [eos is None or beams[w][-1] != eos for w in range(W)]
+    finished = []
+    for w in range(W):
+        if not alive[w]:
+            finished.append((beams[w], _norm(scores[w], 1, lp)))
+
+    while any(alive) and len(beams[0]) < max_new:
+        live = [w for w in range(W) if alive[w]]
+        with torch.no_grad():
+            logits, cache = model_step_batch(model.params, stack, meta, cfg,
+                                             torch.as_tensor(last[:, None], device=dev), cache,
+                                             positions)
+        logp = _log_softmax(logits.to(torch.float32).cpu().numpy())
+        V = logp.shape[1]
+        cand = np.full((W, V), -np.inf)
+        cand[live] = scores[live, None] + logp[live]
+        order = np.argsort(-cand.reshape(-1), kind="stable")[:2 * W]
+        nlen = len(beams[live[0]]) + 1
+        new_parent, new_tok, new_score = [], [], []
+        for idx in order:
+            p_, t_ = int(idx // V), int(idx % V)
+            if eos is not None and t_ == eos:
+                if len(finished) < 2 * W:
+                    finished.append((beams[p_] + [t_], _norm(cand[p_, t_], nlen, lp)))
+                continue
+            new_parent.append(p_)
+            new_tok.append(t_)
+            new_score.append(cand[p_, t_])
+            if len(new_parent) == len(live):
+                break
+        gather = torch.as_tensor(new_parent + [0] * (W - len(new_parent)), device=dev)
+        cache = {f: v[:, gather] for f, v in cache.items()}
+        nb, ns = [], np.full(W, -np.inf)
+        nl, npos = np.zeros(W, np.int64), np.zeros(W, np.int64)
+        old_pos = positions.copy()
+        for i, (p_, t_, s_) in enumerate(zip(new_parent, new_tok, new_score)):
+            nb.append(beams[p_] + [t_])
+            ns[i] = s_
+            nl[i] = t_
+            npos[i] = old_pos[p_] + 1
+        beams = nb + [[]] * (W - len(nb))
+        scores, last, positions = ns, nl, npos
+        alive = [i < len(new_parent) for i in range(W)]
+        if npos.max() >= max_len - 1:
+            break
+
+    for w in range(W):
+        if alive[w]:
+            finished.append((beams[w], _norm(scores[w], len(beams[w]), lp)))
+    finished.sort(key=lambda x: -x[1])
+    return finished[:W]
+
+
 def planted_chain(m, t, n):
     out = []
     for _ in range(n):
@@ -3200,6 +3311,462 @@ def serve_other_algos(fp, cfg, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# path s: a Llama-2-7B-shaped HF checkpoint on disk -> load -> calibrate on
+# C-Eval with an interrupted and resumed journal -> save / reload -> PPL,
+# C-Eval, CMMLU, BOSS -> beam search
+# ---------------------------------------------------------------------------
+
+# meta-llama/Llama-2-7b-hf's published config.json, cut to CKPT_LAYERS layers
+LLAMA2_7B_HF = {"architectures": ["LlamaForCausalLM"], "bos_token_id": 1, "eos_token_id": 2,
+                "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02,
+                "intermediate_size": 11008, "max_position_embeddings": 4096,
+                "model_type": "llama", "num_attention_heads": 32, "num_hidden_layers": 32,
+                "num_key_value_heads": 32, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+                "rope_scaling": None, "tie_word_embeddings": False, "torch_dtype": "float16",
+                "use_cache": True, "vocab_size": 32000}
+CKPT_LAYERS = 4             # path s's depth: three GPTQ passes of 4.5-5 s a layer (PERF.md §4)
+CEVAL_CALIB = {"name": "ceval", "nsamples": 1, "seqlen": 2048}   # one question a subject
+MCQA_TIE = 2e-2             # MCQA predictions held where the top two letters are this x max|logit| apart
+INT8_TOL = 5e-2             # int8-cache logits held within this x max|logit| of the float32 cache's
+INT8_NEW = 16               # tokens a BOSS question that path s decodes with the int8 cache
+BEAM_W, BEAM_NEW, BEAM_PROMPT, BEAM_LEN = 4, 32, 150, 256
+
+
+def write_safetensors(path, tensors):
+    """A .safetensors file of `tensors` ({name: CPU tensor}, f32/f16/bf16):
+    the 8-byte header length, the JSON header padded with spaces to 8
+    bytes, then the raw little-endian buffers in header order."""
+    import json as _json
+
+    import torch
+
+    names = sorted(tensors)
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    st = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+    for n in names:
+        t = tensors[n]
+        header[n] = {"dtype": st[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + t.numel() * t.element_size()]}
+        off += t.numel() * t.element_size()
+    h = _json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little") + h)
+        for n in names:
+            t = tensors[n].contiguous()
+            f.write(t.view(torch.uint8).reshape(-1).numpy().tobytes())
+
+
+def write_hf_checkpoint(root, hf_cfg, dev, seed=0, shards=2):
+    """config.json and `shards` .safetensors files of f16 weights drawn on
+    the card from `seed` at fp_llama's scales (linears N(0, 1/fan-in), the
+    embedding N(0, 0.02^2), norms 1). Returns {name: f16 tensor on dev}."""
+    import torch
+
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=1)
+    h, inter, V = hf_cfg["hidden_size"], hf_cfg["intermediate_size"], hf_cfg["vocab_size"]
+    q = hf_cfg["num_attention_heads"] * (h // hf_cfg["num_attention_heads"])
+    kv = hf_cfg["num_key_value_heads"] * (h // hf_cfg["num_attention_heads"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape, scale=None):
+        x = torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32)
+        return (x * (shape[1] ** -0.5 if scale is None else scale)).to(torch.float16)
+
+    t = {"model.embed_tokens.weight": w(V, h, scale=0.02),
+         "model.norm.weight": torch.ones(h, dtype=torch.float16, device=dev),
+         "lm_head.weight": w(V, h)}
+    for i in range(hf_cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}"
+        t.update({f"{p}.input_layernorm.weight": torch.ones(h, dtype=torch.float16, device=dev),
+                  f"{p}.post_attention_layernorm.weight": torch.ones(h, dtype=torch.float16,
+                                                                     device=dev),
+                  f"{p}.self_attn.q_proj.weight": w(q, h), f"{p}.self_attn.k_proj.weight": w(kv, h),
+                  f"{p}.self_attn.v_proj.weight": w(kv, h), f"{p}.self_attn.o_proj.weight": w(h, q),
+                  f"{p}.mlp.gate_proj.weight": w(inter, h), f"{p}.mlp.up_proj.weight": w(inter, h),
+                  f"{p}.mlp.down_proj.weight": w(h, inter)})
+    names = sorted(t)
+    for s in range(shards):
+        write_safetensors(os.path.join(root, f"model-{s + 1:05d}-of-{shards:05d}.safetensors"),
+                          {n: t[n].cpu() for n in names[s::shards]})
+    return t
+
+
+def hf_tensors(params):
+    """The loaded model's tensors under their HF names (untied llama)."""
+    out = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"],
+           "lm_head.weight": params["lm_head"].weight}
+    for i, blk in enumerate(params["layers"]):
+        p = f"model.layers.{i}"
+        out[f"{p}.input_layernorm.weight"] = blk["input_norm"]
+        out[f"{p}.post_attention_layernorm.weight"] = blk["post_norm"]
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            out[f"{p}.self_attn.{n}.weight"] = blk[n].weight
+        for n in ("gate_proj", "up_proj", "down_proj"):
+            out[f"{p}.mlp.{n}.weight"] = blk[n].weight
+    return out
+
+
+def tree_tensors(params):
+    """{path: tensor} of every tensor of a params tree (QuantizedLinear
+    fields under path.field)."""
+    import torch
+
+    out = {}
+
+    def walk(node, key):
+        if isinstance(node, torch.Tensor):
+            out[key] = node
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                if k != "mega":
+                    walk(v, f"{key}.{k}" if key else k)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{key}.{i}")
+        elif dataclasses.is_dataclass(node):
+            for f in dataclasses.fields(node):
+                if f.init:
+                    walk(getattr(node, f.name), f"{key}.{f.name}")
+    walk(params, "")
+    return out
+
+
+def bit_diffs(got, want):
+    """{path: entries whose bits differ} over two params trees (a path
+    missing on one side, or of another dtype or shape, counts as -1)."""
+    import torch
+
+    g, w = tree_tensors(got), tree_tensors(want)
+    out = {}
+    for k in sorted(set(g) | set(w)):
+        a, b = g.get(k), w.get(k)
+        if a is None or b is None or a.dtype != b.dtype or a.shape != b.shape:
+            out[k] = -1
+            continue
+        bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        n = int((a.reshape(-1).view(bits) != b.reshape(-1).view(bits)).sum()) if a.numel() else 0
+        if n:
+            out[k] = n
+    return out
+
+
+def mcqa_gate(calls, params, cfg, letters, fused):
+    """Each recorded C-Eval / CMMLU prediction (the padded bucket's letter
+    logits at L-1) against the argmax over the letter logits of an unpadded
+    forward of the same prompt, wherever that forward's top two letters are
+    more than MCQA_TIE x max|logit| apart. Returns (held, near-ties)."""
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+
+    held = ties = 0
+    for ids, last, row in calls:
+        with torch.no_grad():
+            ref = llama.forward(params, cfg, ids[:, :last + 1], fused=fused)[0, last]
+        ref = ref.to(torch.float32)
+        lt = ref[letters]
+        top2 = torch.topk(lt, 2).values
+        if float(top2[0] - top2[1]) <= MCQA_TIE * float(ref.abs().max()):
+            ties += 1
+            continue
+        held += 1
+        if int(torch.argmax(row[letters])) != int(torch.argmax(lt)):
+            raise AssertionError("path s: an MCQA prediction of the padded bucket differs from "
+                                 "the unpadded forward's")
+    return held, ties
+
+
+def int8_gate(model, prompts, n_new):
+    """Greedy decoding with the int8 cache (engine.generate: on an unfused
+    model on the card, the decode attention) held against the float32 cache
+    on the same prompts: each step's int8 and float32 logits, taken by
+    decode_step fed the int8 route's tokens, must be within INT8_TOL x
+    max|logit| of each other, and the int8 ones' argmax must be generate's
+    token. Returns (steps, the largest difference over max|logit|, steps
+    whose float32 argmax is the int8 token)."""
+    import torch
+
+    from mi_optimize_tpu_torch.serving import engine
+
+    params, cfg = model.params, model.config
+    dev = params["embed"].device
+    steps = same = 0
+    worst = 0.0
+    for ids in prompts:
+        S = ids.shape[1]
+        max_len = -(-(S + n_new) // 128) * 128
+        toks = engine.generate(model, ids, max_new_tokens=n_new, max_len=max_len,
+                               cache_dtype=torch.int8)[0, S:]
+        x = torch.as_tensor(ids, device=dev)
+        l8, c8 = engine.prefill(params, cfg, x, engine.init_cache(cfg, 1, max_len, torch.int8,
+                                                                  device=dev))
+        l32, c32 = engine.prefill(params, cfg, x, engine.init_cache(cfg, 1, max_len,
+                                                                    torch.float32, device=dev))
+        for i, t in enumerate(toks):
+            a, b = l8[0].to(torch.float32), l32[0].to(torch.float32)
+            if int(torch.argmax(a)) != int(t):
+                raise AssertionError("path s: generate's int8-cache token differs from "
+                                     "decode_step's argmax")
+            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+            same += int(torch.argmax(b)) == int(t)
+            steps += 1
+            if i + 1 < len(toks):
+                tok = torch.tensor([[int(t)]], device=dev)
+                l8, c8 = engine.decode_step(params, cfg, tok, c8, S + i)
+                l32, c32 = engine.decode_step(params, cfg, tok, c32, S + i)
+    if worst > INT8_TOL:
+        raise AssertionError(f"path s: the int8-cache logits are {worst:.3g} x max|logit| from "
+                             f"the float32 cache's (limit {INT8_TOL})")
+    return steps, worst, same
+
+
+def serve_checkpoint(hf_cfg, dev, target, m_t, root, manifest_path=None):
+    """Path s: write a checkpoint in the HF safetensors format (hf_cfg, f16,
+    two shards), load it onto the card (f32: every tensor equal to what was
+    written; bf16: equal to it rounded), quantize the bf16 model by GPTQ
+    int4 g128 affine calibrated on the C-Eval fixture (CEVAL_CALIB through
+    get_calibrate_loader: one question a subject, of their own lengths) twice
+    uninterrupted and once through a CalibrationJournal that stops the pass
+    after block 1 and a second call that resumes it (its words, scales and
+    zeros equal to the two uninterrupted passes' wherever those agree),
+    save_model / load_model (every array bit-equal; the wikitext PPL of one
+    2048-token batch equal), Benchmark.eval_ceval / eval_cmmlu (2 questions
+    a subject; each prediction held against an unpadded forward by
+    mcqa_gate) and eval_boss (4 QA questions), the same questions through
+    generate with the int8 cache (the decode attention) held against the
+    float32 cache by int8_gate, then after fuse_for_serving beam_search (W = BEAM_W,
+    BEAM_NEW tokens, a BEAM_PROMPT-token prompt: one full page and a tail)
+    against dense_beam on mode (a) (the same hypotheses, scores within
+    1e-5), W = 1 against PagedMegaBatcher's greedy tokens, and W = BEAM_W
+    on the planted target (its top hypothesis the planted chain); a
+    RunManifest of the phases and a Memory round trip of the embedding
+    (card, host, disk, card) bit-equal. Accuracies are of random weights."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.datasets.boss import get_testdata_boss, get_zeroshot_prompt
+    from mi_optimize_tpu_torch.datasets.calibration import get_calibrate_loader
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer, encode_ids
+    from mi_optimize_tpu_torch.eval import mcqa
+    from mi_optimize_tpu_torch.eval.benchmark import Benchmark
+    from mi_optimize_tpu_torch.export import CalibrationJournal, load_model, save_model
+    from mi_optimize_tpu_torch.memory import Memory
+    from mi_optimize_tpu_torch.models.loader import load_llama_from_hf
+    from mi_optimize_tpu_torch.quant import QuantConfig, quantize
+    from mi_optimize_tpu_torch.serving.beam import beam_search
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+    from mi_optimize_tpu_torch.serving.paged import PagedMegaBatcher
+    from mi_optimize_tpu_torch.utils import RunManifest
+
+    tok, res = ByteTokenizer(), {}
+    qcfg = QuantConfig.from_dict(dict(GPTQ_AFFINE, actorder=False, calibrate_config=CEVAL_CALIB))
+    man = RunManifest("path_s", config=qcfg)
+    ck, qdir, jdir = (os.path.join(root, d) for d in ("hf", "quantized", "journal"))
+    shutil.rmtree(root, ignore_errors=True)
+
+    def timed(name, fn):
+        with man.phase(name):
+            out, s = timed_s(fn)
+        res[f"{name}_s"] = s
+        return out
+
+    written = timed("write", lambda: write_hf_checkpoint(ck, hf_cfg, dev))
+    nbytes_ck = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+    res["checkpoint_bytes"] = nbytes_ck
+    log(f"  wrote {len(written)} f16 tensors, {nbytes_ck / 1e9:.3f} GB in 2 shards: "
+        f"{res['write_s']:.1f} s")
+    m32 = timed("load", lambda: load_llama_from_hf(ck, dtype=torch.float32))
+    bad = [n for n, t in hf_tensors(m32.params).items()
+           if t.dtype != torch.float32 or t.device.type != torch.device(dev).type
+           or not torch.equal(t, written[n].float())]
+    cfg = m32.config
+    log(f"  load_llama_from_hf (f32, on the card, warm page cache): {res['load_s']:.2f} s; "
+        f"{len(written) - len(bad)} of {len(written)} tensors equal to what was written -> "
+        f"{'ok' if not bad else 'FAIL'}")
+    if bad or cfg.num_layers != hf_cfg["num_hidden_layers"] or cfg.max_seq_len != 4096:
+        raise AssertionError(f"path s: the loaded checkpoint differs from the written one: {bad[:4]}")
+    del m32
+    fp = timed("load_bf16", lambda: load_llama_from_hf(ck, dtype=torch.bfloat16))
+    bad = [n for n, t in hf_tensors(fp.params).items()
+           if not torch.equal(t, written[n].to(torch.bfloat16))]
+    if bad:
+        raise AssertionError(f"path s: the bf16 load differs from the written values: {bad[:4]}")
+    del written
+    torch.cuda.empty_cache()
+
+    batches = get_calibrate_loader(tok, qcfg.calibrate)
+    lens = [b.shape[1] for b in batches]
+    log(f"  C-Eval calibration set: {len(batches)} questions of {min(lens)}-{max(lens)} tokens "
+        f"({sum(lens)} in all)")
+    res["calib_len_range"] = [min(lens), max(lens)]
+    res["calib_questions"], res["calib_tokens"] = len(batches), sum(lens)
+    qa = timed("calibrate", lambda: quantize(fp, qcfg, tokenizer=tok, device=dev))
+    qb = timed("calibrate_again", lambda: quantize(fp, qcfg, tokenizer=tok, device=dev))
+
+    class Interrupted(Exception):
+        pass
+
+    class StopAfter1(CalibrationJournal):
+        def save_block(self, i, blk, xs=None):
+            super().save_block(i, blk, xs=xs)
+            if i == 1:
+                raise Interrupted
+
+    def interrupted():
+        try:
+            quantize(fp, qcfg, tokenizer=tok, journal=StopAfter1(jdir), device=dev)
+        except Interrupted:
+            return CalibrationJournal(jdir).last_completed()
+        raise AssertionError("path s: the interrupted pass ran to its end")
+
+    stopped = timed("interrupted", interrupted)
+    qr = timed("resume", lambda: quantize(fp, qcfg, tokenizer=tok,
+                                          journal=CalibrationJournal(jdir), device=dev))
+    ab = bit_diffs(qa.params["layers"], qb.params["layers"])
+    if any(v < 0 for v in ab.values()):
+        raise AssertionError(f"path s: two uninterrupted passes differ in layout: {ab}")
+    held = {}
+    ta, tb, trs = (tree_tensors(q.params["layers"]) for q in (qa, qb, qr))
+    for k, a in ta.items():
+        same = a == tb[k] if k in ab else torch.ones_like(a, dtype=torch.bool)
+        if trs[k].dtype != a.dtype or not torch.equal(trs[k][same], a[same]):
+            held[k] = int((trs[k][same] != a[same]).sum()) if trs[k].dtype == a.dtype else -1
+    L = cfg.num_layers
+    log(f"  quantize GPTQ int4 g128 on C-Eval, {L} layers: {res['calibrate_s']:.1f} s and "
+        f"{res['calibrate_again_s']:.1f} s uninterrupted ({res['calibrate_s'] / L:.2f} s a layer; "
+        f"{sum(ab.values())} entries of the two passes differ, in {len(ab)} arrays); stopped "
+        f"after block {stopped} in {res['interrupted_s']:.1f} s, resumed in {res['resume_s']:.1f} "
+        f"s: words, scales and zeros equal to the uninterrupted passes' -> "
+        f"{'ok' if not held else 'FAIL'}")
+    if stopped != 1 or held:
+        raise AssertionError(f"path s: the resumed pass differs: {held}")
+    res.update(uninterrupted_diff_entries=sum(ab.values()), stopped_after=stopped)
+    del qb, qr, fp
+    torch.cuda.empty_cache()
+
+    timed("save", lambda: save_model(qa, qdir))
+    nbytes_q = sum(os.path.getsize(os.path.join(qdir, f)) for f in os.listdir(qdir))
+    res["saved_bytes"] = nbytes_q
+    rm = timed("reload", lambda: load_model(qdir))
+    diff = bit_diffs(rm.params, qa.params)
+    log(f"  save_model {res['save_s']:.1f} s ({nbytes_q / 1e9:.3f} GB), load_model "
+        f"{res['reload_s']:.2f} s: {len(tree_tensors(rm.params))} arrays, bit-equal -> "
+        f"{'ok' if not diff and rm.config == cfg else 'FAIL'}")
+    if diff or rm.config != cfg or rm.params["embed"].device.type != torch.device(dev).type:
+        raise AssertionError(f"path s: the reloaded model differs: {diff}")
+    bench = Benchmark(fused=True, device=dev)
+    ppl = {}
+    with man.phase("ppl"):
+        for name, m in (("in_memory", qa), ("reloaded", rm)):
+            ppl[name] = bench.eval_ppl(m, tok, ["wikitext2"], seqlen=2048, nsamples=1)["wikitext2"]
+    log(f"  Benchmark.eval_ppl wikitext2, 1 x 2048 tokens: in memory {ppl['in_memory']!r}, "
+        f"reloaded {ppl['reloaded']!r} -> {'ok' if ppl['in_memory'] == ppl['reloaded'] else 'FAIL'}")
+    if ppl["in_memory"] != ppl["reloaded"] or not np.isfinite(ppl["reloaded"]):
+        raise AssertionError("path s: the reloaded model's perplexity differs")
+    res["ppl"] = ppl["reloaded"]
+    man.metric("ppl_wikitext2_2048", ppl["reloaded"])
+    del qa
+    torch.cuda.empty_cache()
+
+    calls = []
+    last_logits = mcqa._last_logits
+
+    def recording(params, c, ids, last_idx, fused=True):
+        out = last_logits(params, c, ids, last_idx, fused)
+        calls.append((ids, int(last_idx[0]), out[0].to(torch.float32)))
+        return out
+
+    mcqa._last_logits = recording
+    try:
+        with man.phase("eval"):
+            t0 = time.perf_counter()
+            ce = bench.eval_ceval(rm, tok, max_questions=2)
+            cm = bench.eval_cmmlu(rm, tok, max_questions=2)
+            mcqa_s = time.perf_counter() - t0
+            bo, boss_s = timed_s(lambda: bench.eval_boss(rm, tok, max_questions=4))
+    finally:
+        mcqa._last_logits = last_logits
+    with man.phase("int8_decode"):
+        boss_ids = [encode_ids(tok, get_zeroshot_prompt("QuestionAnswering") + q)
+                    for q in get_testdata_boss("QuestionAnswering", "advqa")[0][:4]]
+        (i8_steps, i8_err, i8_same), i8_s = timed_s(
+            lambda: int8_gate(rm, boss_ids, INT8_NEW))
+    gated, ties = mcqa_gate(calls, rm.params, cfg, mcqa._letter_ids(tok), True)
+    acc = {b: sum(c["correct"] for c in r["categories"].values())
+           / max(sum(c["total"] for c in r["categories"].values()), 1)
+           for b, r in (("ceval", ce), ("cmmlu", cm))}
+    log(f"  C-Eval {len(ce['subjects'])} subjects, CMMLU {len(cm['subjects'])}, 2 questions a "
+        f"subject: accuracy {acc['ceval']:.3f} and {acc['cmmlu']:.3f} (random weights: 0.25 "
+        f"expected) in {mcqa_s:.1f} s; {gated} of {len(calls)} predictions held against an "
+        f"unpadded forward, {ties} near-ties left out -> ok; BOSS QA advqa, 4 questions: "
+        f"{bo} in {boss_s:.1f} s")
+    log(f"  the same 4 questions, {INT8_NEW} tokens each through generate with the int8 cache "
+        f"(decode attention): {i8_steps} steps' logits within {i8_err:.4g} x max|logit| of the "
+        f"float32 cache's (limit {INT8_TOL}), {i8_same} of {i8_steps} argmaxes the same, in "
+        f"{i8_s:.1f} s -> ok")
+    res.update(ceval_acc=acc["ceval"], cmmlu_acc=acc["cmmlu"], mcqa_s=mcqa_s, boss=bo,
+               boss_s=boss_s, mcqa_questions=len(calls), mcqa_held=gated, mcqa_ties=ties,
+               int8_steps=i8_steps, int8_max_rel_err=i8_err, int8_same_argmax=i8_same,
+               int8_s=i8_s)
+    man.metric("ceval_acc", acc["ceval"])
+    man.metric("cmmlu_acc", acc["cmmlu"])
+    man.metric("boss_qa", bo)
+
+    sm = fuse_for_serving(rm)
+    del rm
+    prompt = np.random.default_rng(47).integers(0, cfg.vocab_size, (BEAM_PROMPT,))
+    with man.phase("beam"):
+        got, beam_s = timed_s(lambda: beam_search(sm, prompt, beam_width=BEAM_W,
+                                                  max_new_tokens=BEAM_NEW, max_len=BEAM_LEN))
+        ref, dense_s = timed_s(lambda: dense_beam(sm, prompt, BEAM_W, BEAM_NEW, max_len=BEAM_LEN))
+    ok = len(got) == len(ref) == BEAM_W and all(
+        g[0] == r[0] and abs(g[1] - r[1]) <= 1e-5 * abs(r[1]) for g, r in zip(got, ref))
+    log(f"  beam_search W={BEAM_W}, {BEAM_NEW} tokens after {BEAM_PROMPT}: {beam_s:.2f} s "
+        f"({beam_s / BEAM_NEW * 1e3:.1f} ms a step), the dense reference on mode (a) "
+        f"{dense_s:.2f} s; hypotheses equal, scores within 1e-5 -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"path s: beam_search differs from the dense reference: {got} {ref}")
+    one = beam_search(sm, prompt, beam_width=1, max_new_tokens=BEAM_NEW, max_len=BEAM_LEN)
+    greedy = list(PagedMegaBatcher(sm, n_slots=1, max_len=BEAM_LEN, page_size=128, n_pages=4)
+                  .run_all([prompt], max_new_tokens=BEAM_NEW).values())[0]
+    log(f"  beam_search W=1: {BEAM_NEW} tokens equal to PagedMegaBatcher's greedy ones (one "
+        f"slot) -> {'ok' if one[0][0] == list(greedy) else 'FAIL'}")
+    if one[0][0] != list(greedy):
+        raise AssertionError("path s: beam_search W=1 differs from greedy decoding")
+    pp = np.random.default_rng(48).integers(0, cfg.vocab_size, (BEAM_PROMPT,))
+    planted = beam_search(target, pp, beam_width=BEAM_W, max_new_tokens=BEAM_NEW,
+                          max_len=BEAM_LEN)
+    gate_chain(f"beam_search W={BEAM_W} on the planted target, top hypothesis", planted[0][0],
+               planted_chain(m_t, int(pp[-1]), BEAM_NEW))
+    res.update(beam_s=beam_s, beam_ms_per_step=beam_s / BEAM_NEW * 1e3, dense_beam_s=dense_s,
+               beam=[[list(map(int, t)), float(s)] for t, s in got])
+
+    emb = sm.params["embed"]
+    mem = Memory(emb, spill_dir=root)
+    trail = [mem.desc]
+    for where in ("host", "disk", "device"):
+        mem.to(where)
+        trail.append(mem.desc)
+    back = mem.value
+    if not (back.device == emb.device and back.dtype == emb.dtype
+            and torch.equal(back.view(torch.int16), emb.view(torch.int16))):
+        raise AssertionError("path s: the Memory round trip of the embedding changed its bits")
+    log(f"  Memory round trip of the embedding ({tuple(emb.shape)} {emb.dtype}): "
+        f"{' -> '.join(trail)}, bit-equal -> ok")
+    res["manifest"] = man.data
+    if manifest_path:
+        man.save(manifest_path)
+    log("  phases (s): " + ", ".join(f"{k} {v}" for k, v in man.data["phases"].items()))
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 # stats of calibration forwards that quantize activations (SmoothQuant's
 # per-token int8 grid): a code at a rounding tie moves a step, 1/127 of its
 # row's absmax, where the two devices' last bits differ
@@ -4322,6 +4889,21 @@ def main() -> int:
         cuda_core=True)
     tally(c)
     new_s["paths p-r"] = time.perf_counter() - t_algos
+    log(f" s. a Llama-2-7B-shaped HF checkpoint ({CKPT_LAYERS} layers): load, calibrate on C-Eval "
+        "(interrupted and resumed), save, reload, PPL, C-Eval, CMMLU, BOSS, beam search")
+    t_s = time.perf_counter()
+    manifest = (os.path.join(os.path.dirname(os.path.abspath(args.report)), "path_s_manifest.json")
+                if args.report else None)
+    report["checkpoint"], c = run_path(
+        "checkpoint: load + calibrate + resume + save + reload + evaluate + beam",
+        ("dequant_matmul_gemv16", "dequant_matmul_mma", "mlp_fused", "decode_attention",
+         "model_decode_mega_batch", "model_decode_mega_batch_paged"),
+        lambda: serve_checkpoint(dict(LLAMA2_7B_HF, num_hidden_layers=CKPT_LAYERS), dev, target,
+                                 m_t, os.path.join(HERE, "build", "path_s"), manifest))
+    tally(c)
+    report["checkpoint"]["wall_s"] = time.perf_counter() - t_s
+    log(f"  path s: {report['checkpoint']['wall_s']:.1f} s, peak memory "
+        f"{report['checkpoint']['peak_mem_gib']:.2f} GiB")
     del fp, fpa
     torch.cuda.empty_cache()
     log(f"  launches over the served paths: {counts}")

@@ -21,8 +21,12 @@ product (`ops.w4a8_matmul`), and the W8A8 integer product
 (`ops.int8_matmul`, torch._int_mm). `quant.quantize` makes that model from
 an fp one (RTN, GPTQ, AWQ, SmoothQuant, ZeroQuant, FP8, SpQR, QuIP,
 AWQ+GPTQ, SmoothQuant+GPTQ; layer-sequential calibration on wikitext2 / PTB
-/ C4 from `datasets.calibration`), and `eval.benchmark.Benchmark` measures
-its perplexity.
+/ C4 / C-Eval / CMMLU / BOSS from `datasets.calibration`, resumable through
+`export.CalibrationJournal`), `eval.benchmark.Benchmark` measures its
+perplexity and its C-Eval, CMMLU and BOSS scores, `models.loader` loads a
+HuggingFace safetensors checkpoint, `export` saves and reloads the quantized
+model in the JAX package's format, and `serving.beam.beam_search` serves it
+with beam search on the paged batched kernel.
 
 The top-level exports mirror the reference package's: `quantize`,
 `Benchmark`, `QuantizedLinear`, `Precision` and `as_precision`.

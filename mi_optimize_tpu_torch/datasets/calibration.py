@@ -11,7 +11,8 @@ bundled wikitext and PTB splits are HF builder-cache `.arrow` files, each an
 Arrow IPC stream; `read_arrow_stream` reads their string columns with numpy
 and the standard library (no `datasets` or `pyarrow` package). C4 reads
 allenai-layout json.gz shards from MI_TPU_DATA_DIR/c4. The C-Eval, CMMLU and
-BOSS calibration sets are not ported (ROADMAP.md A11).
+BOSS calibration sets come from datasets.ceval / cmmlu / boss: one
+[1, L <= seqlen] array per question or example, of varying L.
 """
 from __future__ import annotations
 
@@ -321,7 +322,15 @@ def get_calibrate_loader(tokenizer, cfg: CalibrationConfig) -> List[np.ndarray]:
     if name == "c4":
         return get_c4(tokenizer, split="train", nsamples=cfg.nsamples,
                       seqlen=cfg.seqlen, seed=cfg.seed)
-    if name in ("ceval", "cmmlu", "boss"):
-        raise NotImplementedError(f"the {name} calibration set is not ported yet "
-                                  "(ROADMAP.md A11)")
+    if name == "ceval":
+        from .ceval import get_calibrate_ceval
+        return get_calibrate_ceval(tokenizer, subject=cfg.subject, nsamples=cfg.nsamples,
+                                   seqlen=cfg.seqlen)
+    if name == "cmmlu":
+        from .cmmlu import get_calibrate_cmmlu
+        return get_calibrate_cmmlu(tokenizer, subject=cfg.subject, nsamples=cfg.nsamples,
+                                   seqlen=cfg.seqlen)
+    if name == "boss":
+        from .boss import get_calibrate_boss
+        return get_calibrate_boss(tokenizer, nsamples=cfg.nsamples, seqlen=cfg.seqlen)
     raise ValueError(f"unsupported calibrate name {name!r}")

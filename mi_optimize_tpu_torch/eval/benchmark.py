@@ -1,11 +1,15 @@
 """Benchmark facade: the evaluation entry point.
 
-Port of mi_optimize_tpu/eval/benchmark.py's perplexity family (wikitext2 /
-PTB / C4, token-weighted NLL then exp, through eval.ppl.compute_ppl). The
-evaluation runs on `device` ("cuda" unless the caller asks for the CPU); a
-model whose tensors live elsewhere is moved there for the call. C-Eval,
-CMMLU, BOSS and lm-eval (ROADMAP.md A11) and the latency benchmark
-(ROADMAP.md A5) are not ported yet.
+Port of mi_optimize_tpu/eval/benchmark.py:
+  eval_ppl       wikitext2 / PTB / C4 perplexity (token-weighted NLL, then
+                 exp, through eval.ppl.compute_ppl)
+  eval_ceval     C-Eval MCQA, 0/5-shot, ABCD-logit argmax (eval.mcqa)
+  eval_cmmlu     CMMLU MCQA, same protocol
+  eval_boss      BOSS OOD suite through greedy generation + metrics (eval.boss)
+The evaluation runs on `device` ("cuda" unless the caller asks for the CPU);
+a model whose tensors live elsewhere is moved there for the call. The
+lm-eval adapter (ROADMAP.md A11) and the latency benchmark (ROADMAP.md A5)
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,14 +28,17 @@ class Benchmark:
         self.fused = fused
         self.device = device
 
-    def _ppl(self, model: Model, batches) -> float:
+    def _on_device(self, model: Model) -> Model:
         dev = resolve_device(self.device)
         if model.params["embed"].device != dev:
             from ..quant.calibrate import to_device
 
             model = Model(config=model.config, params=to_device(model.params, dev),
                           family=model.family)
-        return compute_ppl(model, batches, fused=self.fused)
+        return model
+
+    def _ppl(self, model: Model, batches) -> float:
+        return compute_ppl(self._on_device(model), batches, fused=self.fused)
 
     # ---------------- perplexity ----------------
     def eval_wiki2_ppl(self, model: Model, tokenizer, seqlen=2048, nsamples=40):
@@ -64,16 +71,30 @@ class Benchmark:
             log.info("ppl[%s] = %.4f", name, out[name])
         return out
 
+    # ---------------- MCQA ----------------
+    def eval_ceval(self, model: Model, tokenizer, model_type="llama", subject="all",
+                   num_shot=0, **kw):
+        from .mcqa import eval_ceval
+
+        return eval_ceval(self._on_device(model), tokenizer, subject=subject,
+                          num_shot=num_shot, fused=self.fused, **kw)
+
+    def eval_cmmlu(self, model: Model, tokenizer, model_type="llama", subject="all",
+                   num_shot=0, **kw):
+        from .mcqa import eval_cmmlu
+
+        return eval_cmmlu(self._on_device(model), tokenizer, subject=subject,
+                          num_shot=num_shot, fused=self.fused, **kw)
+
+    # ---------------- BOSS ----------------
+    def eval_boss(self, model: Model, tokenizer, test_dataset="QuestionAnswering_advqa",
+                  split="test", ICL_split="test", num_shot=0, **kw):
+        from .boss import eval_boss
+
+        return eval_boss(self._on_device(model), tokenizer, test_dataset=test_dataset,
+                         split=split, num_shot=num_shot, fused=self.fused, **kw)
+
     # ---------------- not ported yet ----------------
-    def eval_ceval(self, *a, **kw):
-        raise NotImplementedError("C-Eval is not ported yet (ROADMAP.md A11)")
-
-    def eval_cmmlu(self, *a, **kw):
-        raise NotImplementedError("CMMLU is not ported yet (ROADMAP.md A11)")
-
-    def eval_boss(self, *a, **kw):
-        raise NotImplementedError("BOSS is not ported yet (ROADMAP.md A11)")
-
     def eval_lmeval(self, *a, **kw):
         raise NotImplementedError("the lm-eval adapter is not ported yet (ROADMAP.md A11)")
 

@@ -14,10 +14,18 @@ llama_sequential driver, without its hooks):
     of stats (same input);
   * block_sequential=True feeds the quantized block's outputs to the next
     block; False feeds the fp block's (computed before the block is
-    quantized).
+    quantized);
+  * `journal=` (export.checkpoint.CalibrationJournal) makes the pass
+    resumable: after each block the quantized block and the next block's
+    inputs are written, and a new call skips the finished blocks and starts
+    from the saved inputs.
 
 The quantized blocks and the ping-pong activations stay on the calibration
-device. The reference's resumable `journal=` is not ported (ROADMAP.md A9).
+device. Calibration batches may differ in length (the C-Eval, CMMLU and BOSS
+sets give one [1, L] array per question): each batch takes the rope tables
+and causal mask of its own length, where the JAX package's
+sequential_quantize takes the first batch's for all and raises on the
+others.
 """
 from __future__ import annotations
 
@@ -73,16 +81,29 @@ def _block_forward(blk, x, cos, sin, mask, cfg: LlamaConfig):
     return out
 
 
-def _collect_group_stats(blk, batches, cos, sin, mask, cfg, name, kinds, in_features):
+class _Rope:
+    """(cos, sin, mask) of each sequence length, made once a length."""
+
+    def __init__(self, cfg: LlamaConfig, dev):
+        self.cfg, self.dev, self._by_len = cfg, dev, {}
+
+    def __call__(self, x):
+        S = x.shape[1]
+        if S not in self._by_len:
+            cos, sin = llama.rope_tables(self.cfg, torch.arange(S, device=self.dev))
+            self._by_len[S] = (cos, sin, llama.causal_mask(S, self.dev))
+        return self._by_len[S]
+
+
+def _collect_group_stats(blk, batches, rope, cfg, name, kinds, in_features):
     """The calibration stats of one linear group's input over the batches."""
     if not kinds:
         return {}
-    dev = cos.device
-    stats = init_stats(kinds, in_features, dev)
+    stats = init_stats(kinds, in_features, rope.dev)
     dev_kinds = tuple(k for k in kinds if k != "inputs")
     stats_dev = {k: v for k, v in stats.items() if k != "inputs"}
     for x in batches:
-        cap = _stats_forward(blk, x, cos, sin, mask, cfg, name)
+        cap = _stats_forward(blk, x, *rope(x), cfg, name)
         if dev_kinds:
             stats_dev = update_stats_device(dev_kinds, stats_dev, cap)
         stats = update_stats_host(kinds, stats, cap)
@@ -123,14 +144,10 @@ def sequential_quantize(
     device=None,
 ) -> Dict[str, Any]:
     """Quantize all transformer blocks layer-sequentially on `device`;
-    returns the new params (the other entries as they were)."""
-    if journal is not None:
-        raise NotImplementedError("resumable calibration (journal=) is not ported yet "
-                                  "(ROADMAP.md A9)")
+    returns the new params (the other entries as they were). With `journal`
+    the pass resumes after the journal's last finished block."""
     dev = resolve_device(device)
-    seqlen = calib_batches[0].shape[-1]
-    cos, sin = llama.rope_tables(cfg, torch.arange(seqlen, device=dev))
-    mask = llama.causal_mask(seqlen, dev)
+    rope = _Rope(cfg, dev)
 
     emb = params["embed"].to(dev)
     xs = [emb[torch.as_tensor(np.asarray(b), device=dev)] for b in calib_batches]
@@ -138,28 +155,41 @@ def sequential_quantize(
 
     kinds = _kinds(algo)
     new_layers = []
+    resume_from = -1
+    if journal is not None:
+        resume_from = journal.last_completed()
+        if resume_from >= 0:
+            new_layers = [journal.load_block(i, device=dev) for i in range(resume_from + 1)]
+            saved = journal.load_acts(device=dev)
+            if saved is not None:
+                xs = saved
+            log.info("resuming calibration after block %d", resume_from)
     for i, fp_blk in enumerate(params["layers"]):
+        if i <= resume_from:
+            continue
         blk = to_device(dict(fp_blk), dev)
         if not quant_cfg.block_sequential:
             # fp propagation: the next block's inputs from the unquantized block
-            fp_outs = [_block_forward(blk, x, cos, sin, mask, cfg) for x in xs]
+            fp_outs = [_block_forward(blk, x, *rope(x), cfg) for x in xs]
 
         for group in GROUP_ORDER:
             sel = [n for n in group if _selected(quant_cfg, f"layers.{i}.{n}")]
             if not sel:
                 continue
             lead = group[0]
-            stats = _collect_group_stats(blk, xs, cos, sin, mask, cfg, lead, kinds,
+            stats = _collect_group_stats(blk, xs, rope, cfg, lead, kinds,
                                          blk[lead].in_features)
             for name in sel:
                 blk[name] = algo.quantize_linear(blk[name], stats)
             del stats
 
         if quant_cfg.block_sequential:
-            xs = [_block_forward(blk, x, cos, sin, mask, cfg) for x in xs]
+            xs = [_block_forward(blk, x, *rope(x), cfg) for x in xs]
         else:
             xs = fp_outs
         new_layers.append(blk)
+        if journal is not None:
+            journal.save_block(i, blk, xs=xs)
         log.info("quantized block %d/%d", i + 1, len(params["layers"]))
     return dict(params, layers=new_layers)
 

@@ -1,6 +1,6 @@
 """Paged KV cache: slots share one page pool through per-slot page tables.
 
-Port of mi_optimize_tpu/serving/paged.py: `_topk_packed`, `_copy_pool_page`,
+Port of mi_optimize_tpu/serving/paged.py: `_topk_packed` (on `_topk`), `_copy_pool_page`,
 `init_paged_cache`, `paged_decode_step`, `PagedMegaBatcher`,
 `PagedSpeculativeBatcher` and `PagedRequest` / `PagedBatcher`.
 
@@ -44,11 +44,24 @@ from ..models.quant_linear import quant_linear_apply
 from .batching import _accept_round, _prefill_kv
 
 
+def _topk(logits, k):
+    """Per-row top-k (f32 values, int32 ids) on the device in lax.top_k's
+    order: by value (+0.0 above -0.0), then the lower id, also among equal
+    values at the k-th place (torch.topk leaves that choice open): a stable
+    sort of each row's order-preserving int32 keys of the values
+    (scripts/torch_topk_times.py times it beside torch.topk)."""
+    lf = logits.to(torch.float32)
+    bits = lf.view(torch.int32)
+    keys = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # monotone in the value
+    i = torch.sort(keys, dim=-1, descending=True, stable=True).indices[:, :k]
+    return lf.gather(-1, i), i.to(torch.int32)
+
+
 def _topk_packed(logits, k):
     """[2, B, k] f32 numpy: per-row top-k values and bitcast token ids in one
     array, so the sampling step's device-to-host pull is a single copy."""
-    v, i = torch.topk(logits.to(torch.float32), k, dim=-1)
-    return torch.stack([v, i.to(torch.int32).view(torch.float32)]).cpu().numpy()
+    v, i = _topk(logits, k)
+    return torch.stack([v, i.view(torch.float32)]).cpu().numpy()
 
 
 def _copy_pool_page(pool, src, dst):
@@ -510,11 +523,6 @@ class PagedMegaBatcher:
             K = min(want, logits.shape[-1])
             packed = _topk_packed(logits, K)
             vals_np, idx_np = packed[0], packed[1].view(np.int32)
-            # torch.topk leaves the order among equal values open; order the
-            # candidates as the reference's top_k does: by value, then lower id
-            order = np.lexsort((idx_np, -vals_np), axis=-1)
-            vals_np = np.take_along_axis(vals_np, order, -1)
-            idx_np = np.take_along_axis(idx_np, order, -1)
             pick = lambda i: self._pick_topk(i, vals_np[row_of[i]], idx_np[row_of[i]])
         out = {}
         for i in active:

@@ -40,7 +40,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "mi_optimize_tpu") or m.startswith(("jax.", "flax.", "mi_optimize_tpu.")))
+             if m in ("jax", "flax", "mi_optimize_tpu", "safetensors")
+             or m.startswith(("jax.", "flax.", "mi_optimize_tpu.", "safetensors.")))
 print(len(names), bad)
 """
 

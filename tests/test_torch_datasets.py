@@ -101,14 +101,15 @@ def test_train_split_falls_back_to_validation(bare, caplog):
 
 
 def test_not_ported_sets_raise(bare):
+    # the C-Eval, CMMLU and BOSS sets are ported (tests/test_torch_eval_mcqa.py
+    # holds them against JAX's); lm-eval and the latency benchmark are not
     for name in ("ceval", "cmmlu", "boss"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            C.get_calibrate_loader(ByteTokenizer(), CalibrationConfig(name=name))
+        got = C.get_calibrate_loader(ByteTokenizer(), CalibrationConfig(name=name, nsamples=1))
+        assert got and all(g.dtype == np.int64 and g.shape[0] == 1 for g in got)
     with pytest.raises(ValueError, match="unsupported"):
         C.get_calibrate_loader(ByteTokenizer(), CalibrationConfig(name="nope"))
     b = Benchmark(device="cpu")
-    for fn, item in ((b.eval_ceval, "A11"), (b.eval_cmmlu, "A11"), (b.eval_boss, "A11"),
-                     (b.eval_lmeval, "A11"), (b.eval_latency, "A5")):
+    for fn, item in ((b.eval_lmeval, "A11"), (b.eval_latency, "A5")):
         with pytest.raises(NotImplementedError, match=item):
             fn(None, None)
 

@@ -485,8 +485,17 @@ def test_generic_driver_matches_shapes(e2e):
 def test_quantize_moves_to_the_device_and_not_ported_algos_raise(e2e):
     _, pm, batches, _, _ = e2e
     cfg = QuantConfig(algo="gptq", wbit="int4", blocksize=32, w_has_zero=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        pt.quantize(pm, cfg, calib_data=batches, journal=object(), device="cpu")
+    # the resumable journal is ported (tests/test_torch_checkpoint.py holds
+    # its resume bit for bit): a journal that refuses to save stops the pass
+    class Refusing:
+        def last_completed(self):
+            return -1
+
+        def save_block(self, i, blk, xs=None):
+            raise OSError("journal full")
+
+    with pytest.raises(OSError, match="journal full"):
+        pt.quantize(pm, cfg, calib_data=batches, journal=Refusing(), device="cpu")
     # every algorithm the reference registers is ported
     for name, cls in (("awq", "AWQAlgo"), ("smoothquant", "SmoothQuantAlgo"),
                       ("smooth", "SmoothQuantAlgo"), ("zeroquant", "ZeroQuantAlgo"),
