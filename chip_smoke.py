@@ -11,7 +11,9 @@ Phases:
      of gemv16_kernel and of
      the fused MLP's tensor-core kernels from the build's own -Xptxas -v
      log, of every paged_split_kernel instance (the paged flash decode)
-     and of every decode_split_kernel instance (the decode attention);
+     and of every decode_split_kernel instance (the decode attention), of
+     every tp_kernel instance (the batched kernel's mode (e)) and
+     ring_chunk_kernel instance (the ring dequant matmul);
   2. hold each kernel against its plain PyTorch version on the card at the
      Llama-2-7B shapes of the paths below in bf16, and time both: the
      dequant matmul (the gemv16 kernel at M = 1, the tensor-core mma kernel
@@ -79,6 +81,18 @@ Phases:
      and QuIP on q_proj from the same H and the same U and V (`spqr_7b`,
      `quip_7b`: 99% of the codes equal, SpQR's outliers within 1%, QuIP's
      output error within 1%);
+     the tensor-parallel kernels at Llama-2-7B's shard shapes over TP = 2
+     ranks as threads of a LocalGroup: the batched kernel's mode (e)
+     (csrc/model_fused_tp.cu, each rank 16 q heads, 16 kv heads, 5504 MLP
+     columns, two launches a layer with the o_proj and down_proj partials
+     summed between them) on the dense B = 8 row's state and on the (b)
+     row's pool (bitwise equal to the dense TP outputs), each rank held to
+     its plain version over the first 2 layers by `hold_rows` and at full
+     depth on layer 0's rows, x_out the same bits on both ranks, one rank's
+     half-layer launch timed alone; and the overlapped ring dequant matmul
+     (csrc/overlap.cu) on layer 0's o_proj at D = 2 and 4 and down_proj at D
+     = 2, M = 8 and 2048, every rank within RING_TOL of the plain version,
+     one ring window timed alone;
   2b. the bf16 gate against three faults planted in the batched kernel's
      outputs (another slot's history, a row from position p - 1, a scale
      from amax / 128): it must reject each;
@@ -176,6 +190,15 @@ Phases:
         greedy tokens, and W=4 on the planted target (the planted chain);
         a `RunManifest` of its phases (beside `--report`, as
         path_s_manifest.json) and a `Memory` round trip of the embedding;
+     t. tensor-parallel serving over TP = 2 ranks, each a gloo process on
+        the one card (`tp_rank`): the planted target sharded by
+        `shard_model` serves 8 requests (prompts 16-256, 32 or 64 new
+        tokens) through ContinuousBatcher and PagedMegaBatcher (prefill
+        through the row-parallel ring, one mode (e) step a token), tokens
+        equal to the single-card batchers'; one model_step_batch_tp step of
+        the random-weight model within TOL of the single-card step's logits;
+        its walls are not TP speed (the ranks share the card and sum
+        through host memory);
      every kernel must have launched on its path, no path but r may launch
      the CUDA-core dequant_matmul kernels (every other served linear is bf16
      int4), and every planted path's tokens must equal the planted chain
@@ -301,6 +324,10 @@ PTXAS_KERNELS = (
     ("decode_attention", r"decode_split_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb([01])E",
      lambda m: f"decode_split_kernel<{_bits_dtype(m)}, {m.group(2)} heads, " + (
          "D = 128 row groups>" if m.group(4) == "1" else f"D <= {128 * int(m.group(3))}>")),
+    ("model_fused_tp", r"tp_kernelI(f|13__nv_bfloat16)Li(\d)ELb(\d)E",
+     lambda m: f"tp_kernel<{_bits_dtype(m)}, {m.group(2)}, GEN={m.group(3)}>"),
+    ("overlap", r"ring_chunk_kernelI(f|13__nv_bfloat16)Li(\d)E",
+     lambda m: f"ring_chunk_kernel<{_bits_dtype(m)}, {m.group(2)}>"),
     ("mlp_fused",
      r"mlp_mma_kernelINS_7MlpTileILi(\d+)ELi(\d)ELi(\d)ELi(\d)ELi\d+ELi\d+EEELb([01])E",
      lambda m: f"mlp_mma_kernel<{'P1' if m.group(5) == '1' else 'P2'}, [{m.group(1)}, 128] on "
@@ -1228,6 +1255,252 @@ def check_mega_batch_lm(model, stack, meta, lm, lm_meta, cfg, dev, flush, reps, 
     return [dict(name="model_decode_mega_batch_lm", shape=f"{what} {L} layers + lm rows",
                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                  unfused_ms=unfused_ms, bytes=nb, flops=fl)]
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the tensor-parallel kernels (B5(e), B11), ranks as threads
+# ---------------------------------------------------------------------------
+
+TP = 2                      # tensor-parallel ranks of the 7B rows (g128 shards at tp = 2 only)
+RING_TOL = 1e-4             # B11: each rank's f32 output within this x max|plain| (sum orders)
+
+
+def tp_half_bytes(st, cfg_l, meta, positions, half, l=0):
+    """Bytes one rank's half-layer launch must move: its shard's words and
+    tables of the half's two linears, the norm, the f32 residual in (and the
+    reduced partial, half 1), the residual and partial out, and in half 0
+    its kv heads' live history and new rows."""
+    keys = (("qkv", "qs", "qz", "o", "os", "oz", "n1") if half == 0 else
+            ("gu", "gus", "guz", "d", "ds", "dz", "n2"))
+    B, h = len(positions), cfg_l.hidden_size
+    nb = sum(st[k][l].numel() * st[k].element_size() for k in keys if k in st)
+    nb += B * h * 4 * (3 if half == 0 else 4)
+    if half == 0:
+        nb += (kv_history_bytes(dataclasses.replace(cfg_l, num_layers=1), positions)
+               + B * 2 * cfg_l.num_kv_heads * (cfg_l.head_dim + 4))
+    return nb
+
+
+def tp_half_flops(cfg_l, positions, half):
+    h, D = cfg_l.hidden_size, cfg_l.head_dim
+    H, Hkv, I = cfg_l.num_heads, cfg_l.num_kv_heads, cfg_l.intermediate_size
+    B = len(positions)
+    if half == 1:
+        return 2 * B * h * 2 * I + 2 * B * I * h
+    return (2 * B * h * (H + 2 * Hkv) * D + 2 * B * H * D * h
+            + sum(4 * D * H * (p + 1) for p in positions))
+
+
+def check_mega_batch_tp(model, stack, meta, cfg, dev, flush, reps, positions, T=512, paged=False,
+                        cut=2):
+    """B5(e): the batched kernel's tensor-parallel mode at Llama-2-7B width
+    over TP = 2 ranks (each rank 16 q heads, 16 kv heads, 5504 MLP columns),
+    the ranks as threads of a LocalGroup on the one card: each rank launches
+    its kernel on its shard, and the o_proj and down_proj partials are summed
+    between the half-layers (a copy on the card where NCCL would sum them
+    between cards). The dense row's state of check_mega_batch (B = 8), or
+    with `paged` its state mirrored into a page pool (the (b) row's pool;
+    the paged outputs bitwise equal to the dense TP outputs).
+
+    Held: each rank's x_out over the first `cut` layers in bf16 within TOL
+    of its plain version's (the same ranks and reductions on the plain
+    path), its rows by `hold_rows` (layer 0 strict: one-code flips on at most
+    0.1%, scales within SCALE_RTOL); at full depth layer 0's rows again and
+    the scales within TOL; x_out the same bits on both ranks (every rank
+    adds the same sums). Reported: x_out at full depth against the plain
+    version and against the single-card batched kernel. Timed: one rank's
+    launch alone, half 0 and half 1 of layer 0, beside the plain half."""
+    import torch
+
+    from mi_optimize_tpu_torch.models import llama
+    from mi_optimize_tpu_torch.ops import model_fused as mf
+    from mi_optimize_tpu_torch.ops.block_fused import layer_attn_ref, layer_mlp_ref
+    from mi_optimize_tpu_torch.parallel import LocalGroup
+    from mi_optimize_tpu_torch.parallel.sharding import cache_shard
+    from mi_optimize_tpu_torch.serving.megadecode import stack_serving_tp
+
+    name = "model_decode_mega_batch_tp"
+    mode = "paged" if paged else "dense"
+    L, B, h = cfg.num_layers, len(positions), cfg.hidden_size
+    gen = torch.Generator(device=dev).manual_seed(8 + B)   # the dense row's state
+    cache = random_slot_cache(cfg, positions, T, dev, gen)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    x = llama.embed(model.params, toks)
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    cos, sin = cos.reshape(B, -1), sin.reshape(B, -1)
+    shards = [stack_serving_tp(model, TP, r) for r in range(TP)]
+    if any(s is None or s[1] != meta for s in shards):
+        raise AssertionError("the 7B model should shard over 2 ranks with the same meta")
+    cfg_l = shards[0][2]
+    dense_caches = [cache_shard(cache, r, TP) for r in range(TP)]
+    table = None
+    if paged:
+        pool, table = mirror_pool(cache, torch.Generator(device=dev).manual_seed(12))
+        caches = [cache_shard(pool, r, TP) for r in range(TP)]
+        del pool
+    else:
+        caches = dense_caches
+    log(f"  {name}: {mode}, TP={TP} ranks as threads, each {cfg_l.num_heads} q heads, "
+        f"{cfg_l.num_kv_heads} kv heads, {cfg_l.intermediate_size} MLP columns; B={B}, "
+        f"{L} layers, positions {positions}")
+
+    def run(stacks, cs, c, xx, plain=False, tbl=table):
+        def rank(g):
+            st, ca = stacks[g.rank], cs[g.rank]
+            if plain:
+                return mf.model_decode_mega_batch_ref(st, xx, cos, sin, ca, positions,
+                                                      mf.tp_config(st, ca, c, meta), meta, tbl,
+                                                      group=g)
+            return mf.model_decode_mega_batch(st, xx, cos, sin, ca, positions, c, meta,
+                                              table=tbl, tp=TP, group=g)
+        out = LocalGroup(TP).run(rank)
+        torch.cuda.synchronize()
+        return out
+
+    stacks = [s[0] for s in shards]
+    before = mf.launches_tp
+    got = run(stacks, caches, cfg, x)
+    if x.is_cuda and mf.launches_tp - before != 2 * L * TP:
+        raise AssertionError(f"{name}: {mf.launches_tp - before} launches, expected {2 * L * TP}")
+    same = torch.equal(got[0][0], got[1][0])
+    log(f"  {name}: x_out of the two ranks {'the same bits -> ok' if same else 'DIFFER -> FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: the ranks' x_out differ")
+    extra = {}
+    if paged:
+        dense = run(stacks, dense_caches, cfg, x, tbl=None)
+        bitwise = all(torch.equal(a, b) for r in range(TP) for a, b in zip(got[r], dense[r]))
+        log(f"  {name} paged vs dense on the mirrored state: "
+            f"{'bitwise equal -> ok' if bitwise else 'DIFFER -> FAIL'}")
+        if not bitwise:
+            raise AssertionError(f"{name}: the paged mode differs from the dense one")
+        extra["bitwise_equal_dense"] = bitwise
+        del dense
+    else:
+        single = mf.model_decode_mega_batch(stack, x, cos, sin, cache, positions, cfg, meta)
+        torch.cuda.synchronize()
+        e, s = max_err(got[0][0], single[0])
+        extra["x_out_vs_single_card_rel"] = e / s
+        log(f"  {name} x_out (bf16, all {L} layers, reported) against the single-card batched "
+            f"kernel: max|diff| {e:.3e} = {e / s:.2e} of max")
+        del single
+    del cache
+    ref = run(stacks, caches, cfg, x, plain=True)
+    e, s = max_err(got[0][0], ref[0][0])
+    extra["bf16_full_depth_x_out_rel"] = e / s
+    log(f"  {name} x_out (bf16, all {L} layers, reported): max|diff| {e:.3e} = {e / s:.2e} of "
+        f"max|plain|")
+    for r in range(TP):
+        for i, f in ((1, "k"), (2, "v")):
+            st = extra[f"rank{r}_bf16_{f}_codes"] = code_diff(
+                f"{name} rank {r} new {f} rows (bf16)", got[r][i], ref[r][i])
+            if st[0] > 1 or st[1] > 1e-3:
+                raise AssertionError(f"{name}: rank {r}'s layer-0 int8 rows disagree")
+            check_close(f"{name} rank {r} new {f} scales (bf16)", got[r][i + 2], ref[r][i + 2])
+    del got, ref
+    c2 = dataclasses.replace(cfg, num_layers=cut)
+    head = [{k: v[:cut] for k, v in st.items()} for st in stacks]
+    chead = [{k: v[:cut] for k, v in ca.items()} for ca in caches]
+    got, ref = run(head, chead, c2, x), run(head, chead, c2, x, plain=True)
+    err = 0.0
+    for r in range(TP):
+        e_r, extra[f"rank{r}_bf16_{cut}_layers"] = hold_rows(
+            f"{name} rank {r}", got[r], ref[r], TOL, f"bf16, first {cut} layers", strict=1)
+        err = max(err, e_r)
+    del got, ref, head, chead
+
+    # one rank's launch alone: half 0 and half 1 of layer 0, beside the plain half
+    st0, c0 = stacks[0], caches[0]
+    prep = mf.tp_prepare(st0, x, cos, sin, c0, positions, cfg_l, meta, table)
+    x32 = x.reshape(B, h).float().contiguous()
+    res0, part0 = (t.clone() for t in mf.tp_launch(prep, 0, 0, x32, None))
+    lin, tabs = mf._layer(st0, meta, 0)
+    tbl = None if table is None else torch.as_tensor(table)
+    hist = [mf._history(c0, 0, b, tbl, p) for b, p in enumerate(positions)]
+    cf, sf = cos.float(), sin.float()
+    halves = (
+        ("q/k/v, attention, o_proj partial", lambda: mf.tp_launch(prep, 0, 0, x32, None),
+         lambda: layer_attn_ref(x32, x.dtype, lin, tabs, st0["n1"][0], cf, sf, hist, positions,
+                                cfg_l)),
+        ("gate/up, down_proj partial", lambda: mf.tp_launch(prep, 0, 1, res0, part0),
+         lambda: layer_mlp_ref(res0 + part0, x.dtype, lin, tabs, st0["n2"][0], cfg_l)))
+    rows = []
+    for half, (what, kern, plain) in enumerate(halves):
+        ms = time_ms(kern, reps, flush)
+        plain_ms = time_ms(plain, 2, flush)
+        nb, fl = tp_half_bytes(st0, cfg_l, meta, positions, half), tp_half_flops(cfg_l, positions,
+                                                                              half)
+        b_ms, b_by = bound(nb, fl)
+        log(f"    rank 0 half {half} ({what}) alone: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"bound {b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB)")
+        rows.append(dict(name=name, shape=f"rank 0 of {TP}, half {half} of layer 0 ({what}), "
+                         f"{mode} B={B} positions {positions}", max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=fl,
+                         codes=extra))
+    return rows
+
+
+def check_ring(model, cfg, dev, flush, reps):
+    """B11: the overlapped row-parallel dequant matmul on the 7B layer 0's
+    own int4 g128 words: o_proj (4096 -> 4096) at D = 2 and 4, down_proj
+    (11008 -> 4096) at D = 2, each at M = 8 and M = 2048 rows of bf16 x; the
+    D ranks as threads of a LocalGroup (the ring's transfers copies on the
+    card). Held: every rank's f32 output within RING_TOL of the plain
+    version's (the sum over the ranks of ring_chunk_ref over its K slice).
+    Timed: one ring window alone (rank 0's first window of step 1, with the
+    received partial as its addend), beside its plain version; bound: the
+    window's x slice, words, scale and zero tables, addend and output, read
+    or written once, and its multiply-adds at the f32 peak (the kernel sums
+    in f32 on the CUDA cores)."""
+    import torch
+
+    from mi_optimize_tpu_torch.models.quant_linear import group_size
+    from mi_optimize_tpu_torch.ops.dequant_matmul import zero_tables
+    from mi_optimize_tpu_torch.parallel import LocalGroup
+    from mi_optimize_tpu_torch.parallel import overlap
+
+    blk = model.params["layers"][0]
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = []
+    for lname, D in (("o_proj", 2), ("o_proj", 4), ("down_proj", 2)):
+        lin = blk[lname]
+        K, N, g = lin.in_features, lin.out_features, group_size(lin)
+        st, zt = zero_tables(lin)
+        kl = K // D
+        nc = N // D
+        w = nc // overlap.PARTS
+        shard = [(lin.packed[r * kl // 8:(r + 1) * kl // 8], st[r * kl // g:(r + 1) * kl // g],
+                  zt[r * kl // g:(r + 1) * kl // g]) for r in range(D)]
+        for M in (8, 2048):
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            xs = [x[:, r * kl:(r + 1) * kl].contiguous() for r in range(D)]
+            before = overlap.launches
+            got = LocalGroup(D).run(lambda g_: overlap.ring_matmul(
+                xs[g_.rank], *shard[g_.rank], g_, bits=4, group=g))
+            torch.cuda.synchronize()
+            if x.is_cuda and overlap.launches - before != D * D * overlap.PARTS:
+                raise AssertionError(f"ring_chunk: {overlap.launches - before} launches")
+            plain = sum(overlap.ring_chunk_ref(xs[r], *shard[r], None, 4, g, 0, N)
+                        for r in range(D))
+            err = max(max_err(y, plain)[0] for y in got)
+            what = f"{lname} {K}->{N} D={D} M={M}"
+            check_close(f"ring_chunk {what} (every rank, f32)", torch.stack(got),
+                        plain.expand(D, M, N), RING_TOL)
+            add = torch.randn(M, w, generator=gen, device=dev)
+            c = 1 % D  # rank 0's chunk at step 0; step 1's window adds the received partial
+            args = (xs[0], *shard[0], add, 4, g, c * nc, w)
+            ms = time_ms(lambda: overlap.ring_chunk(*args), reps, flush)
+            plain_ms = time_ms(lambda: overlap.ring_chunk_ref(*args), 2, flush)
+            nb = M * kl * 2 + (kl // 8) * w * 4 + 2 * (kl // g) * w * 4 + 2 * M * w * 4
+            fl = 2 * M * kl * w
+            b_ms, b_by = bound(nb, fl, F32_FLOPS)
+            log(f"    window [{M}, {w}] of K {kl} alone: kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+            rows.append(dict(name="ring_chunk", shape=f"{what}: window [{M}, {w}] over K {kl}",
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, bytes=nb, flops=fl))
+            del x, xs, got, plain
+    return rows
 
 
 def check_flat_seg(name, model, fstack, fmeta, cfg, dev, flush, reps, kseg=5, T=384, pos0=200):
@@ -4388,6 +4661,149 @@ def ppl_window(model, cfg, dev, S=2048):
     return lambda: batch_loss(model, ids)
 
 
+# ---------------------------------------------------------------------------
+# path t: tensor-parallel serving, TP ranks as gloo processes on the one card
+# ---------------------------------------------------------------------------
+
+TP_REQUESTS = 8             # path t's requests: all in flight at once in 8 slots
+
+
+def mega_batcher(model, n_slots=8, max_len=512):
+    """An int8 ContinuousBatcher on the batched whole-model kernel."""
+    import torch
+
+    from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
+
+    b = ContinuousBatcher(model, n_slots=n_slots, max_len=max_len, cache_dtype=torch.int8,
+                          use_megakernel=True)
+    if b._mega is None:
+        raise AssertionError("the batcher did not take the batched whole-model kernel")
+    return b
+
+
+def tp_rank(rank, world, positions, T=512, cfg=None, dev="cuda"):
+    """One rank of path t, in a gloo process of its own on the card
+    (`parallel.launch.spawn`): the planted Llama-2-7B target sharded over
+    the process group (`shard_model`) serves TP_REQUESTS requests through
+    ContinuousBatcher (prefill through the row-parallel ring, B11; one
+    mode (e) step a token, B5(e)) and through PagedMegaBatcher; then one
+    model_step_batch_tp step of the random-weight model (seed 0) from the
+    dense batched row's state. Returns the tokens, the logits, the walls and
+    this process's launch counts. cfg defaults to Llama-2-7B; dev="cpu"
+    rehearses the path on the CPU's plain versions (the card's timing and
+    memory calls stubbed)."""
+    import torch
+    import torch.distributed as dist
+
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
+    from mi_optimize_tpu_torch.parallel import shard_model
+    from mi_optimize_tpu_torch.parallel.sharding import cache_shard
+    from mi_optimize_tpu_torch.serving.megadecode import model_step_batch_tp, stack_serving_tp
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+    from mi_optimize_tpu_torch.serving.paged import PagedMegaBatcher
+    from mi_optimize_tpu_torch.utils.planted import build_planted_llama, planted_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev == "cpu":
+        torch.cuda.synchronize = torch.cuda.empty_cache = lambda *a: None
+        torch.cuda.max_memory_allocated = lambda *a: 0
+    g, cfg = dist.group.WORLD, cfg or LlamaConfig.llama2_7b()
+    out = {}
+    target = fuse_for_serving(Model(config=cfg, params=build_planted_llama(
+        cfg, planted_map(cfg.vocab_size), device=dev)))
+    sm = shard_model(target, g)
+    del target
+    torch.cuda.empty_cache()
+    out["dense"] = serve_batcher(sm, sm.config, n_req=TP_REQUESTS,
+                                 name=f"rank {rank}: TP ContinuousBatcher",
+                                 make=lambda: mega_batcher(sm))
+    out["paged"] = serve_batcher(
+        sm, sm.config, n_req=TP_REQUESTS, name=f"rank {rank}: TP PagedMegaBatcher",
+        make=lambda: PagedMegaBatcher(sm, n_slots=8, max_len=512))
+    del sm
+    torch.cuda.empty_cache()
+    model = fuse_for_serving(Model(config=cfg, params=build_quantized_llama(
+        cfg, bits=4, groupsize=128, dtype=torch.bfloat16, seed=0, device=dev, symmetric=True)))
+    st, meta, _ = stack_serving_tp(model, world, rank)
+    B = len(positions)
+    gen = torch.Generator(device=dev).manual_seed(8 + B)   # the dense batched row's state
+    cache = random_slot_cache(cfg, positions, T, dev, gen)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    mine = cache_shard(cache, rank, world)
+    del cache
+    t0 = time.perf_counter()
+    logits, _ = model_step_batch_tp(model.params, st, meta, cfg, toks, mine, positions, g)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["logits"] = logits.float().cpu()
+    out["launches"] = {k: getattr(m, a) for k, (m, a) in counters().items()}
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def serve_tp(model, stack, meta, target, cfg, dev, positions):
+    """Path t: tensor-parallel serving at Llama-2-7B width and depth over
+    TP = 2 ranks, each a gloo process on the one card (gloo's collectives
+    take the card's tensors through host memory; two NCCL ranks cannot
+    share a card). The ranks' tokens through the TP ContinuousBatcher and
+    PagedMegaBatcher must equal the single-card batchers' on the same planted
+    target and prompts; the TP step's logits on the random-weight model
+    within TOL of max|logit| of the single-card model_step_batch's from the
+    same state. The walls are not TP speed: the two ranks share one card
+    and sum their partials through host memory. The ranks' launch counts are
+    added to this process's counters, which run_path reads."""
+    import torch
+
+    from mi_optimize_tpu_torch.parallel import launch
+    from mi_optimize_tpu_torch.serving.megadecode import model_step_batch
+    from mi_optimize_tpu_torch.serving.paged import PagedMegaBatcher
+
+    ref = {"dense": serve_batcher(target, cfg, n_req=TP_REQUESTS,
+                                  name="single-card ContinuousBatcher (planted)",
+                                  make=lambda: mega_batcher(target)),
+           "paged": serve_batcher(target, cfg, n_req=TP_REQUESTS,
+                                  name="single-card PagedMegaBatcher (planted)",
+                                  make=lambda: PagedMegaBatcher(target, n_slots=8, max_len=512))}
+    same_tokens("single-card PagedMegaBatcher (planted)", ref["paged"]["request_tokens"],
+                ref["dense"]["request_tokens"])
+    B = len(positions)
+    gen = torch.Generator(device=dev).manual_seed(8 + B)
+    cache = random_slot_cache(cfg, positions, 512, dev, gen)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    want, _ = model_step_batch(model.params, stack, meta, cfg, toks, cache, positions)
+    want = want.float().cpu()
+    del cache
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = launch.spawn("chip_smoke:tp_rank", TP, backend="gloo", timeout=600, threads=4,
+                       positions=positions, cfg=cfg, dev=str(dev))
+    wall = time.perf_counter() - t0
+    for r, got in enumerate(res):
+        for mode in ("dense", "paged"):
+            same_tokens(f"TP rank {r} {mode}", got[mode]["request_tokens"],
+                        ref["dense"]["request_tokens"])
+        check_close(f"TP rank {r} model_step_batch_tp logits (bf16, random weights)",
+                    got["logits"], want)
+    for k, (m, a) in counters().items():
+        setattr(m, a, getattr(m, a) + sum(got["launches"][k] for got in res))
+    out = {"ranks": TP, "backend": "gloo", "spawn_wall_s": wall,
+           "rank_peak_mem_gib": [got["peak_mem_gib"] for got in res],
+           "step_ms_random_weights": [got["step_ms"] for got in res],
+           "single_card": {m: {k: ref[m][k] for k in ("tokens_per_s", "ms_per_step_full")}
+                           for m in ref}}
+    for mode in ("dense", "paged"):
+        out[mode] = [{k: got[mode][k] for k in ("tokens_per_s", "ms_per_step_full", "wall_s")}
+                     for got in res]
+    log(f"  path t: {TP} gloo ranks on one card, {wall:.1f} s with the ranks' start-up; "
+        f"TP ContinuousBatcher {out['dense'][0]['tokens_per_s']:.1f} tokens/s a rank "
+        f"(single card {ref['dense']['tokens_per_s']:.1f}); not TP speed: the ranks share the "
+        "card and sum through host memory")
+    return out
+
+
 def _to(tree, dev):
     import dataclasses
 
@@ -4446,6 +4862,10 @@ KERNELS = {
                             "mi_optimize_tpu/ops/mlp_fused.py:44"),
     "w4a8_matmul": ("mi_optimize_tpu_torch/csrc/w4a8_matmul.cu",
                     "mi_optimize_tpu/ops/w4a8_matmul.py:49"),
+    "model_decode_mega_batch_tp": ("mi_optimize_tpu_torch/csrc/model_fused_tp.cu",
+                                   "mi_optimize_tpu/ops/model_fused.py:594"),
+    "ring_chunk": ("mi_optimize_tpu_torch/csrc/overlap.cu",
+                   "mi_optimize_tpu/parallel/overlap.py:57"),
 }
 
 
@@ -4454,6 +4874,7 @@ def counters():
     from mi_optimize_tpu_torch.ops import (block_fused, decode_attention, dequant_matmul,
                                            int8_matmul, mlp_fused, model_flat, model_flat_seg,
                                            model_fused, paged_attention, w4a8_matmul)
+    from mi_optimize_tpu_torch.parallel import overlap
 
     return {"dequant_matmul": (dequant_matmul, "launches"),
             "dequant_matmul_gemv16": (dequant_matmul, "launches_gemv16"),
@@ -4475,6 +4896,8 @@ def counters():
             "mlp_fused_mma": (mlp_fused, "launches_mma"),
             "mlp_fused_cuda_core": (mlp_fused, "launches_cuda_core"),
             "w4a8_matmul": (w4a8_matmul, "launches"),
+            "model_decode_mega_batch_tp": (model_fused, "launches_tp"),
+            "ring_chunk": (overlap, "launches"),
             # the W8A8 route's torch._int_mm calls (a library call, not a kernel row)
             "w8a8_int_mm": (int8_matmul, "launches")}
 
@@ -4672,6 +5095,12 @@ def main() -> int:
     for prefixes, C, paged in (([256], 5, False), ([256], 5, True), (dense_positions, 1, False)):
         rows += check_mega_batch_lm(model, sstack, smeta, lm, lm_meta, cfg, dev, flush, 5,
                                     prefixes, C, paged)
+    # the tensor-parallel kernels at the 7B shard shapes: B5(e) dense and paged, B11
+    rows += check_mega_batch_tp(model, sstack, smeta, cfg, dev, flush, 5, dense_positions)
+    rows += check_mega_batch_tp(model, sstack, smeta, cfg, dev, flush, 5, dense_positions,
+                                paged=True)
+    rows += check_ring(model, cfg, dev, flush, 5)
+    torch.cuda.empty_cache()
     rows += check_flat_seg("random weights", model, fstack, fmeta, cfg, dev, flush, 5)
     rows += check_flat_seg("planted 2-layer draft", draft, *dfl, dcfg, dev, flush, 20)
     rows += check_paged_attention(cfg, dev, flush, reps=20)
@@ -4906,6 +5335,19 @@ def main() -> int:
         f"{report['checkpoint']['peak_mem_gib']:.2f} GiB")
     del fp, fpa
     torch.cuda.empty_cache()
+    log(" t. tensor-parallel serving: 2 gloo ranks on the one card, the planted target's 8 "
+        "requests through the TP ContinuousBatcher and PagedMegaBatcher, one TP step of the "
+        "random-weight model")
+    t_t = time.perf_counter()
+    sstack, smeta = stack_serving(model)
+    report["tp_serving"], c = run_path(
+        "tensor-parallel serving (2 gloo ranks)", ("model_decode_mega_batch_tp", "ring_chunk",
+                                                   "dequant_matmul_mma"),
+        lambda: serve_tp(model, sstack, smeta, target, cfg, dev, dense_positions))
+    tally(c)
+    del sstack, smeta
+    report["tp_serving"]["wall_s"] = time.perf_counter() - t_t
+    log(f"  path t: {report['tp_serving']['wall_s']:.1f} s")
     log(f"  launches over the served paths: {counts}")
 
     phase("4", "small f32 model on the card vs the plain versions on the CPU")

@@ -26,7 +26,9 @@ AWQ+GPTQ, SmoothQuant+GPTQ; layer-sequential calibration on wikitext2 / PTB
 perplexity and its C-Eval, CMMLU and BOSS scores, `models.loader` loads a
 HuggingFace safetensors checkpoint, `export` saves and reloads the quantized
 model in the JAX package's format, and `serving.beam.beam_search` serves it
-with beam search on the paged batched kernel.
+with beam search on the paged batched kernel. `parallel` shards the model
+over ranks (tensor and data parallelism on torch.distributed): the batched
+kernel's tensor-parallel mode and the overlapped ring dequant matmul.
 
 The top-level exports mirror the reference package's: `quantize`,
 `Benchmark`, `QuantizedLinear`, `Precision` and `as_precision`.

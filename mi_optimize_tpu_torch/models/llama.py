@@ -221,8 +221,10 @@ def block_apply(
     kv_dim = cfg.num_kv_heads * cfg.head_dim
 
     # decode megakernel: the whole block in one launch (ops/block_fused.py);
-    # B = 1 with a scalar position only, as in the reference
+    # B = 1 with a scalar position only, as in the reference; a tensor-
+    # parallel shard's block takes its linears' collectives instead
     if (fused and not capture and "mega" in blk and B == 1 and S == 1
+            and blk["o_proj"].tp is None
             and isinstance(kv_cache, dict)
             and kv_cache["k"].shape[1] % 128 == 0
             and not (isinstance(cache_index, torch.Tensor) and cache_index.ndim > 0)):
@@ -298,7 +300,8 @@ def block_apply(
 
 
 def _mlp_tail(blk, x, cfg: LlamaConfig, caps, capture: bool, fused: bool):
-    if fused and not capture and "gate_proj" in blk and kernel_branches(x):
+    if (fused and not capture and "gate_proj" in blk and blk["down_proj"].tp is None
+            and kernel_branches(x)):
         from ..ops.mlp_fused import mlp_apply_fused, mlp_supported
 
         gate, up, down = blk["gate_proj"], blk["up_proj"], blk["down_proj"]

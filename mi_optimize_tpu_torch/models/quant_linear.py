@@ -77,6 +77,9 @@ class QuantizedLinear:
     # is tables[0])
     ztable: Optional[torch.Tensor] = dataclasses.field(default=None, init=False, repr=False,
                                                        compare=False)
+    # a rank's shard under tensor parallelism: its place in the layout and
+    # its group (parallel.sharding.TPInfo), set by parallel.sharding.shard_model
+    tp: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
     def fp(cls, weight, bias=None):
@@ -139,7 +142,17 @@ def quant_linear_apply(q: QuantizedLinear, x: torch.Tensor, *, fused: bool = Tru
 
     `fused=True` sends packed int2/int4/int8 weights through
     ops.dequant_matmul (the CUDA kernel on GPU tensors); otherwise the weight
-    is dequantized and multiplied in float32."""
+    is dequantized and multiplied in float32. A tensor-parallel shard
+    (`q.tp`) goes through parallel.sharding.tp_apply, which takes the
+    collectives its kind needs around `local_apply`."""
+    if q.tp is not None:
+        from ..parallel.sharding import tp_apply  # local import: parallel imports this module
+        return tp_apply(q, x, fused)
+    return local_apply(q, x, fused)
+
+
+def local_apply(q: QuantizedLinear, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
+    """`quant_linear_apply` on q's own tensors, whatever its `tp`."""
     in_dtype = x.dtype
     if q.smooth_factor is not None:
         x = x / q.smooth_factor.to(x.dtype)

@@ -126,28 +126,19 @@ def norm_row(xf, w, eps, dtype):
     return ((xf * rstd).to(dtype) * w.to(dtype)).to(torch.float32)
 
 
-def layer_rows_ref(x32, dtype, lin, tabs, n1, n2, cos, sin, hists, positions, cfg,
+def layer_attn_ref(x32, dtype, lin, tabs, n1, cos, sin, hists, positions, cfg,
                    pre: bool = False):
-    """One decoder layer for B tokens, one per slot, on the plain path.
-    x32: f32 [B, h] residual rows. lin: packed words (qkv, o, gu, d); tabs:
-    (scale, bias) per linear; cos/sin: [B, D]; hists[b]: slot b's
-    (k, k_scale, v, v_scale) history [T, Hkv(, D)], or a function of this
-    layer's new rows (kq, ks, vq, vs) that returns that list (a chunk's rows
-    also attend to the rows before them); positions[b]: its
-    position. Returns (x_out f32 [B, h], krows [B, Hkv, D] int8, ks [B, Hkv],
-    vrows, vs), and with `pre` also the k and v values the int8 rows round
-    (`quantize_kv`'s x / scale, f32 [B, Hkv, D])."""
+    """The first half of `layer_rows_ref`: rmsnorm, q/k/v, RoPE, the new int8
+    rows and attention, and the o_proj product without the residual.
+    Returns (o f32 [B, h], krows [B, Hkv, D] int8, ks [B, Hkv], vrows, vs),
+    and with `pre` also the k and v values the int8 rows round. Under
+    tensor parallelism (model_fused's mode (e)) `lin` holds one rank's
+    shard and o is its partial."""
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    qdim, kvdim, inter = H * D, Hkv * D, cfg.intermediate_size
-    bits, groups = lin["bits"], lin["groups"]
+    qdim, kvdim = H * D, Hkv * D
     B = x32.shape[0]
-
-    def dot(rows, name):
-        s, b = tabs[name]
-        return qdot_ref(rows, lin[name], s, b, bits, groups[name])
-
     h = norm_row(x32, n1, cfg.rms_eps, dtype)
-    qkv = dot(h, "qkv")
+    qkv = _dot(lin, tabs, h, "qkv")
     k = torch.stack([_rope_rows(qkv[b, qdim:qdim + kvdim].reshape(Hkv, D), cos[b], sin[b])
                      for b in range(B)])
     v = qkv[:, qdim + kvdim:].reshape(B, Hkv, D)
@@ -160,13 +151,39 @@ def layer_rows_ref(x32, dtype, lin, tabs, n1, n2, cos, sin, hists, positions, cf
         attend_ref(_rope_rows(qkv[b, :qdim].reshape(H, D), cos[b], sin[b]), kq[b], ks[b],
                    vq[b], vs[b], *hists[b], positions[b], Hkv)
         for b in range(B)])
-    xmid = x32 + dot(attn, "o")
-    h2 = norm_row(xmid, n2, cfg.rms_eps, dtype)
-    gu = dot(h2, "gu")
-    g, u = gu[:, :inter], gu[:, inter:]
-    act = g * (1.0 / (1.0 + torch.exp(-g))) * u
-    out = (xmid + dot(act, "d"), kq, ks, vq, vs)
+    out = (_dot(lin, tabs, attn, "o"), kq, ks, vq, vs)
     return out + (k / ks[..., None], v / vs[..., None]) if pre else out
+
+
+def layer_mlp_ref(xmid, dtype, lin, tabs, n2, cfg):
+    """The second half of `layer_rows_ref`: rmsnorm, gate/up, SiLU and the
+    down_proj product without the residual, f32 [B, h] (a rank's partial
+    under tensor parallelism)."""
+    inter = cfg.intermediate_size
+    gu = _dot(lin, tabs, norm_row(xmid, n2, cfg.rms_eps, dtype), "gu")
+    g, u = gu[:, :inter], gu[:, inter:]
+    return _dot(lin, tabs, g * (1.0 / (1.0 + torch.exp(-g))) * u, "d")
+
+
+def _dot(lin, tabs, rows, name):
+    s, b = tabs[name]
+    return qdot_ref(rows, lin[name], s, b, lin["bits"], lin["groups"][name])
+
+
+def layer_rows_ref(x32, dtype, lin, tabs, n1, n2, cos, sin, hists, positions, cfg,
+                   pre: bool = False):
+    """One decoder layer for B tokens, one per slot, on the plain path.
+    x32: f32 [B, h] residual rows. lin: packed words (qkv, o, gu, d); tabs:
+    (scale, bias) per linear; cos/sin: [B, D]; hists[b]: slot b's
+    (k, k_scale, v, v_scale) history [T, Hkv(, D)], or a function of this
+    layer's new rows (kq, ks, vq, vs) that returns that list (a chunk's rows
+    also attend to the rows before them); positions[b]: its
+    position. Returns (x_out f32 [B, h], krows [B, Hkv, D] int8, ks [B, Hkv],
+    vrows, vs), and with `pre` also the k and v values the int8 rows round
+    (`quantize_kv`'s x / scale, f32 [B, Hkv, D])."""
+    o, *rows = layer_attn_ref(x32, dtype, lin, tabs, n1, cos, sin, hists, positions, cfg, pre)
+    xmid = x32 + o
+    return (xmid + layer_mlp_ref(xmid, dtype, lin, tabs, n2, cfg), *rows)
 
 
 def layer_ref(x32, dtype, lin, tabs, n1, n2, cos, sin, hist, pos, cfg, pre: bool = False):

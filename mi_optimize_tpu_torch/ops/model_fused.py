@@ -12,8 +12,11 @@ paged (a page table picks each history row's pool page), (c) chunk (C
 consecutive tokens a slot with an intra-chunk causal pass) and (d) terminal
 lm rows (every row's final rmsnorm, packed lm_head logits and first-index
 argmax after the last layer), alone or combined (model_decode_mega_batch).
-The tensor-parallel mode (e) of _kernel_b is not ported: the batched
-wrapper raises NotImplementedError for it.
+Its tensor-parallel mode (e), with modes (a) and (b), runs
+csrc/model_fused_tp.cu: one rank's shard of a step as two launches a layer,
+the o_proj and down_proj partials summed over the group between them
+(parallel.collectives.all_reduce) where the TPU kernel exchanged them
+between chips inside its one launch.
 
 What bounds them on an H100: the stacked packed weights (about 3.4 GB at
 Llama-2-7B, int4 g128) read once per step over the memory rate, plus every
@@ -38,7 +41,8 @@ bias -zc*s in-kernel; otherwise `serving.megadecode.stack_serving` stacks
 its f32 bias table ("qz", "oz", "guz", "dz") and the kernel streams it.
 
 On CPU tensors the wrappers run the plain versions, `model_decode_mega_ref`
-and `model_decode_mega_batch_ref`.
+and `model_decode_mega_batch_ref` (with `group`, mode (e): the same
+reductions between the halves of each layer).
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ from typing import Any, Optional
 
 import torch
 
-from .block_fused import _check_cuda, layer_rows_ref, norm_row
+from .block_fused import _check_cuda, layer_attn_ref, layer_mlp_ref, layer_rows_ref, norm_row
 from .coop_plan import COOP_PER_SM, H100_SMS, best_plan, sm_count
 from .dequant_matmul import qdot_ref
 from .model_flat import _FlatArgs, flat_plans, flat_scratch
@@ -60,6 +64,7 @@ launches_batch = 0  # model_decode_mega_batch launches in mode (a), dense one-to
 launches_paged = 0  # ... in mode (b) with one token a slot (paged decode)
 launches_chunk = 0  # ... in mode (c), dense or paged (C > 1 tokens a slot)
 launches_lm = 0     # ... with the terminal lm rows, mode (d) (also counted in its mode above)
+launches_tp = 0     # mode (e): launches of a tensor-parallel rank's half-layer, two a layer
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 8  # rows (slots x chunk tokens): the batched kernel keeps one accumulator a row
@@ -128,7 +133,8 @@ def _history(cache, l, s, table, n):
 
 
 def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta, table=None,
-                                chunk: int = 1, lm=None, lm_meta=None, pre: bool = False):
+                                chunk: int = 1, lm=None, lm_meta=None, pre: bool = False,
+                                group=None):
     """Plain PyTorch version of the batched kernel (same signature and
     outputs as `model_decode_mega_batch`, modes (a)-(d)).
 
@@ -140,7 +146,13 @@ def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta,
     final rmsnorm (the model-dtype rounding points) and the packed lm_head,
     and the first index of each row's maximum is its token. With `pre` the
     outputs gain, after the new rows' scales, the k and v values the rows
-    round (x / scale, f32 [L, B, Hkv, D])."""
+    round (x / scale, f32 [L, B, Hkv, D]).
+
+    With `group` (mode (e)): `stack` and `cache` are one rank's shard
+    (`serving.megadecode.stack_serving_tp`), `cfg` the rank's config
+    (`tp_config`), and each layer's o_proj and down_proj partials are summed
+    over the group (`parallel.collectives.all_reduce`) before the residual
+    and the next rmsnorm take them."""
     B, h, D, L = x.shape[0], cfg.hidden_size, cfg.head_dim, cfg.num_layers
     C = chunk
     pos = [int(p) for p in torch.as_tensor(positions).reshape(-1).tolist()]
@@ -163,9 +175,19 @@ def model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta,
                                  zip(base[r // C], (kq, ks, vq, vs))))
             return out
 
-        xr, kq, ks, vq, vs, *kv = layer_rows_ref(
-            xr, x.dtype, lin, tabs, stack["n1"][l], stack["n2"][l], cos, sin, hists,
-            [prefix[r // C] + r % C for r in range(B)], cfg, pre)
+        at = [prefix[r // C] + r % C for r in range(B)]
+        if group is None:
+            xr, kq, ks, vq, vs, *kv = layer_rows_ref(
+                xr, x.dtype, lin, tabs, stack["n1"][l], stack["n2"][l], cos, sin, hists, at,
+                cfg, pre)
+        else:
+            from ..parallel.collectives import all_reduce
+
+            o, kq, ks, vq, vs, *kv = layer_attn_ref(xr, x.dtype, lin, tabs, stack["n1"][l], cos,
+                                                    sin, hists, at, cfg, pre)
+            xmid = xr + all_reduce(o, group)
+            xr = xmid + all_reduce(layer_mlp_ref(xmid, x.dtype, lin, tabs, stack["n2"][l], cfg),
+                                   group)
         rows.append((kq, vq, ks, vs, *kv))
     out = (xr.to(x.dtype).reshape(B, 1, h),) + tuple(torch.stack(r) for r in zip(*rows))
     if lm is None:
@@ -462,9 +484,12 @@ def batch_plans(cfg, meta, lm_meta=None, sms: int = H100_SMS):
     return plans + [(vocab, 1) + gemv_plan(vocab, h, g_ue, 1, blocks)]
 
 
-def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta, table=None,
-                                  chunk: int = 1, lm=None, lm_meta=None):
-    global launches_batch, launches_paged, launches_chunk, launches_lm
+def _batch_args(stack, x, cos, sin, cache, positions, cfg, meta, table, chunk, lm, lm_meta,
+                n_scratch):
+    """Check a batched launch's inputs and fill its argument block (with
+    `n_scratch` f32 floats of scratch a row). Returns (args, outputs
+    (x_out, krows, vrows, ksr, vsr[, logits, tokens]), the tensors whose
+    pointers the block holds)."""
     dev, dt = x.device, x.dtype
     if dt not in _DTYPES:
         raise TypeError(f"model_decode_mega_batch kernel takes float32 or bfloat16, not {dt}")
@@ -510,10 +535,11 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
     vrows = torch.empty_like(krows)
     ksr = torch.empty(L, B, Hkv, dtype=torch.float32, device=dev)
     vsr = torch.empty_like(ksr)
-    scratch = torch.empty(B * (2 * h + 2 * H * D + 2 * Hkv * D + inter), dtype=torch.float32,
-                          device=dev)
+    scratch = torch.empty(B * n_scratch, dtype=torch.float32, device=dev)
     p = lambda t: t.data_ptr()
+    outs = (x_out, krows, vrows, ksr, vsr)
     lm_ptrs, lm_ints, zc_ue = [None] * 7, [0, 0], 0.0
+    keep = [xr, n1, n2, cos, sin, pos, tbl, scratch]
     if lm is not None:
         fnorm, g_ue, zc_ue, vocab = _check_lm(lm, lm_meta, cfg, meta, dev, dt)
         logits = torch.empty(B, vocab, dtype=torch.float32, device=dev)
@@ -523,6 +549,8 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
         lm_ptrs = [p(lm["ue"]), p(lm["ues"]), p(fnorm), p(logits), p(tokens), p(part_val),
                    p(part_idx)]
         lm_ints = [vocab, g_ue]
+        outs += (logits, tokens)
+        keep += [fnorm, part_val, part_idx]
     plan_ws, plan_splits = [1] * GEMV_PHASES, [1] * GEMV_PHASES
     part, counters, n_part = None, None, 0
     if meta[0] == 4:  # the tensor-core GEMV's plan, partials, tile counters, row squares
@@ -531,6 +559,7 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
         n_part, n_counters = gemv_scratch(plans)
         part = torch.empty(n_counters * 8 + n_part, dtype=torch.float32, device=dev)
         counters = torch.empty(n_counters, dtype=torch.int32, device=dev)
+        keep += [part, counters]
     args = _BatchArgs(p(xr), p(n1), p(n2), *ptrs, p(cos), p(sin), p(pos),
                       p(cache["k"]), p(cache["v"]), p(cache["k_scale"]), p(cache["v_scale"]),
                       p(x_out), p(krows), p(vrows), p(ksr), p(vsr), p(scratch),
@@ -543,22 +572,111 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
                       None if counters is None else p(counters),
                       0 if counters is None else counters.numel(), n_part,
                       None if part is None else p(part))
-    _call("mi_model_decode_mega_batch", args, _BatchArgs, meta[0], dt, dev)
+    return args, outs, keep
+
+
+def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta, table=None,
+                                  chunk: int = 1, lm=None, lm_meta=None):
+    global launches_batch, launches_paged, launches_chunk, launches_lm
+    h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B = x.shape[0]
+    args, outs, _keep = _batch_args(stack, x, cos, sin, cache, positions, cfg, meta, table,
+                                    chunk, lm, lm_meta,
+                                    2 * h + 2 * H * D + 2 * Hkv * D + cfg.intermediate_size)
+    _call("mi_model_decode_mega_batch", args, _BatchArgs, meta[0], x.dtype, x.device)
     if chunk > 1:
         launches_chunk += 1
-    elif tbl is not None:
+    elif table is not None:
         launches_paged += 1
     else:
         launches_batch += 1
-    out = (x_out.reshape(B, 1, h), krows, vrows, ksr, vsr)
+    out = (outs[0].reshape(B, 1, h),) + outs[1:5]
     if lm is None:
         return out
     launches_lm += 1
-    return out + (logits, tokens)
+    return out + outs[5:]
+
+
+class _TpArgs(ctypes.Structure):
+    """csrc/model_fused_tp.cu's TpArgs: the batched argument block, then the
+    half-layer's residual in, reduced partial, residual out and partial out,
+    layer and half."""
+    _fields_ = [("b", _BatchArgs)] + [(n, ctypes.c_void_p) for n in ("xin", "add", "res",
+                                                                    "partial")] + [
+        ("layer", ctypes.c_int), ("half", ctypes.c_int)]
+
+
+def tp_config(stack, cache, cfg, meta):
+    """The rank's config in mode (e), from its shard's shapes (as the
+    reference reads them): its q heads from the qkv words' columns, its kv
+    heads from the cache, its MLP columns from the down_proj words; the
+    residual width, head size and depth are the model's."""
+    D, vpw = cfg.head_dim, 32 // meta[0]
+    Hkv = cache["k"].shape[2]
+    qdim = stack["qkv"].shape[2] - 2 * Hkv * D
+    return dataclasses.replace(cfg, num_heads=qdim // D, num_kv_heads=Hkv,
+                               intermediate_size=stack["d"].shape[1] * vpw)
+
+
+@dataclasses.dataclass
+class TpLaunch:
+    """A rank's mode (e) step on the card, checked and filled once
+    (`tp_prepare`): the argument block, the step's outputs (x_out, krows,
+    vrows, ksr, vsr), the residual and partial buffers of the two halves,
+    and the tensors whose pointers the block holds."""
+    args: ctypes.Structure
+    meta: tuple
+    dtype: torch.dtype
+    outs: tuple
+    res: torch.Tensor
+    part: torch.Tensor
+    keep: list
+
+
+def tp_prepare(stack, x, cos, sin, cache, positions, cfg, meta, table=None) -> TpLaunch:
+    """Check one rank's mode (e) inputs (`cfg` the rank's, `tp_config`) and
+    fill its argument block."""
+    h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B = x.shape[0]
+    args, outs, keep = _batch_args(stack, x, cos, sin, cache, positions, cfg, meta, table, 1,
+                                   None, None, 2 * H * D + 2 * Hkv * D + cfg.intermediate_size)
+    res = torch.empty(2, B, h, dtype=torch.float32, device=x.device)
+    return TpLaunch(args, meta, x.dtype, outs, res, torch.empty_like(res), keep)
+
+
+def tp_launch(prep: TpLaunch, layer: int, half: int, xin, add):
+    """One launch: half `half` of layer `layer` from the residual `xin` (f32
+    [B, h]) plus the reduced partial `add` (or None). Returns (the residual
+    it wrote, its partial) [B, h] f32, the prepared buffers of that half."""
+    global launches_tp
+    a = _TpArgs(prep.args, xin.data_ptr(), None if add is None else add.data_ptr(),
+                prep.res[half].data_ptr(), prep.part[half].data_ptr(), layer, half)
+    _call("mi_model_decode_mega_batch_tp", a, _TpArgs, prep.meta[0], prep.dtype, xin.device,
+          "model_fused_tp")
+    launches_tp += 1
+    return prep.res[half], prep.part[half]
+
+
+def _model_decode_mega_batch_tp_cuda(stack, x, cos, sin, cache, positions, cfg, meta, table,
+                                     group):
+    """Mode (e) on the card: for each layer, half 0 (the residual plus the
+    reduced down_proj partial, rmsnorm, q/k/v, attention, the o_proj
+    partial), the partial summed over the group, half 1 (the residual plus
+    it, rmsnorm, gate/up, the down_proj partial), summed again."""
+    from ..parallel.collectives import all_reduce
+
+    B, h = x.shape[0], cfg.hidden_size
+    prep = tp_prepare(stack, x, cos, sin, cache, positions, cfg, meta, table)
+    xin, add = x.reshape(B, h).to(torch.float32).contiguous(), None
+    for l in range(cfg.num_layers):
+        for half in (0, 1):
+            xin, part = tp_launch(prep, l, half, xin, add)
+            add = all_reduce(part, group)
+    return ((xin + add).to(x.dtype).reshape(B, 1, h),) + prep.outs[1:5]
 
 
 def model_decode_mega_batch(stack, x, cos, sin, cache, positions, cfg, meta, *, table=None,
-                            chunk: int = 1, tp: int = 1, lm=None, lm_meta=None):
+                            chunk: int = 1, tp: int = 1, group=None, lm=None, lm_meta=None):
     """Whole-model decode of B rows, one launch: x [B,1,h], positions [B] ->
     (x_out [B,1,h] in x's dtype, krows [L,B,Hkv,D] int8, vrows, ksr [L,B,Hkv]
     f32, vsr), and with `lm` also (logits [B,V] f32, tokens [B] int32). The
@@ -583,10 +701,26 @@ def model_decode_mega_batch(stack, x, cos, sin, cache, positions, cfg, meta, *, 
     [h/g_ue, V] f32 scales, "fnorm": [h] final norm} and lm_meta = (g_ue,
     zc_ue, vocab, tv) from `serving.megadecode.stack_lm` (a symmetric lm_head
     grid: the bias is -zc_ue*s; tv is the reference's TPU tile, unused).
-    `tp` > 1 (mode e) raises NotImplementedError."""
+
+    tp > 1, mode (e), with modes (a) and (b): this rank's part of a step
+    tensor-parallel over `group` (a torch.distributed group of tp ranks, or
+    a parallel.collectives.LocalGroup rank). `stack` is the rank's shard
+    (`serving.megadecode.stack_serving_tp`): its q/kv heads and MLP
+    columns, with the o_proj and down_proj rows of its q and MLP features;
+    `cache` holds its kv heads; `cfg` is the model's (the rank's own dims
+    come from the shapes, `tp_config`). Each layer's o_proj and down_proj
+    partials are summed over the group before the residual and the next
+    rmsnorm take them: x_out is the same on every rank, the new rows are the
+    rank's kv heads'. The chunk mode and the lm rows are single-rank, as in
+    the reference."""
     if tp != 1:
-        raise NotImplementedError(
-            "model_decode_mega_batch mode (e) tp>1 is not ported yet (ROADMAP.md B5)")
+        if chunk != 1 or lm is not None:
+            raise ValueError("the chunk mode and the terminal lm rows take tp = 1")
+        from ..parallel.collectives import size_of
+
+        if group is None or size_of(group) != tp:
+            raise ValueError(f"tp = {tp} needs a group of {tp} ranks")
+        cfg = tp_config(stack, cache, cfg, meta)
     if (lm is None) != (lm_meta is None):
         raise ValueError("lm and lm_meta come together (serving.megadecode.stack_lm)")
     B = x.shape[0]
@@ -603,8 +737,13 @@ def model_decode_mega_batch(stack, x, cos, sin, cache, positions, cfg, meta, *, 
         if bool((pos != pos[:, :1] + torch.arange(chunk)).any()):
             raise ValueError(f"a chunk's positions must be consecutive: {pos.tolist()}")
     if x.is_cuda:
+        if tp != 1:
+            return _model_decode_mega_batch_tp_cuda(stack, x, cos, sin, cache, positions, cfg,
+                                                    meta, table, group)
         return _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, meta,
                                              table, chunk, lm, lm_meta)
-    lm_kw = {} if lm is None else dict(lm=lm, lm_meta=lm_meta)
+    kw = {} if lm is None else dict(lm=lm, lm_meta=lm_meta)
+    if tp != 1:
+        kw["group"] = group
     return model_decode_mega_batch_ref(stack, x, cos, sin, cache, positions, cfg, meta, table,
-                                       chunk, **lm_kw)
+                                       chunk, **kw)

@@ -3,8 +3,7 @@
 Port of mi_optimize_tpu/serving/batching.py (`decode_step_multi`,
 `_prefill_kv`, `_prefill_into_slot`, `_prefill_into_slot_mega`, `Request`,
 `ContinuousBatcher`, `draft_propose_batch`, `_draft_propose_multi`,
-`SpeculativeBatcher`); `shard_batcher` waits for ROADMAP.md A12. The paged
-batchers are in paged.py.
+`SpeculativeBatcher`, `shard_batcher`). The paged batchers are in paged.py.
 
   * the cache holds `n_slots` independent sequences; each slot has its own
     position, so sequences of different lengths decode together;
@@ -22,6 +21,12 @@ batchers are in paged.py.
 Routing: the reference turns the megakernel on by default only on a TPU
 backend; the port turns it on by default when the model's tensors are on
 CUDA. `use_megakernel=True` on a CPU model runs the kernels' plain versions.
+
+A tensor-parallel shard of a model (parallel.shard_model) serves through the
+same batcher on each rank: its prefill takes the shard's collectives, its
+one-launch step the batched kernel's mode (e) (megadecode.model_step_batch_tp).
+Every rank admits the same requests in the same order and gets the same
+tokens.
 """
 from __future__ import annotations
 
@@ -124,6 +129,9 @@ class ContinuousBatcher:
         self.max_len = min(max_len, self.cfg.max_seq_len)
         self.fused = fused
         self.device = resolve_device(model.params["embed"].device)
+        from ..parallel.sharding import tp_group
+
+        self._tp = tp_group(model)
         # batched whole-model kernel fast path: ONE launch decodes all slots,
         # reading each weight once for the whole batch
         if use_megakernel is None:
@@ -192,9 +200,16 @@ class ContinuousBatcher:
             from .megadecode import model_step_batch
 
             stack, meta = self._mega
-            logits, self.cache = model_step_batch(
-                self.model.params, stack, meta, self.cfg, tokens, self.cache,
-                self.positions, lm=self._lm[0], lm_meta=self._lm[1])
+            if self._tp is not None:
+                from .megadecode import model_step_batch_tp
+
+                logits, self.cache = model_step_batch_tp(
+                    self.model.params, stack, meta, self.cfg, tokens, self.cache,
+                    self.positions, self._tp)
+            else:
+                logits, self.cache = model_step_batch(
+                    self.model.params, stack, meta, self.cfg, tokens, self.cache,
+                    self.positions, lm=self._lm[0], lm_meta=self._lm[1])
         else:
             logits, self.cache = decode_step_multi(
                 self.model.params, self.cfg, tokens, self.cache,
@@ -432,3 +447,25 @@ def _accept_round(b, active, ver, props, limit: int, retire) -> Dict[int, List[i
             req.done = True
             retire(i)
     return out
+
+
+def shard_batcher(batcher: ContinuousBatcher, mesh) -> ContinuousBatcher:
+    """This rank's ContinuousBatcher over `mesh` (a ("data", "model")
+    DeviceMesh): its slots are its "data" coordinate's share of the
+    batcher's (each data rank serves n_slots / |data| sequences, fed its own
+    requests), its model the "model" shard (parallel.shard_model), whose
+    batched step runs the kernel's tensor-parallel mode. Takes a batcher
+    with no request admitted; returns a new one with its settings. Raises if
+    n_slots does not split over "data"."""
+    from ..parallel.sharding import shard_model
+
+    n_data = mesh.size(mesh.mesh_dim_names.index("data"))
+    if batcher.n_slots % n_data:
+        raise ValueError(f"n_slots={batcher.n_slots} not divisible by data={n_data}")
+    if any(r is not None for r in batcher.slot_req):
+        raise ValueError("shard a batcher before it admits requests")
+    quant = isinstance(batcher.cache, dict) or isinstance(batcher.cache[0], dict)
+    return ContinuousBatcher(shard_model(batcher.model, mesh), n_slots=batcher.n_slots // n_data,
+                             max_len=batcher.max_len, fused=batcher.fused,
+                             cache_dtype=torch.int8 if quant else batcher.cache[0][0].dtype,
+                             use_megakernel=batcher._mega is not None)

@@ -11,8 +11,10 @@ the chunk steps (`_scatter_chunk_rows_batched`, `model_step_chunk`,
 `model_step_chunk_batch`, `model_step_chunk_batch_paged`; the reference's
 one-slot `_scatter_chunk_rows` is the batched scatter with one prefix) and
 the batched kernel's fused terminal lm rows (`stack_lm`; `lm=`/`lm_meta=` of
-the batch and chunk steps). The tensor-parallel steps are not ported yet
-(ROADMAP.md A12).
+the batch and chunk steps) and the tensor-parallel steps (`_lin_out_slices`,
+`_lin_in_slice`, `stack_serving_tp`, `model_step_batch_tp`,
+`model_step_batch_paged_tp`: the batched kernel's mode (e), one rank's
+shard a call, its collectives over an explicit group).
 
 A chunk step takes any number of slots and rows, where one batched launch
 takes at most ops.model_fused.MAX_BATCH = 8 rows: the slots go in waves of
@@ -280,7 +282,7 @@ def model_step_batch(params, stack, meta, cfg, tokens, cache, positions, lm=None
 
 
 def _step_rows(params, stack, meta, cfg, tokens, cache, positions, chunk=1, table=None,
-               lm=None, lm_meta=None, scatter=None):
+               lm=None, lm_meta=None, scatter=None, group=None):
     """The whole-model launch for tokens [S, C] at positions [S*C] (C = chunk
     tokens a slot), the new rows scattered in place (`scatter`, default the
     dense one-row-a-slot scatter), then the lm_head, or with `lm` the
@@ -295,13 +297,21 @@ def _step_rows(params, stack, meta, cfg, tokens, cache, positions, chunk=1, tabl
     outs = model_decode_mega_batch(
         stack, x, cos.reshape(S * C, -1)[:, -cfg.head_dim:],
         sin.reshape(S * C, -1)[:, -cfg.head_dim:], cache, pos, cfg, meta, table=table,
-        chunk=C, lm=lm, lm_meta=lm_meta)
+        chunk=C, lm=lm, lm_meta=lm_meta, **_tp_kw(group))
     scatter = scatter or _scatter_rows_batched
     cache = scatter(cache, *outs[1:5], pos)
     if lm is not None:
         return outs[5].reshape(S, C, -1), cache
     hh = llama.rms_norm(outs[0].reshape(S, C, h), params["final_norm"], cfg.rms_eps)
     return llama.unembed(params, cfg, hh), cache
+
+
+def _tp_kw(group):
+    if group is None:
+        return {}
+    from ..parallel.collectives import size_of
+
+    return {"tp": size_of(group), "group": group}
 
 
 # ---------------------------------------------------------------------------
@@ -459,3 +469,111 @@ def model_step_chunk_batch_paged(params, stack, meta, cfg, tokens, pool, table, 
             logits = lg.new_empty(B, C, lg.shape[-1])
         logits[slots, off:off + c] = lg
     return logits, pool
+
+
+# ---------------------------------------------------------------------------
+# tensor parallel: a rank's shard of the stack, and the steps of mode (e)
+# ---------------------------------------------------------------------------
+#
+# Megatron head and intermediate parallelism of the batched kernel: the q/kv
+# heads and the MLP columns shard over the group, the residual stays whole on
+# every rank, and the o_proj and down_proj partials are summed over the group
+# between the kernel's half-layer launches (the reference exchanges them
+# inside its one launch, over remote DMAs between chips).
+
+
+def _lin_out_slices(lin, spans):
+    """The out-feature spans of a linear (packed columns, scale and zero rows)."""
+    from ..parallel.sharding import cut_cols
+
+    return cut_cols(lin, spans)
+
+
+def _lin_in_slice(lin, a, b):
+    """The in-features [a, b) of a linear (packed word rows, scale and zero
+    groups; per-channel ones whole)."""
+    from ..parallel.sharding import cut_rows
+
+    return cut_rows(lin, a, b)
+
+
+def _tp_blocks(model: Model, ntp: int, rank: int, zeros_only: bool = False):
+    """Rank `rank`'s shard of every fused block (with zeros_only, of the
+    linears' zeros only: what the meta reads)."""
+    from ..parallel.sharding import shard_block
+
+    cfg = model.config
+    out = []
+    for blk in model.params["layers"]:
+        if zeros_only:
+            blk = {n: (blk[n].replace(packed=None, weight=None, bias=None, perm=None,
+                                      smooth_factor=None) if n in _LINEARS else blk[n])
+                   for n in _LINEARS + ("input_norm", "post_norm")}
+        nb = shard_block(blk, cfg, rank, ntp)
+        for n in _LINEARS:
+            nb[n].tp = None
+        out.append(nb)
+    return out
+
+
+def stack_serving_tp(model: Model, ntp: int, rank: int):
+    """(rank `rank`'s stack, meta, its config) for the batched kernel's
+    mode (e) over `ntp` ranks, or None where the reference declines: a model
+    without the fused serving blocks, heads, kv heads or MLP columns that do
+    not split over ntp, a rank's MLP columns that do not cut on down_proj's
+    groups, a rank's q or MLP features that do not fill whole words, or
+    ranks whose metas differ (a zero constant over one rank's cut that is not
+    over another's). The rank's stack equals its cut of the reference's
+    shard-major stack; its blocks are the stack's views, as stack_serving's."""
+    from ..parallel.sharding import rank_config
+
+    cfg = model.config
+    layers = model.params["layers"]
+    if not layers or "qkv_proj" not in layers[0]:
+        return None
+    if cfg.num_heads % ntp or cfg.num_kv_heads % ntp or cfg.intermediate_size % ntp:
+        return None
+    bits = layers[0]["qkv_proj"].spec.wbit
+    qdl, il = cfg.num_heads * cfg.head_dim // ntp, cfg.intermediate_size // ntp
+    if il % max(_grp(layers[0]["down_proj"]), 1) or (qdl * bits) % 32 or (il * bits) % 32:
+        return None
+    cfg_l = rank_config(cfg, ntp)
+    try:
+        metas = []
+        for s in range(ntp):
+            shard = _tp_blocks(model, ntp, s, zeros_only=True)
+            metas.append(tuple(_zconst(shard, n) for n in _LINEARS))
+    except ValueError:  # a cut off whole words or groups
+        return None
+    if any(m != metas[0] for m in metas[1:]):
+        return None
+    blocks = _tp_blocks(model, ntp, rank)
+    for b in blocks:
+        b["mega"] = prepare_block(b, cfg_l)
+    st = stack_serving(Model(config=cfg_l, params={
+        "layers": blocks, "embed": model.params["embed"],
+        "final_norm": model.params["final_norm"]}, family=model.family))
+    return None if st is None else (st[0], st[1], cfg_l)
+
+
+@torch.no_grad()
+def model_step_batch_tp(params, stack, meta, cfg, tokens, cache, positions, group):
+    """One B-slot decode step of this rank, tensor-parallel over `group`
+    (model_step_batch with the kernel's mode (e)): `stack` is the rank's
+    (`stack_serving_tp`, or stack_serving of a parallel.shard_model model),
+    `cache` its kv heads [L, B, Hkv/tp, T, D]. Returns (logits [B, V],
+    cache), the logits the same on every rank; the rank's new rows are
+    scattered into its cache in place."""
+    logits, cache = _step_rows(params, stack, meta, cfg, tokens, cache, positions, group=group)
+    return logits[:, 0], cache
+
+
+@torch.no_grad()
+def model_step_batch_paged_tp(params, stack, meta, cfg, tokens, pool, table, positions, group):
+    """model_step_batch_tp over the rank's head shard of the page pool
+    [L, n_pages, Hkv/tp, P, D]; the table is every rank's. Returns
+    (logits [B, V], pool)."""
+    logits, pool = _step_rows(
+        params, stack, meta, cfg, tokens, pool, positions, table=table, group=group,
+        scatter=lambda c, *r: _scatter_rows_paged(c, *r[:4], table, r[4]))
+    return logits[:, 0], pool

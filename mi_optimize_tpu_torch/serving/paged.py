@@ -195,6 +195,14 @@ class PagedMegaBatcher:
             raise ValueError(f"wave_slots {wave_slots}: the batched kernel takes 1 to "
                              f"{MAX_BATCH} rows a launch")
         self.device = resolve_device(model.params["embed"].device)
+        from ..parallel.sharding import tp_group
+
+        # a tensor-parallel shard (parallel.shard_model): the kernel's mode (e)
+        # over its group; the prefix cache's chunk steps take one rank only
+        self._tp = tp_group(model)
+        if self._tp is not None and prefix_cache:
+            raise ValueError("the prefix cache's chunk steps run on one rank: a tensor-"
+                             "parallel shard serves without it")
         st = stack_serving(model)
         if st is None:
             raise ValueError("model does not satisfy the megakernel contract")
@@ -465,13 +473,27 @@ class PagedMegaBatcher:
             rids.append(req.rid)
         return rids if n > 1 else rids[0]
 
+    def _launch(self, tokens, table, positions):
+        """One paged batched launch over the pool (the kernel's mode (e) on a
+        tensor-parallel shard); returns the logits."""
+        from .megadecode import model_step_batch_paged, model_step_batch_paged_tp
+
+        stack, meta = self._mega
+        if self._tp is not None:
+            logits, self.pool = model_step_batch_paged_tp(
+                self.model.params, stack, meta, self.cfg, tokens, self.pool, table, positions,
+                self._tp)
+        else:
+            logits, self.pool = model_step_batch_paged(
+                self.model.params, stack, meta, self.cfg, tokens, self.pool, table, positions,
+                lm=self._lm[0] if self._lm is not None else None)
+        return logits
+
     def _wave_size(self) -> int:
         """Most slots a kernel launch decodes (the batched kernel's 8 rows)."""
         return self._wave or 8
 
     def step(self) -> Dict[int, int]:
-        from .megadecode import model_step_batch_paged
-
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             return {}
@@ -483,16 +505,12 @@ class PagedMegaBatcher:
                 if pg is None:
                     raise RuntimeError("KV page pool exhausted")
                 self.table[i, j] = pg[0]
-        stack, meta = self._mega
-        lm = self._lm[0] if self._lm is not None else None
         W = self._wave_size()
         dev = self.device
         if self.n_slots <= W:
             row_of = {i: i for i in active}
-            logits, self.pool = model_step_batch_paged(
-                self.model.params, stack, meta, self.cfg,
-                torch.as_tensor(self.last_token[:, None], device=dev), self.pool, self.table,
-                self.positions, lm=lm)
+            logits = self._launch(torch.as_tensor(self.last_token[:, None], device=dev),
+                                  self.table, self.positions)
         else:
             # waves of W slots over the shared pool; a short wave pads by
             # repeating its last active slot
@@ -502,10 +520,8 @@ class PagedMegaBatcher:
             for o in range(0, len(active), W):
                 g = active[o:o + W]
                 idx = g + [g[-1]] * (W - len(g))
-                lg, self.pool = model_step_batch_paged(
-                    self.model.params, stack, meta, self.cfg,
-                    torch.as_tensor(self.last_token[idx][:, None], device=dev), self.pool,
-                    self.table[idx], self.positions[idx], lm=lm)
+                lg = self._launch(torch.as_tensor(self.last_token[idx][:, None], device=dev),
+                                  self.table[idx], self.positions[idx])
                 parts.append(lg)
                 for off, s in enumerate(idx):
                     row_of.setdefault(s, r0 + off)

@@ -42,6 +42,7 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "mi_optimize_tpu", "safetensors")
              or m.startswith(("jax.", "flax.", "mi_optimize_tpu.", "safetensors.")))
+assert "mi_optimize_tpu_torch.parallel.overlap" in names, names  # parallel/ is scanned
 print(len(names), bad)
 """
 
@@ -301,8 +302,11 @@ def test_whole_model_launchers_validate_inputs_before_building():
         mega_batch(stack, xb[:2], cb[:2], cb[:2], bcache, [3, 5], cfg, meta, chunk=2)
     with pytest.raises(ValueError, match="one row per slot"):
         mega_batch(stack, xb, cb, cb, pool, [0, 5, 7], cfg, meta, table=table[:2])
-    with pytest.raises(NotImplementedError, match="tp"):
+    # mode (e) takes a group of tp ranks, and refuses the chunk mode and the lm rows
+    with pytest.raises(ValueError, match="group of 2 ranks"):
         mega_batch(stack, xb, cb, cb, bcache, [0, 5, 7], cfg, meta, tp=2)
+    with pytest.raises(ValueError, match="tp = 1"):
+        mega_batch(stack, xb[:2], cb[:2], cb[:2], bcache, [3, 4], cfg, meta, chunk=2, tp=2)
     # the terminal lm rows (mode d): lm and lm_meta come together, and the
     # launcher checks the lm_head's words, scales and final norm
     assert megadecode.stack_lm(model, meta) is None   # an asymmetric lm_head grid
