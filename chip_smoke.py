@@ -12,8 +12,9 @@ Phases:
      the fused MLP's tensor-core kernels from the build's own -Xptxas -v
      log, of every paged_split_kernel instance (the paged flash decode)
      and of every decode_split_kernel instance (the decode attention), of
-     every tp_kernel instance (the batched kernel's mode (e)) and
-     ring_chunk_kernel instance (the ring dequant matmul);
+     every tp_kernel instance (the batched kernel's mode (e)) and of the
+     ring dequant matmul's ring_gemv_kernel, ring_mma_kernel and
+     ring_chunk_kernel instances;
   2. hold each kernel against its plain PyTorch version on the card at the
      Llama-2-7B shapes of the paths below in bf16, and time both: the
      dequant matmul (the gemv16 kernel at M = 1, the tensor-core mma kernel
@@ -85,14 +86,16 @@ Phases:
      ranks as threads of a LocalGroup: the batched kernel's mode (e)
      (csrc/model_fused_tp.cu, each rank 16 q heads, 16 kv heads, 5504 MLP
      columns, two launches a layer with the o_proj and down_proj partials
-     summed between them) on the dense B = 8 row's state and on the (b)
-     row's pool (bitwise equal to the dense TP outputs), each rank held to
-     its plain version over the first 2 layers by `hold_rows` and at full
-     depth on layer 0's rows, x_out the same bits on both ranks, one rank's
-     half-layer launch timed alone; and the overlapped ring dequant matmul
-     (csrc/overlap.cu) on layer 0's o_proj at D = 2 and 4 and down_proj at D
-     = 2, M = 8 and 2048, every rank within RING_TOL of the plain version,
-     one ring window timed alone;
+     summed between them; half 0's attention split over the live rows) on
+     the dense B = 8 row's state, on the (b) row's pool (bitwise equal to
+     the dense TP outputs) and with one slot at 510 and seven at 0, each rank
+     held to its plain version over the first 2 layers by `hold_rows` and at
+     full depth on layer 0's rows, x_out the same bits on both ranks, one
+     rank's half-layer launch timed alone; and the overlapped ring dequant
+     matmul (csrc/overlap.cu) on layer 0's o_proj at D = 2 and 4 and
+     down_proj at D = 2, M = 8 (the split-K GEMV), 128 and 2048 (the tiled
+     tensor-core product), every rank within RING_TOL of the plain version,
+     one ring window timed alone beside the CUDA-core tiles;
   2b. the bf16 gate against three faults planted in the batched kernel's
      outputs (another slot's history, a row from position p - 1, a scale
      from amax / 128): it must reject each;
@@ -170,7 +173,7 @@ Phases:
         within 1e-2, ZeroQuant's 8-bit linears on B1's CUDA-core kernel;
      s. a checkpoint in the HF safetensors format written by the script
         (meta-llama/Llama-2-7b-hf's published config.json cut to
-        CKPT_LAYERS = 4 layers; f16 weights from seed 0 at fp_llama's
+        CKPT_LAYERS = 3 layers; f16 weights from seed 0 at fp_llama's
         scales, two shards): `load_llama_from_hf` onto the card (f32 equal
         to what was written, bf16 equal to it rounded); `quantize` of the
         bf16 model by GPTQ int4 g128 affine calibrated on the C-Eval
@@ -194,7 +197,8 @@ Phases:
         the one card (`tp_rank`): the planted target sharded by
         `shard_model` serves 8 requests (prompts 16-256, 32 or 64 new
         tokens) through ContinuousBatcher and PagedMegaBatcher (prefill
-        through the row-parallel ring, one mode (e) step a token), tokens
+        through the row-parallel ring on its tensor-core "mma" route, one
+        mode (e) step a token), tokens
         equal to the single-card batchers'; one model_step_batch_tp step of
         the random-weight model within TOL of the single-card step's logits;
         its walls are not TP speed (the ranks share the card and sum
@@ -328,6 +332,10 @@ PTXAS_KERNELS = (
      lambda m: f"tp_kernel<{_bits_dtype(m)}, {m.group(2)}, GEN={m.group(3)}>"),
     ("overlap", r"ring_chunk_kernelI(f|13__nv_bfloat16)Li(\d)E",
      lambda m: f"ring_chunk_kernel<{_bits_dtype(m)}, {m.group(2)}>"),
+    ("overlap", r"ring_gemv_kernelILi(\d)E",
+     lambda m: f"ring_gemv_kernel<{m.group(1)} row tile(s)>"),
+    ("overlap", r"ring_mma_kernelI\w*?RingTileILi(\d+)E",
+     lambda m: f"ring_mma_kernel<[{m.group(1)}, 128] tile>"),
     ("mlp_fused",
      r"mlp_mma_kernelINS_7MlpTileILi(\d+)ELi(\d)ELi(\d)ELi(\d)ELi\d+ELi\d+EEELb([01])E",
      lambda m: f"mlp_mma_kernel<{'P1' if m.group(5) == '1' else 'P2'}, [{m.group(1)}, 128] on "
@@ -1443,15 +1451,18 @@ def check_mega_batch_tp(model, stack, meta, cfg, dev, flush, reps, positions, T=
 def check_ring(model, cfg, dev, flush, reps):
     """B11: the overlapped row-parallel dequant matmul on the 7B layer 0's
     own int4 g128 words: o_proj (4096 -> 4096) at D = 2 and 4, down_proj
-    (11008 -> 4096) at D = 2, each at M = 8 and M = 2048 rows of bf16 x; the
-    D ranks as threads of a LocalGroup (the ring's transfers copies on the
-    card). Held: every rank's f32 output within RING_TOL of the plain
-    version's (the sum over the ranks of ring_chunk_ref over its K slice).
-    Timed: one ring window alone (rank 0's first window of step 1, with the
-    received partial as its addend), beside its plain version; bound: the
-    window's x slice, words, scale and zero tables, addend and output, read
-    or written once, and its multiply-adds at the f32 peak (the kernel sums
-    in f32 on the CUDA cores)."""
+    (11008 -> 4096) at D = 2, each at M = 8 (the "gemv" route), 128 (inside
+    path t's prompts of 16-256 tokens) and 2048 rows (the "mma" route) of
+    bf16 x; the D ranks as threads of a LocalGroup (the ring's transfers
+    copies on the card). Held: every rank's f32 output within RING_TOL of
+    the plain version's (the sum over the ranks of ring_chunk_ref over its K
+    slice). Timed: one ring window alone (rank 0's first window of step 1,
+    with the received partial as its addend), beside its plain version and
+    beside the CUDA-core tiles on the same inputs (route "cuda_core");
+    bound: the window's x slice, words, scale and zero tables, addend and
+    output, read or written once, and its multiply-adds at the bf16 tensor
+    peak (x and the codes are exact bf16 operands, so the same f32 sums run
+    on the tensor cores; f32 x would take the f32 peak)."""
     import torch
 
     from mi_optimize_tpu_torch.models.quant_linear import group_size
@@ -1471,34 +1482,45 @@ def check_ring(model, cfg, dev, flush, reps):
         w = nc // overlap.PARTS
         shard = [(lin.packed[r * kl // 8:(r + 1) * kl // 8], st[r * kl // g:(r + 1) * kl // g],
                   zt[r * kl // g:(r + 1) * kl // g]) for r in range(D)]
-        for M in (8, 2048):
+        for M in (8, 128, 2048):
             x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
             xs = [x[:, r * kl:(r + 1) * kl].contiguous() for r in range(D)]
-            before = overlap.launches
+            route = overlap.ring_route(M, x.dtype, 4, g, w)
+            before = (overlap.launches, getattr(overlap, f"launches_{route}"))
             got = LocalGroup(D).run(lambda g_: overlap.ring_matmul(
                 xs[g_.rank], *shard[g_.rank], g_, bits=4, group=g))
             torch.cuda.synchronize()
-            if x.is_cuda and overlap.launches - before != D * D * overlap.PARTS:
-                raise AssertionError(f"ring_chunk: {overlap.launches - before} launches")
+            n = D * D * overlap.PARTS
+            if x.is_cuda and (overlap.launches - before[0],
+                              getattr(overlap, f"launches_{route}") - before[1]) != (n, n):
+                raise AssertionError(f"ring_chunk: {overlap.launches - before[0]} launches, "
+                                     f"expected {n} on the {route!r} route")
             plain = sum(overlap.ring_chunk_ref(xs[r], *shard[r], None, 4, g, 0, N)
                         for r in range(D))
             err = max(max_err(y, plain)[0] for y in got)
             what = f"{lname} {K}->{N} D={D} M={M}"
-            check_close(f"ring_chunk {what} (every rank, f32)", torch.stack(got),
+            check_close(f"ring_chunk {what} ({route}, every rank, f32)", torch.stack(got),
                         plain.expand(D, M, N), RING_TOL)
             add = torch.randn(M, w, generator=gen, device=dev)
             c = 1 % D  # rank 0's chunk at step 0; step 1's window adds the received partial
             args = (xs[0], *shard[0], add, 4, g, c * nc, w)
+            ref = overlap.ring_chunk_ref(*args)
+            core_err = max_err(overlap.ring_chunk(*args, route="cuda_core"), ref)
             ms = time_ms(lambda: overlap.ring_chunk(*args), reps, flush)
+            core_ms = time_ms(lambda: overlap.ring_chunk(*args, route="cuda_core"), reps, flush)
             plain_ms = time_ms(lambda: overlap.ring_chunk_ref(*args), 2, flush)
             nb = M * kl * 2 + (kl // 8) * w * 4 + 2 * (kl // g) * w * 4 + 2 * M * w * 4
             fl = 2 * M * kl * w
-            b_ms, b_by = bound(nb, fl, F32_FLOPS)
-            log(f"    window [{M}, {w}] of K {kl} alone: kernel {ms:.4f} ms  plain "
-                f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+            b_ms, b_by = bound(nb, fl, BF16_FLOPS)
+            log(f"    window [{M}, {w}] of K {kl} alone ({route}): kernel {ms:.4f} ms  the CUDA-core "
+                f"tiles {core_ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+                f"({b_by}); rank outputs within {err / float(plain.abs().max()):.2e} of "
+                f"max|plain| (the CUDA-core tiles' window {core_err[0] / core_err[1]:.2e})")
             rows.append(dict(name="ring_chunk", shape=f"{what}: window [{M}, {w}] over K {kl}",
                              max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, bytes=nb, flops=fl))
+                             bound_by=b_by, bytes=nb, flops=fl, cuda_core_ms=core_ms,
+                             codes={"route": route, "rel_err": err / float(plain.abs().max()),
+                                    "cuda_core_window_rel_err": core_err[0] / core_err[1]}))
             del x, xs, got, plain
     return rows
 
@@ -2555,7 +2577,8 @@ def serve_model_loop(model, stack, meta, cfg, dev, S=128, n=128):
 # datasets layer loads it from data/wikitext (the train split falls back to
 # validation)
 CALIB = {"name": "wikitext2", "split": "train", "nsamples": 32, "seqlen": 512}
-CALIB_LAYERS = 8            # path n's depth: at 32 layers the phase took over 150 s (PERF.md §6)
+CALIB_LAYERS = 4            # path n's depth: at 32 layers the phase took over 150 s, at 8 60 s
+                            # on a slow host (PERF.md §4): 4 keeps the script's time
 ALGO_LAYERS = 4             # paths p and q: at 8 layers the other algorithms took over 200 s
 GPTQ_AFFINE = {"algo": "gptq", "wbit": "int4", "w_qtype": "per_group", "w_groupsize": 128,
                "w_qscheme": "affine", "blocksize": 128, "percdamp": 0.01}
@@ -3598,7 +3621,8 @@ LLAMA2_7B_HF = {"architectures": ["LlamaForCausalLM"], "bos_token_id": 1, "eos_t
                 "num_key_value_heads": 32, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
                 "rope_scaling": None, "tie_word_embeddings": False, "torch_dtype": "float16",
                 "use_cache": True, "vocab_size": 32000}
-CKPT_LAYERS = 4             # path s's depth: three GPTQ passes of 4.5-5 s a layer (PERF.md §4)
+CKPT_LAYERS = 3             # path s's depth: three GPTQ passes of 4.5-7.5 s a layer (PERF.md
+                            # §4); the interrupted pass stops after block 1 of 3
 CEVAL_CALIB = {"name": "ceval", "nsamples": 1, "seqlen": 2048}   # one question a subject
 MCQA_TIE = 2e-2             # MCQA predictions held where the top two letters are this x max|logit| apart
 INT8_TOL = 5e-2             # int8-cache logits held within this x max|logit| of the float32 cache's
@@ -4898,6 +4922,9 @@ def counters():
             "w4a8_matmul": (w4a8_matmul, "launches"),
             "model_decode_mega_batch_tp": (model_fused, "launches_tp"),
             "ring_chunk": (overlap, "launches"),
+            "ring_chunk_gemv": (overlap, "launches_gemv"),
+            "ring_chunk_mma": (overlap, "launches_mma"),
+            "ring_chunk_cuda_core": (overlap, "launches_cuda_core"),
             # the W8A8 route's torch._int_mm calls (a library call, not a kernel row)
             "w8a8_int_mm": (int8_matmul, "launches")}
 
@@ -5099,6 +5126,7 @@ def main() -> int:
     rows += check_mega_batch_tp(model, sstack, smeta, cfg, dev, flush, 5, dense_positions)
     rows += check_mega_batch_tp(model, sstack, smeta, cfg, dev, flush, 5, dense_positions,
                                 paged=True)
+    rows += check_mega_batch_tp(model, sstack, smeta, cfg, dev, flush, 5, [510] + [0] * 7)
     rows += check_ring(model, cfg, dev, flush, 5)
     torch.cuda.empty_cache()
     rows += check_flat_seg("random weights", model, fstack, fmeta, cfg, dev, flush, 5)
@@ -5342,8 +5370,10 @@ def main() -> int:
     sstack, smeta = stack_serving(model)
     report["tp_serving"], c = run_path(
         "tensor-parallel serving (2 gloo ranks)", ("model_decode_mega_batch_tp", "ring_chunk",
-                                                   "dequant_matmul_mma"),
+                                                   "ring_chunk_mma", "dequant_matmul_mma"),
         lambda: serve_tp(model, sstack, smeta, target, cfg, dev, dense_positions))
+    if c["ring_chunk_cuda_core"]:
+        raise AssertionError("path t took the CUDA-core ring tiles for bf16 int4 windows")
     tally(c)
     del sstack, smeta
     report["tp_serving"]["wall_s"] = time.perf_counter() - t_t

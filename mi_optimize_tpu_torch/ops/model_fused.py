@@ -600,10 +600,50 @@ def _model_decode_mega_batch_cuda(stack, x, cos, sin, cache, positions, cfg, met
 class _TpArgs(ctypes.Structure):
     """csrc/model_fused_tp.cu's TpArgs: the batched argument block, then the
     half-layer's residual in, reduced partial, residual out and partial out,
-    layer and half."""
-    _fields_ = [("b", _BatchArgs)] + [(n, ctypes.c_void_p) for n in ("xin", "add", "res",
-                                                                    "partial")] + [
-        ("layer", ctypes.c_int), ("half", ctypes.c_int)]
+    the attention split's partials and counters, layer and half, the split
+    (`tp_split_plan`), and each slot's position and first item."""
+    _fields_ = [("b", _BatchArgs)] + [(n, ctypes.c_void_p) for n in (
+        "xin", "add", "res", "partial", "apart", "acount")] + [
+        (n, ctypes.c_int) for n in ("layer", "half", "chunk_rows", "n_chunks", "group")] + [
+        ("slot_pos", ctypes.c_int * MAX_BATCH), ("slot_item", ctypes.c_int * (MAX_BATCH + 1))]
+
+
+# Half 0's attention split (csrc/model_fused_tp.cu attention_split): chunks
+# of a power of two of rows, TP_CHUNK_MIN at the least; q heads an item (TG,
+# half as many above head_dim 128); items the plan aims the whole step's
+# split at, about the cooperative grid of an H100 (2 x 132 blocks).
+TP_CHUNK_MIN = 32
+TP_GROUP_MAX = 4
+TP_ITEMS = 256
+
+
+def tp_split_plan(positions, n_heads: int, n_kv_heads: int, head_dim: int, cap: int,
+                  items: int = None) -> tuple:
+    """Half 0's attention split, from the shapes and the positions (host
+    ints) alone: (chunk_rows, n_chunks, group, n_sub, n_items). A slot at
+    position p has rows 0..p live (row p the new one) and `p // chunk_rows +
+    1` chunks; an item is (slot, chunk, kv head, sub-group of `group` q
+    heads; `n_sub` a kv head). The chunk is the smallest power of two of
+    rows, TP_CHUNK_MIN at the least, whose items number at most `items`
+    (TP_ITEMS by default), or the one that holds every slot's rows in one
+    chunk: Llama-2-7B's rank at TP = 2, positions 0/17/64/127/128/200/383/
+    510, 128 rows and 240 items; one slot at 510, seven at 0, 64 rows and
+    240 items (on the H100 budgets of 128, 512 and 1024 items were slower:
+    PERF.md). `n_chunks` is the workspace's chunks a slot, enough for any
+    position below `cap` (the slots' rows), so the workspace is the same for
+    every step."""
+    items = TP_ITEMS if items is None else items
+    reps = n_heads // n_kv_heads
+    group = min(reps, TP_GROUP_MAX if head_dim <= 128 else TP_GROUP_MAX // 2)
+    n_sub = -(-reps // group)
+    pos = [min(int(p), cap) for p in torch.as_tensor(positions).reshape(-1).tolist()]
+    cr = TP_CHUNK_MIN
+    while True:
+        n = sum(p // cr + 1 for p in pos) * n_kv_heads * n_sub
+        if n <= items or cr > max(pos):
+            break
+        cr *= 2
+    return cr, -(-cap // TP_CHUNK_MIN), group, n_sub, n
 
 
 def tp_config(stack, cache, cfg, meta):
@@ -623,25 +663,55 @@ class TpLaunch:
     """A rank's mode (e) step on the card, checked and filled once
     (`tp_prepare`): the argument block, the step's outputs (x_out, krows,
     vrows, ksr, vsr), the residual and partial buffers of the two halves,
-    and the tensors whose pointers the block holds."""
+    the attention split (`tp_split_plan`, then the slots' positions and
+    first items) and its workspace, and the tensors whose pointers the block
+    holds."""
     args: ctypes.Structure
     meta: tuple
     dtype: torch.dtype
     outs: tuple
     res: torch.Tensor
     part: torch.Tensor
+    split: tuple
+    workspace: tuple
     keep: list
 
 
+_tp_workspaces = {}
+
+
+def _tp_workspace(dev, B, H, n_kv_heads, n_sub, n_chunks, head_dim):
+    """(partials, counters) of half 0's attention split for these shapes on
+    `dev`: f32 [B, H, n_chunks, D] acc then [B, H, n_chunks, 2] (m, l), and
+    int32 arrival counters [B, Hkv, n_sub], zeroed once (the kernel's last
+    item of each resets its own). Allocated once a shape, for every step."""
+    key = (str(dev), B, H, n_kv_heads, n_sub, n_chunks, head_dim)
+    ws = _tp_workspaces.get(key)
+    if ws is None:
+        ws = _tp_workspaces[key] = (
+            torch.empty(B * H * n_chunks * (head_dim + 2), dtype=torch.float32, device=dev),
+            torch.zeros(B * n_kv_heads * n_sub, dtype=torch.int32, device=dev))
+    return ws
+
+
 def tp_prepare(stack, x, cos, sin, cache, positions, cfg, meta, table=None) -> TpLaunch:
-    """Check one rank's mode (e) inputs (`cfg` the rank's, `tp_config`) and
-    fill its argument block."""
+    """Check one rank's mode (e) inputs (`cfg` the rank's, `tp_config`), fill
+    its argument block and plan half 0's attention split from the positions
+    (`tp_split_plan`, then each slot's position and first item)."""
     h, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B = x.shape[0]
     args, outs, keep = _batch_args(stack, x, cos, sin, cache, positions, cfg, meta, table, 1,
                                    None, None, 2 * H * D + 2 * Hkv * D + cfg.intermediate_size)
+    cap = cache["k"].shape[3] if table is None else len(table[0]) * cache["k"].shape[3]
+    split = tp_split_plan(positions, H, Hkv, D, cap)
+    pos = [int(p) for p in torch.as_tensor(positions).reshape(-1).tolist()]
+    first = [0]
+    for p in pos:
+        first.append(first[-1] + (p // split[0] + 1) * Hkv * split[3])
+    split += (pos, first)
+    ws = _tp_workspace(x.device, B, H, Hkv, split[3], split[1], D)
     res = torch.empty(2, B, h, dtype=torch.float32, device=x.device)
-    return TpLaunch(args, meta, x.dtype, outs, res, torch.empty_like(res), keep)
+    return TpLaunch(args, meta, x.dtype, outs, res, torch.empty_like(res), split, ws, keep)
 
 
 def tp_launch(prep: TpLaunch, layer: int, half: int, xin, add):
@@ -649,8 +719,11 @@ def tp_launch(prep: TpLaunch, layer: int, half: int, xin, add):
     [B, h]) plus the reduced partial `add` (or None). Returns (the residual
     it wrote, its partial) [B, h] f32, the prepared buffers of that half."""
     global launches_tp
+    cr, n_chunks, group, _, _, pos, first = prep.split
     a = _TpArgs(prep.args, xin.data_ptr(), None if add is None else add.data_ptr(),
-                prep.res[half].data_ptr(), prep.part[half].data_ptr(), layer, half)
+                prep.res[half].data_ptr(), prep.part[half].data_ptr(),
+                *(t.data_ptr() for t in prep.workspace), layer, half, cr, n_chunks, group,
+                (ctypes.c_int * MAX_BATCH)(*pos), (ctypes.c_int * (MAX_BATCH + 1))(*first))
     _call("mi_model_decode_mega_batch_tp", a, _TpArgs, prep.meta[0], prep.dtype, xin.device,
           "model_fused_tp")
     launches_tp += 1

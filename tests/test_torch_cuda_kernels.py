@@ -33,7 +33,13 @@ when the scratch it is given falls short; and the new int8 KV rows of the
 per-layer, flat and batched decode kernels bitwise against their plain
 versions; the W8A8 route (torch._int_mm) against its plain version (the
 int32 sums equal), FP8's native float8 storage and AWQ of one linear
-against the CPU.
+against the CPU; the ring dequant-matmul window on its tensor-core routes
+(the split-K GEMV up to 16 rows, the tiled product above; per-group,
+asymmetric and per-channel grids, a window off 16 bytes and past a tile's
+edge) and on the first port's f32 tiles, and the batched kernel's
+tensor-parallel mode (e) over two ranks (its attention split over the live
+rows: chunks of 32 rows and larger, kv heads of 1, 4 and 8 q heads; dense
+and paged bitwise equal; the new rows bit for bit on exact inputs).
 
 Needs an NVIDIA GPU and nvcc; every test skips without one. On the card:
 
@@ -1655,3 +1661,187 @@ def test_awq_linear_matches_the_cpu(dev):
     codes = [packing.unpack_weight(q.packed.cpu(), s.wbit, qrange(s.wbit, s.w_unsigned), 512)
              for q in (got, want)]
     assert float((codes[0] == codes[1]).double().mean()) >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel kernels: B11's ring window routes, B5(e)'s split attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [1, 5, 8, 9, 16, 17, 64, 130, 300])
+@pytest.mark.parametrize("qtype,groupsize,symmetric", [
+    ("per_group", 128, True), ("per_group", 32, False), ("per_channel", -1, True)])
+@pytest.mark.parametrize("col0,nc", [(256, 512), (2, 200)])
+def test_ring_chunk_routes(dev, M, qtype, groupsize, symmetric, col0, nc):
+    """A ring window of bf16 x over int4 words on its tensor-core route
+    ("gemv" up to 16 rows, "mma" above) against the plain version, with and
+    without the received partial, the same bits on a second launch; the
+    "mma" route also at M <= 16; f32 x on the first port's CUDA-core tiles.
+    Columns past a tile's edge (nc = 200) and a window off 16 bytes (col0 =
+    2) take the kernels' narrow copies."""
+    from mi_optimize_tpu_torch.ops.dequant_matmul import zero_tables
+    from mi_optimize_tpu_torch.parallel import overlap
+
+    lin = _to(_linear(1024, 1024, 4, qtype, groupsize, symmetric, seed=M), dev)
+    st, zt = zero_tables(lin)
+    g = group_size(lin)
+    gen = torch.Generator().manual_seed(M)
+    x = torch.randn(M, 1024, generator=gen).to(dev, torch.bfloat16)
+    add = torch.randn(M, nc, generator=gen).to(dev)
+    route = overlap.ring_route(M, x.dtype, 4, g, nc)
+    assert route == ("gemv" if M <= 16 else "mma")
+    for routes in ((None, route), ("mma", "mma")):
+        for a in (add, None):
+            args = (x, lin.packed, st, zt, a, 4, g, col0, nc)
+            before = getattr(overlap, f"launches_{routes[1]}")
+            got = overlap.ring_chunk(*args, route=routes[0])
+            assert getattr(overlap, f"launches_{routes[1]}") == before + 1
+            torch.cuda.synchronize()
+            _close(got, overlap.ring_chunk_ref(*args))
+            assert torch.equal(got, overlap.ring_chunk(*args, route=routes[0]))
+    args = (x.float(), lin.packed, st, zt, add, 4, g, col0, nc)
+    before = overlap.launches_cuda_core
+    _close(overlap.ring_chunk(*args), overlap.ring_chunk_ref(*args))
+    assert overlap.launches_cuda_core == before + 1
+
+
+# (q heads, kv heads, head_dim, positions): per rank of 2 kv heads of 1, 4 and
+# 8 q heads (two sub-groups), slots at 0, on and past chunk boundaries
+TP_CASES = [(4, 2, 128, [0, 31, 32, 200]), (8, 2, 64, [0, 33, 64, 255]),
+            (16, 2, 32, [5, 255, 96, 0])]
+
+
+def _tp_model(dev, H, Hkv, D, dtype, seed, layers=2):
+    """A small int4 g128 model fused for serving and its two ranks' mode (e)
+    shards [(stack, meta, rank config)]."""
+    cfg = LlamaConfig(vocab_size=160, hidden_size=512, intermediate_size=1024,
+                      num_layers=layers, num_heads=H, num_kv_heads=Hkv, head_dim=D,
+                      max_seq_len=512)
+    p = build_quantized_llama(cfg, bits=4, groupsize=128, dtype=dtype, seed=seed, device="cpu")
+    gpu = fuse_for_serving(Model(config=cfg, params=_to(p, dev)))
+    return cfg, gpu, [megadecode.stack_serving_tp(gpu, 2, r) for r in range(2)]
+
+
+def _tp_plain(run_ref, got):
+    """The plain TP step on the kernel's int8 rows, as `_plain` does for one
+    rank: run_ref(state) runs each rank in a thread that first sets
+    state.rank; the kernel's rows of that rank (`got[rank]`) take the place
+    of the plain version's own, which must match them by the int8-row rule."""
+    import threading
+
+    state = threading.local()
+    own = {}
+
+    def forced(x):
+        q, s = llama.quantize_kv(x)
+        r = state.rank
+        l, kv = divmod(state.calls, 2)
+        state.calls += 1
+        own.setdefault(r, []).append(q)
+        return got[r][1 + kv][l][:, None].to(q.device, q.dtype), s
+
+    with mock.patch.object(block_fused, "quantize_kv", forced):
+        ref = run_ref(state)
+    for r, rows in own.items():
+        _rows_match(got[r][1], torch.stack(rows[0::2])[:, :, 0])
+        _rows_match(got[r][2], torch.stack(rows[1::2])[:, :, 0])
+    return ref
+
+
+@pytest.mark.parametrize("H,Hkv,D,positions", TP_CASES)
+@pytest.mark.parametrize("items", [None, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_decode_mega_batch_tp(dev, monkeypatch, H, Hkv, D, positions, items, dtype):
+    """Mode (e) over two ranks as LocalGroup threads, dense and paged: its
+    attention split over the live rows (chunks of 32 rows at these shapes,
+    or, with the plan's items cut to 4, the larger chunks it then takes);
+    x_out the same bits on both ranks, the paged outputs bitwise the dense
+    ones, a second launch the same bits; every rank against the plain TP
+    step (float32 on the kernel's rows, the rows by the int8-row rule; bf16
+    as `_batch_close`)."""
+    from mi_optimize_tpu_torch.parallel import LocalGroup
+    from mi_optimize_tpu_torch.parallel.sharding import cache_shard
+
+    if items:
+        monkeypatch.setattr(model_fused, "TP_ITEMS", items)
+    cfg, _, shards = _tp_model(dev, H, Hkv, D, dtype, seed=H + D)
+    meta = shards[0][1]
+    B = len(positions)
+    cache = _slot_caches(cfg, positions, T_MEGA, seed=H)
+    pool, table = _mirror_pool(cache, seed=B)
+    dense = [_to(cache_shard(cache, r, 2), dev) for r in range(2)]
+    paged = [_to(cache_shard(pool, r, 2), dev) for r in range(2)]
+    x = torch.randn(B, 1, cfg.hidden_size, generator=torch.Generator().manual_seed(D)).to(
+        dev, dtype)
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    cos, sin = cos.reshape(B, -1), sin.reshape(B, -1)
+
+    def run(caches, tbl):
+        return LocalGroup(2).run(lambda g: model_fused.model_decode_mega_batch(
+            shards[g.rank][0], x, cos, sin, caches[g.rank], positions, cfg, meta, table=tbl,
+            tp=2, group=g))
+
+    before = model_fused.launches_tp
+    got = run(dense, None)
+    assert model_fused.launches_tp == before + 2 * 2 * cfg.num_layers
+    assert torch.equal(got[0][0], got[1][0])
+    for a, b in zip(got, run(paged, table)):
+        _same_bits(a, b)
+    for a, b in zip(got, run(dense, None)):
+        _same_bits(a, b)
+
+    def run_ref(state=None):
+        def rank(g):
+            if state is not None:
+                state.rank, state.calls = g.rank, 0
+            st, ca = shards[g.rank][0], dense[g.rank]
+            return model_fused.model_decode_mega_batch_ref(
+                st, x, cos, sin, ca, positions, model_fused.tp_config(st, ca, cfg, meta), meta,
+                group=g)
+        return LocalGroup(2).run(rank)
+
+    if dtype == torch.float32:
+        ref = _tp_plain(run_ref, got)
+        for r in range(2):
+            _close(got[r][0], ref[r][0])
+            _close(got[r][3], ref[r][3], 1e-5)
+            _close(got[r][4], ref[r][4], 1e-5)
+        return
+    ref = run_ref()
+    for r in range(2):
+        _close(got[r][0], ref[r][0], BF16_TOL)
+        for i in (1, 2):
+            assert int((got[r][i].int() - ref[r][i].int()).abs().max()) <= 1
+        _close(got[r][3], ref[r][3], 1e-3)
+        _close(got[r][4], ref[r][4], 1e-3)
+
+
+def test_tp_new_kv_rows_bit_equal_to_the_plain_version(dev):
+    """The int8 k/v rows and scales of mode (e)'s split attention, made by the
+    item whose chunk holds each slot's position, are the plain TP step's bit
+    for bit on `_exact_rows_model` (the inputs where only the quantization
+    formula can differ), on both ranks, dense and paged."""
+    from mi_optimize_tpu_torch.parallel import LocalGroup
+    from mi_optimize_tpu_torch.parallel.sharding import cache_shard
+
+    cfg, gpu = _exact_rows_model(dev)
+    shards = [megadecode.stack_serving_tp(gpu, 2, r) for r in range(2)]
+    meta = shards[0][1]
+    positions = POSITIONS * 2
+    B = len(positions)
+    cache = _slot_caches(cfg, positions, T_MEGA, seed=3)
+    pool, table = _mirror_pool(cache, seed=5)
+    x = torch.ones(B, 1, cfg.hidden_size, dtype=torch.bfloat16, device=dev)
+    cos, sin = llama.rope_tables(cfg, torch.tensor(positions, device=dev)[:, None])
+    cos, sin = cos.reshape(B, -1), sin.reshape(B, -1)
+    for c, tbl in ((cache, None), (pool, table)):
+        caches = [_to(cache_shard(c, r, 2), dev) for r in range(2)]
+        got = LocalGroup(2).run(lambda g: model_fused.model_decode_mega_batch(
+            shards[g.rank][0], x, cos, sin, caches[g.rank], positions, cfg, meta, table=tbl,
+            tp=2, group=g))
+        ref = LocalGroup(2).run(lambda g: model_fused.model_decode_mega_batch_ref(
+            shards[g.rank][0], x, cos, sin, caches[g.rank], positions,
+            model_fused.tp_config(shards[g.rank][0], caches[g.rank], cfg, meta), meta, tbl,
+            group=g))
+        for r in range(2):
+            for a, b in zip(got[r][1:], ref[r][1:]):
+                assert a.dtype == b.dtype and torch.equal(a, b)
