@@ -203,6 +203,24 @@ Phases:
         the random-weight model within TOL of the single-card step's logits;
         its walls are not TP speed (the ranks share the card and sum
         through host memory);
+     u. latency (`eval/latency.py`): Benchmark.eval_latency on the served
+        7B model at batch 1, 128 tokens, int8 cache (forward percentiles,
+        the per-layer decode's tokens/s and roofline fraction,
+        decode_loop_model's, and the whole-model kernel alone beside
+        torch.sum over as many bytes), the unfused model's forward, and the
+        flat kernel alone beside decode_loop_flat's step; every share of a
+        roofline, of the HBM rate and of torch.sum's rate in (0, 100%], each
+        kernel's time a token at most its step's;
+     v. lm-eval (`eval/lmeval.py`): mc_taco, headqa and wikitext's rolling
+        windows on the random-weight 7B model, gsm8k and squad2 (greedy and
+        mixed requests) on the planted target, from raw files under
+        build/path_v, on the fused route against fused=False: each
+        loglikelihood within LL_TOL a continuation token, the same metrics
+        (the perplexities within what LL_TOL allows) and greedy texts;
+     w. the CLI twins (`mi_optimize_tpu_torch/cli/`) in-process with
+        --device cuda on a 3-layer 7B-width checkpoint: benchmark_ppl's JSON
+        equal to Benchmark.eval_ppl's, benchmark_latency's keys and byte
+        counts, serve --slots 8's tokens equal to ContinuousBatcher's;
      every kernel must have launched on its path, no path but r may launch
      the CUDA-core dequant_matmul kernels (every other served linear is bf16
      int4), and every planted path's tokens must equal the planted chain
@@ -223,7 +241,9 @@ Phases:
      quantized states (1e-2 where the forwards quantize activations), then
      each linear on the CPU from the card's stats (RTN, SmoothQuant,
      ZeroQuant, FP8 bit-equal; AWQ, both combos, SpQR and QuIP 99% of the
-     codes);
+     codes); and lm-eval's five tasks on a small f32 model, the card's
+     metrics and greedy texts equal to the CPU's, each loglikelihood within
+     1e-4;
   5. where the time goes: torch.profiler device time by kernel and the
      device busy share over a prefill, flat decode, per-layer decode, 16
      tokens of decode_loop_model on the asymmetric grid, 8 batcher steps
@@ -4828,6 +4848,356 @@ def serve_tp(model, stack, meta, target, cfg, dev, positions):
     return out
 
 
+# ---------------------------------------------------------------------------
+# path u: the latency benchmark (eval/latency.py) at Llama-2-7B width and depth
+# ---------------------------------------------------------------------------
+
+LAT_TOKENS = 64             # decode tokens a timed loop (decode_throughput's default)
+
+
+def serve_latency(model, fstack, fmeta, rmodel, cfg, dev, smi):
+    """Path u: Benchmark.eval_latency on the served model (batch 1, 128
+    tokens, the int8 cache): forward_latency (10 + 30 forwards, B1),
+    decode_throughput (engine.decode_loop: B2 a layer; `megakernel_path`:
+    decode_loop_model, B4; `kernels`: B4 alone beside torch.sum over its
+    bytes), forward_latency of the unfused model as quantization returns it
+    (B1 and the fused MLP, B7), and kernel_breakdown of the flat kernel (B3)
+    beside decode_loop_flat's step from the same 128-token prefill. Gates:
+    every roofline, HBM and torch.sum share in (0, 100%], each kernel's ms a
+    token at most its step's."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.eval.benchmark import Benchmark
+    from mi_optimize_tpu_torch.eval.latency import forward_latency, kernel_breakdown
+    from mi_optimize_tpu_torch.serving import engine
+    from mi_optimize_tpu_torch.serving.flatdecode import decode_loop_flat, stack_cache_flat
+
+    res = Benchmark(device=dev).eval_latency(model, batch=1, seqlen=128, cache_dtype=torch.int8)
+    dec = res["decode"]
+    if "megakernel_path" not in dec or "kernels" not in dec:
+        raise AssertionError("path u: decode_throughput took no whole-model kernel path")
+    res["forward_unfused"] = forward_latency(rmodel, batch=1, seqlen=128, device=dev)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 128)),
+                          device=dev)
+    logits, cache = engine.prefill(model.params, cfg, ids,
+                                   engine.init_cache(cfg, 1, 256, torch.int8, device=dev))
+    tok = torch.argmax(logits, -1)[:, None]
+    fcache = stack_cache_flat(cache)
+    loop = lambda: decode_loop_flat(model.params, fstack, fmeta, cfg, tok, fcache, 128, LAT_TOKENS)
+    loop()
+    step_s = timed_s(loop)[1] / LAT_TOKENS
+    res["flat"] = {"step_ms": step_s * 1e3, "kernels": kernel_breakdown(
+        model, tok, 128, None, step_s, n=LAT_TOKENS, flat_meta=(fstack, fmeta), flat_cache=fcache)}
+    shares = {"per-layer decode of the roofline": 100 * dec["roofline_frac"],
+              "decode_loop_model of the roofline": 100 * dec["megakernel_path"]["roofline_frac"]}
+    for name, kb in (("B4", dec["kernels"]), ("B3", res["flat"]["kernels"])):
+        mk = kb["megakernel"]
+        shares.update({f"{name} of the nominal HBM rate": mk["pct_of_nominal_hbm"],
+                       f"{name} of torch.sum's rate": mk["pct_of_torch_sum"],
+                       f"{name} of its step": mk["pct_of_step"]})
+    res["shares_pct"] = shares
+    fw, fu, mp = res["forward"], res["forward_unfused"], dec["megakernel_path"]
+    b4, b3 = dec["kernels"], res["flat"]["kernels"]
+    log(f"  path u ({smi}): forward 1 x 128 served {fw['avg_ms']:.3f} ms (p50 {fw['p50_ms']:.3f}, "
+        f"p90 {fw['p90_ms']:.3f}), unfused {fu['avg_ms']:.3f} ms (p50 {fu['p50_ms']:.3f}); "
+        f"decode per layer {dec['tokens_per_s_per_chip']:.2f} tokens/s ({dec['step_ms']:.3f} ms, "
+        f"sol {dec['sol_step_ms']:.3f} ms, roofline {dec['roofline_frac']:.4f}); "
+        f"decode_loop_model {mp['tokens_per_s_per_chip']:.2f} tokens/s ({mp['step_ms']:.3f} ms, "
+        f"roofline {mp['roofline_frac']:.4f}); B4 alone {b4['megakernel']['ms_per_token']:.4f} "
+        f"ms ({b4['megakernel']['gbps']:.1f} GB/s, {b4['megakernel']['pct_of_nominal_hbm']:.1f}% "
+        f"of {b4['nominal_hbm_gbps']:.0f}, {b4['megakernel']['pct_of_torch_sum']:.1f}% of "
+        f"torch.sum's {b4['torch_sum_gbps']:.1f}); decode_loop_flat {res['flat']['step_ms']:.3f} "
+        f"ms a token, B3 alone {b3['megakernel']['ms_per_token']:.4f} ms "
+        f"({b3['megakernel']['gbps']:.1f} GB/s, {b3['megakernel']['pct_of_nominal_hbm']:.1f}%, "
+        f"{b3['megakernel']['pct_of_torch_sum']:.1f}% of torch.sum's {b3['torch_sum_gbps']:.1f})")
+    bad = {k: v for k, v in shares.items() if not 0 < v <= 100}
+    if bad:
+        raise AssertionError(f"path u: a share outside (0, 100%] (a timer or byte count fault): "
+                             f"{bad}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# path v: the lm-eval adapter (eval/lmeval.py) at Llama-2-7B width and depth
+# ---------------------------------------------------------------------------
+
+# raw files of four offline builders (datasets/lmdatasets.py), a few docs each
+LMEVAL_RAW = {
+    "mc_taco/dev_3783.tsv": "He ate his lunch.\tHow long did it take?\t20 minutes\tyes\tEvent "
+                            "Duration\nHe ate his lunch.\tHow long did it take?\t3 years\tno\t"
+                            "Event Duration\nShe went home.\tWhen did she leave?\tat night\t"
+                            "yes\tTemporal Ordering\n",
+    "headqa_es/test_HEAD.json": json.dumps({"exams": {"e1": {
+        "name": "Exam", "year": "2016", "category": "medicine", "data": [
+            {"qid": "1", "qtext": "Which organ pumps blood?", "ra": "2", "answers": [
+                {"aid": 1, "atext": "the liver"}, {"aid": 2, "atext": "the heart"},
+                {"aid": 3, "atext": "the lung"}]},
+            {"qid": "2", "qtext": "What carries oxygen?", "ra": "1", "answers": [
+                {"aid": 1, "atext": "red blood cells"}, {"aid": 2, "atext": "bones"}]}]}}}),
+    "gsm8k/test.jsonl": "".join(json.dumps({"question": q, "answer": a}) + "\n" for q, a in (
+        ("Tom has 3 apples and buys 4 more. How many apples does he have?", "3+4=7\n#### 7"),
+        ("A box holds 6 eggs. How many eggs are in 2 boxes?", "6*2=12\n#### 12"))),
+    "squad2/dev-v2.0.json": json.dumps({"data": [{"title": "Paris", "paragraphs": [{
+        "context": "Paris is the capital of France.",
+        "qas": [{"id": "q1", "question": "What is the capital of France?",
+                 "answers": [{"text": "Paris", "answer_start": 0}]},
+                {"id": "q2", "question": "What is the capital of Mars?", "answers": [],
+                 "is_impossible": True}]}]}]}),
+}
+LL_TASKS = ("mc_taco", "headqa", "wikitext")    # loglikelihood, multiple choice, rolling
+GEN_TASKS = ("gsm8k", "squad2")                 # greedy_until, mixed
+LMEVAL_NEW = 16             # greedy_until's tokens a request (the harness's 256 at full cost)
+LL_TOL = 5e-2               # bf16 7B: |fused - unfused| loglikelihood, a continuation token
+
+
+def lmeval_runs(runs, data_root):
+    """{label: (evaluate_tasks' result, [(continuation length, loglikelihood,
+    greedy flag)], [greedy_until texts])} of each (label, call) in `runs`,
+    with MI_TPU_DATA_DIR at `data_root` holding LMEVAL_RAW (and restored
+    after); greedy_until decodes LMEVAL_NEW tokens a request."""
+    from mi_optimize_tpu_torch.eval import lmeval
+
+    for rel, text in LMEVAL_RAW.items():
+        os.makedirs(os.path.dirname(os.path.join(data_root, "lmeval", rel)), exist_ok=True)
+        with open(os.path.join(data_root, "lmeval", rel), "w", encoding="utf-8") as f:
+            f.write(text)
+    seen = {"ll": [], "txt": []}
+    ll_tokens, greedy_until = lmeval.LMEvalModel._ll_tokens, lmeval.LMEvalModel.greedy_until
+
+    def ll_rec(self, ctx, cont):
+        out = ll_tokens(self, ctx, cont)
+        seen["ll"].append((len(cont), out[0], out[1]))
+        return out
+
+    def txt_rec(self, reqs):
+        out = greedy_until(self, reqs, LMEVAL_NEW)
+        seen["txt"].extend(out)
+        return out
+
+    old = os.environ.get("MI_TPU_DATA_DIR")
+    os.environ["MI_TPU_DATA_DIR"] = data_root
+    lmeval.LMEvalModel._ll_tokens, lmeval.LMEvalModel.greedy_until = ll_rec, txt_rec
+    out = {}
+    try:
+        for label, call in runs:
+            seen["ll"], seen["txt"] = [], []
+            out[label] = (call(), seen["ll"], seen["txt"])
+    finally:
+        lmeval.LMEvalModel._ll_tokens, lmeval.LMEvalModel.greedy_until = ll_tokens, greedy_until
+        if old is None:
+            os.environ.pop("MI_TPU_DATA_DIR")
+        else:
+            os.environ["MI_TPU_DATA_DIR"] = old
+    return out
+
+
+def ppl_tols(ll_tol, docs):
+    """What a loglikelihood tolerance of ll_tol a token allows the rolling
+    task's metrics (PerplexityTask: word and byte perplexity, the exp of the
+    mean NLL a word or a byte; a ByteTokenizer token is a byte): |log g -
+    log w| for the perplexities, |g - w| for bits_per_byte."""
+    import math
+
+    per_word = max(len(d["text"].encode("utf-8")) / max(len(d["text"].split()), 1)
+                   for d in docs)
+    return {"word_perplexity": ll_tol * per_word, "byte_perplexity": ll_tol,
+            "bits_per_byte": ll_tol / math.log(2)}
+
+
+def same_metrics(what, got, want, tols=None):
+    """Every task's metrics equal; those in `tols` (the perplexities,
+    continuous in the loglikelihoods; `ppl_tols`) within theirs."""
+    import math
+
+    for task, m in want.items():
+        for k, v in m.items():
+            g = got[task][k]
+            if tols and k in tols:
+                d = abs(g - v) if k == "bits_per_byte" else abs(math.log(g) - math.log(v))
+                close = d <= tols[k]
+            else:
+                close = g == v
+            if not close:
+                raise AssertionError(f"{what}: {task} {k} {g!r} against {v!r}")
+
+
+def serve_lmeval(model, target, cfg, dev):
+    """Path v: evaluate_tasks at Llama-2-7B width and depth from raw files
+    under build/path_v: the loglikelihood tasks (mc_taco, headqa's
+    multiple choice, wikitext's rolling windows; 2 docs each) on the
+    random-weight served model, the greedy_until and mixed tasks (gsm8k,
+    squad2; one doc, LMEVAL_NEW tokens a request) on the planted target
+    (its greedy chain far above bf16 noise). Each on the fused route (B1
+    on the card) and the fused=False route (dequantize, then a dense
+    product). Gates: each loglikelihood within LL_TOL a continuation token,
+    the same metrics (the perplexities within what LL_TOL allows them,
+    `ppl_tols`), the same greedy_until texts."""
+    import shutil
+
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.eval.lmeval import TASK_REGISTRY, evaluate_tasks
+
+    root = os.path.join(HERE, "build", "path_v")
+    tok = ByteTokenizer()
+    runs = []
+    for fused in (True, False):
+        runs.append((f"ll_{fused}", lambda f=fused: evaluate_tasks(model, tok, LL_TASKS, fused=f,
+                                                                   max_docs=2)))
+        runs.append((f"gen_{fused}", lambda f=fused: evaluate_tasks(
+            target, tok, GEN_TASKS, fused=f, max_docs=1)))
+    t0 = time.perf_counter()
+    out = lmeval_runs(runs, root)
+    wall = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    worst, flips = 0.0, 0
+    for kind in ("ll", "gen"):
+        (_, gll, gtxt), (_, wll, wtxt) = out[f"{kind}_True"], out[f"{kind}_False"]
+        if len(gll) != len(wll) or gtxt != wtxt:
+            raise AssertionError(f"path v: the fused route's requests or texts differ: {gtxt} "
+                                 f"{wtxt}")
+        for (n, g, gf), (_, w, wf) in zip(gll, wll):
+            worst = max(worst, abs(g - w) / n)
+            flips += gf != wf
+    res = {"metrics": {k: v[0] for k, v in out.items()}, "loglikelihoods": len(
+        out["ll_True"][1]) + len(out["gen_True"][1]), "greedy_texts": len(out["gen_True"][2]),
+        "max_ll_diff_per_token": worst, "greedy_flag_flips": flips, "wall_s": wall}
+    log(f"  path v: {res['loglikelihoods']} loglikelihood requests, fused against fused=False "
+        f"at most {worst:.4g} a continuation token apart (limit {LL_TOL}), {flips} greedy flags "
+        f"apart; {res['greedy_texts']} greedy_until texts equal; metrics {out['ll_True'][0]} "
+        f"{out['gen_True'][0]}; {wall:.1f} s")
+    if worst > LL_TOL:
+        raise AssertionError(f"path v: a loglikelihood {worst:.4g} a token from fused=False's")
+    tols = ppl_tols(LL_TOL, TASK_REGISTRY["wikitext"]().docs()[:2])
+    for kind in ("ll", "gen"):
+        same_metrics(f"path v ({kind} tasks, fused against fused=False)", out[f"{kind}_True"][0],
+                     out[f"{kind}_False"][0], tols)
+    return res
+
+
+def small_lmeval_check(dev):
+    """evaluate_tasks on a small f32 model (2 layers, h=512, int4 g128,
+    V=300) on the card and with the plain versions on the CPU: mc_taco,
+    headqa, wikitext, gsm8k and squad2 from LMEVAL_RAW; the same metrics,
+    each loglikelihood within 1e-4, the same greedy_until texts."""
+    import numpy as np
+    import torch
+
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.eval.lmeval import TASK_REGISTRY, evaluate_tasks
+    from mi_optimize_tpu_torch.models.llama import LlamaConfig
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
+
+    cfg = LlamaConfig(vocab_size=300, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, head_dim=128, max_seq_len=512)
+    cpu = build_quantized_llama(cfg, dtype=torch.float32, seed=6, device="cpu")
+    tasks = LL_TASKS + GEN_TASKS
+    runs = [(d, lambda d=d: evaluate_tasks(Model(config=cfg, params=cpu if d == "cpu" else
+                                                 _to(cpu, d)), ByteTokenizer(), tasks,
+                                           max_docs=2))
+            for d in ("cpu", dev)]
+    out = lmeval_runs(runs, os.path.join(HERE, "build", "small_lmeval"))
+    (got, gll, gtxt), (want, wll, wtxt) = out[dev], out["cpu"]
+    same_metrics("small model's lm-eval, card against the CPU", got, want,
+                 ppl_tols(1e-5, TASK_REGISTRY["wikitext"]().docs()[:2]))
+    err = max(abs(g - w) for (_, g, _), (_, w, _) in zip(gll, wll))
+    log(f"  small f32 model, lm-eval {', '.join(tasks)}: {len(gll)} loglikelihoods within "
+        f"{err:.3g} of the CPU's, {len(gtxt)} greedy_until texts "
+        f"{'equal' if gtxt == wtxt else 'DIFFERENT'}; metrics equal")
+    if len(gll) != len(wll) or not np.isfinite(err) or err > 1e-4 or gtxt != wtxt:
+        raise AssertionError("small model: lm-eval on the card differs from the CPU")
+
+
+# ---------------------------------------------------------------------------
+# path w: the CLI twins (mi_optimize_tpu_torch/cli/) in-process on the card
+# ---------------------------------------------------------------------------
+
+CLI_LAYERS = 3              # path w's checkpoint: Llama-2-7B width, 3 layers
+CLI_PROMPTS = ["The capital of France is", "Once upon a time", "def main():",
+               "In 1905, Einstein", "A quantized model", "Tokens per second",
+               "The H100 has", "Hello", "Why is the sky blue?", "1, 2, 3, 5, 8,",
+               "Translate to French: cat", "Summarize: the port"]
+
+
+def serve_clis(cfg, dev):
+    """Path w: a CLI_LAYERS-layer Llama-2-7B-shaped int4 g128 checkpoint
+    (random weights, seed 3) written by save_model under build/path_w, then
+    cli.benchmark_ppl (wikitext2, 4 x 2048 tokens), cli.benchmark_latency
+    and cli.serve --slots 8 (12 prompts, 16 tokens) in-process with
+    --device cuda, their printed output captured. Gates: benchmark_ppl's
+    JSON equals Benchmark.eval_ppl on the reloaded model; benchmark_latency
+    has eval_latency's keys, weight_bytes = model_weight_bytes and a roofline
+    fraction in (0, 1]; serve's tokens equal ContinuousBatcher's (8 slots,
+    int8 cache, the tokenizer's eos) on the reloaded model."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from mi_optimize_tpu_torch.cli import benchmark_latency, benchmark_ppl, serve
+    from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
+    from mi_optimize_tpu_torch.eval.benchmark import Benchmark
+    from mi_optimize_tpu_torch.eval.latency import model_weight_bytes
+    from mi_optimize_tpu_torch.export import load_model, save_model
+    from mi_optimize_tpu_torch.models.model import Model
+    from mi_optimize_tpu_torch.models.synthetic import build_quantized_llama
+    from mi_optimize_tpu_torch.serving.batching import ContinuousBatcher
+    from mi_optimize_tpu_torch.serving.optimize import fuse_for_serving
+
+    root = os.path.join(HERE, "build", "path_w")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt, prompts = os.path.join(root, "ckpt"), os.path.join(root, "prompts.txt")
+    wcfg = dataclasses.replace(cfg, num_layers=CLI_LAYERS)
+    save_model(Model(config=wcfg, params=build_quantized_llama(
+        wcfg, bits=4, groupsize=128, dtype=torch.bfloat16, seed=3, device=dev)), ckpt)
+    with open(prompts, "w") as f:
+        f.write("\n".join(CLI_PROMPTS) + "\n")
+    q = ["--quantized-model", ckpt, "--device", dev]
+    printed, res = io.StringIO(), {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res["ppl"], res["ppl_s"] = timed_s(lambda: benchmark_ppl.main(q + ["--nsamples", "4"]))
+        res["latency"], res["latency_s"] = timed_s(lambda: benchmark_latency.main(q))
+        res["serve"], res["serve_s"] = timed_s(lambda: serve.main(
+            q + ["--prompts", prompts, "--slots", "8", "--max-len", "512",
+                 "--max-new-tokens", "16"]))
+    res["cli_s"] = time.perf_counter() - t0
+    tok, qm = ByteTokenizer(), load_model(ckpt, device=dev)
+    want_ppl = Benchmark(device=dev).eval_ppl(qm, tok, "wikitext2", seqlen=2048, nsamples=4)
+    lat, dec = res["latency"], res["latency"]["decode"]
+    b = ContinuousBatcher(fuse_for_serving(qm), n_slots=8, max_len=512, cache_dtype=torch.int8)
+    if b._mega is None and torch.device(dev).type == "cuda":
+        raise AssertionError("path w: the reference batcher did not take the batched kernel")
+    reqs, pending = {}, list(enumerate(CLI_PROMPTS))
+    while pending or any(r is not None for r in b.slot_req):
+        while pending:
+            rid = b.add_request(tok(pending[0][1])["input_ids"], max_new_tokens=16,
+                                eos_token_id=tok.eos_token_id)
+            if rid is None:
+                break
+            reqs[str(pending.pop(0)[0])] = next(r for r in b.slot_req if r and r.rid == rid)
+        b.step()
+    want_serve = {k: r.tokens for k, r in reqs.items()}
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"  path w: benchmark_ppl {res['ppl']} in {res['ppl_s']:.1f} s (library "
+        f"{want_ppl}); benchmark_latency forward {lat['forward']['avg_ms']:.3f} ms, decode "
+        f"{dec['tokens_per_s_per_chip']:.2f} tokens/s, roofline {dec['roofline_frac']:.4f} in "
+        f"{res['latency_s']:.1f} s; serve --slots 8: {res['serve']['tokens']} tokens of "
+        f"{len(CLI_PROMPTS)} requests in {res['serve']['seconds']:.2f} s, "
+        f"{'equal' if res['serve']['requests'] == want_serve else 'DIFFERENT'} to "
+        f"ContinuousBatcher's; {len(printed.getvalue())} bytes printed")
+    if res["ppl"] != want_ppl:
+        raise AssertionError(f"path w: benchmark_ppl {res['ppl']} against eval_ppl {want_ppl}")
+    if set(lat) != {"forward", "decode"} or dec["weight_bytes"] != model_weight_bytes(qm) \
+            or not 0 < dec["roofline_frac"] <= 1:
+        raise AssertionError(f"path w: benchmark_latency's result is off: {lat}")
+    if res["serve"]["requests"] != want_serve:
+        raise AssertionError("path w: serve's tokens differ from ContinuousBatcher's")
+    return res
+
+
 def _to(tree, dev):
     import dataclasses
 
@@ -5378,6 +5748,31 @@ def main() -> int:
     del sstack, smeta
     report["tp_serving"]["wall_s"] = time.perf_counter() - t_t
     log(f"  path t: {report['tp_serving']['wall_s']:.1f} s")
+    new_parts = {}  # this slice's paths' seconds
+    log(" u. latency: Benchmark.eval_latency (batch 1, 128 tokens, int8 cache) on the served "
+        "model, the unfused model's forward, the flat kernel alone")
+    t_u = time.perf_counter()
+    report["latency"], c = run_path(
+        "latency", ("dequant_matmul_gemv16", "dequant_matmul_mma", "block_decode_mega4",
+                    "model_decode_mega4", "mlp_fused", "model_decode_flat"),
+        lambda: serve_latency(model, fstack, fmeta, rmodel, cfg, dev, smi))
+    tally(c)
+    new_parts["path u"] = time.perf_counter() - t_u
+    log(" v. lm-eval: loglikelihood, rolling, greedy_until and mixed tasks, fused against "
+        "fused=False")
+    t_v = time.perf_counter()
+    report["lmeval"], c = run_path("lm-eval", ("dequant_matmul_gemv16", "dequant_matmul_mma"),
+                                   lambda: serve_lmeval(model, target, cfg, dev))
+    tally(c)
+    new_parts["path v"] = time.perf_counter() - t_v
+    log(f" w. the CLI twins on a {CLI_LAYERS}-layer checkpoint: benchmark_ppl, benchmark_latency, "
+        "serve --slots 8")
+    t_w = time.perf_counter()
+    report["clis"], c = run_path("CLI twins", ("dequant_matmul_mma", "mlp_fused",
+                                               "model_decode_mega_batch"),
+                                 lambda: serve_clis(cfg, dev))
+    tally(c)
+    new_parts["path w"] = time.perf_counter() - t_w
     log(f"  launches over the served paths: {counts}")
 
     phase("4", "small f32 model on the card vs the plain versions on the CPU")
@@ -5391,6 +5786,9 @@ def main() -> int:
     small_spec_check(dev)
     small_spec_batchers_check(dev)
     small_unfused_check(dev)
+    t_small = time.perf_counter()
+    small_lmeval_check(dev)
+    new_parts["phase 4 small lm-eval"] = time.perf_counter() - t_small
     report["small_calibration"] = small_calibration_check(dev)
     report["small_algorithms"], new_s["phase 4 small algorithms"] = timed_s(
         lambda: small_algorithms_check(dev))
@@ -5419,9 +5817,11 @@ def main() -> int:
                                 dict(reps=1, raw=True))})
     del amodel, astack, ameta
     new_s["awq_layer_7b window"] = report["profile"]["awq_layer_7b"]["wall_ms"] * 2e-3
-    report["new_parts_s"] = dict(new_s, total=sum(new_s.values()))
+    report["algorithm_parts_s"] = dict(new_s, total=sum(new_s.values()))
     log("  the other algorithms' parts: " + ", ".join(
-        f"{k} {v:.1f} s" for k, v in report["new_parts_s"].items()))
+        f"{k} {v:.1f} s" for k, v in report["algorithm_parts_s"].items()))
+    report["new_parts_s"] = dict(new_parts, total=sum(new_parts.values()))
+    log("  new_parts_s: " + ", ".join(f"{k} {v:.1f} s" for k, v in report["new_parts_s"].items()))
 
     kernels = []
     for r in rows:

@@ -29,6 +29,10 @@ model in the JAX package's format, and `serving.beam.beam_search` serves it
 with beam search on the paged batched kernel. `parallel` shards the model
 over ranks (tensor and data parallelism on torch.distributed): the batched
 kernel's tensor-parallel mode and the overlapped ring dequant matmul.
+`eval.latency` times the forward and the decode against the HBM roofline,
+`eval.lmeval` runs the lm-eval harness's request types over its task tables
+(offline data from `datasets.lmdatasets`), and `cli/` holds command-line
+twins of the JAX package's benchmark and example scripts.
 
 The top-level exports mirror the reference package's: `quantize`,
 `Benchmark`, `QuantizedLinear`, `Precision` and `as_precision`.

@@ -1,0 +1,24 @@
+"""lm-eval benchmark CLI:
+the twin of the JAX package's benchmark/benchmark_lm_eval.py.
+
+    python -m mi_optimize_tpu_torch.cli.benchmark_lm_eval --quantized-model CKPT [--device cpu]
+"""
+from .common import base_parser, emit, load
+
+
+def main(argv=None):
+    ap = base_parser()
+    ap.add_argument("--tasks", default="ceval_mc")
+    ap.add_argument("--num-shot", type=int, default=0)
+    args = ap.parse_args(argv)
+    model, tok = load(args)
+    from ..eval.benchmark import Benchmark
+
+    bench = Benchmark(device=args.device)
+    res = bench.eval_lmeval(model, tok, args.tasks.split(","),
+                            num_shot=args.num_shot)
+    return emit(args, res)
+
+
+if __name__ == "__main__":
+    main()

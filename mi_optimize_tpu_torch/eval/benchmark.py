@@ -6,17 +6,19 @@ Port of mi_optimize_tpu/eval/benchmark.py:
   eval_ceval     C-Eval MCQA, 0/5-shot, ABCD-logit argmax (eval.mcqa)
   eval_cmmlu     CMMLU MCQA, same protocol
   eval_boss      BOSS OOD suite through greedy generation + metrics (eval.boss)
+  eval_lmeval    lm-eval-harness adapter: loglikelihood / rolling /
+                 greedy_until executors over the registered tasks
+                 (eval.lmeval.evaluate_tasks)
+  eval_latency   forward latency percentiles, decode tokens/s against the
+                 HBM roofline and the whole-model kernel alone (eval.latency)
 The evaluation runs on `device` ("cuda" unless the caller asks for the CPU);
-a model whose tensors live elsewhere is moved there for the call. The
-lm-eval adapter (ROADMAP.md A11) and the latency benchmark (ROADMAP.md A5)
-are not ported yet.
+a model whose tensors live elsewhere is moved there for the call.
 """
 from __future__ import annotations
 
 import logging
 from typing import Dict
 
-from ..core.device import resolve_device
 from ..models.model import Model
 from .ppl import compute_ppl
 
@@ -29,13 +31,7 @@ class Benchmark:
         self.device = device
 
     def _on_device(self, model: Model) -> Model:
-        dev = resolve_device(self.device)
-        if model.params["embed"].device != dev:
-            from ..quant.calibrate import to_device
-
-            model = Model(config=model.config, params=to_device(model.params, dev),
-                          family=model.family)
-        return model
+        return model.on(self.device)
 
     def _ppl(self, model: Model, batches) -> float:
         return compute_ppl(self._on_device(model), batches, fused=self.fused)
@@ -94,9 +90,21 @@ class Benchmark:
         return eval_boss(self._on_device(model), tokenizer, test_dataset=test_dataset,
                          split=split, num_shot=num_shot, fused=self.fused, **kw)
 
-    # ---------------- not ported yet ----------------
-    def eval_lmeval(self, *a, **kw):
-        raise NotImplementedError("the lm-eval adapter is not ported yet (ROADMAP.md A11)")
+    # ---------------- lm-eval adapter ----------------
+    def eval_lmeval(self, model: Model, tokenizer, eval_tasks, num_shot=0, **kw):
+        from .lmeval import evaluate_tasks
 
-    def eval_latency(self, *a, **kw):
-        raise NotImplementedError("the latency benchmark is not ported yet (ROADMAP.md A5)")
+        return evaluate_tasks(self._on_device(model), tokenizer, eval_tasks, num_shot=num_shot,
+                              fused=self.fused, **kw)
+
+    # ---------------- latency / throughput ----------------
+    def eval_latency(self, model: Model, batch=1, seqlen=128, **kw):
+        from .latency import decode_throughput, forward_latency
+
+        model = self._on_device(model)
+        return {
+            "forward": forward_latency(model, batch=batch, seqlen=seqlen, fused=self.fused,
+                                       device=self.device),
+            "decode": decode_throughput(model, batch=batch, fused=self.fused,
+                                        device=self.device, **kw),
+        }

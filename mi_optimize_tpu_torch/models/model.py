@@ -13,6 +13,18 @@ class Model:
     params: Dict[str, Any]
     family: str = "llama"
 
+    def on(self, device=None) -> "Model":
+        """This model with its tensors on `device` ("cuda" unless the caller
+        asks for the CPU, core.device.resolve_device): itself when they are
+        there, else a copy of its params tree moved there."""
+        from ..core.device import resolve_device
+        from ..quant.calibrate import to_device
+
+        dev = resolve_device(device)
+        if self.params["embed"].device == dev:
+            return self
+        return Model(config=self.config, params=to_device(self.params, dev), family=self.family)
+
     @classmethod
     def tiny_llama(cls, generator=None, device=None, **kw):
         from .llama import init_params

@@ -293,16 +293,18 @@ def shard_model(model: Model, mesh, dim: str = "model") -> Model:
     (a DeviceMesh, a torch.distributed group, or a LocalGroup rank): its
     params shard and its config (`rank_config`). The serving entry points
     (prefill, generate, the batchers) work on it unchanged; the batched
-    whole-model step takes its tensor-parallel mode (e)."""
+    whole-model step takes its tensor-parallel mode (e); the tp = 1
+    whole-model kernels refuse it (megadecode.refuse_shard)."""
     group, rank, size = model_group(mesh, dim)
     cfg = rank_config(model.config, size)
     return Model(config=cfg, params=shard_params(model.params, model.config, group, rank, size),
                  family=model.family)
 
 
-def tp_group(model: Model):
-    """The "model" group of a sharded Model, or None."""
-    for blk in model.params.get("layers", []):
+def tp_group(model):
+    """The "model" group of a sharded Model (or of its params tree), or None."""
+    params = model.params if isinstance(model, Model) else model
+    for blk in params.get("layers", [])[:1]:  # shard_params cuts every block alike
         for v in blk.values():
             if isinstance(v, QuantizedLinear) and v.tp is not None:
                 return v.tp.group

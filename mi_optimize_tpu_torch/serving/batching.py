@@ -116,7 +116,8 @@ class ContinuousBatcher:
     (otherwise the batcher decodes per layer, as the reference does) and
     takes at most ops.model_fused.MAX_BATCH slots: more slots with the
     kernel on raise ValueError; pass use_megakernel=False to decode them per
-    layer."""
+    layer. On a tensor-parallel shard the batched kernel steps in its mode
+    (e) over the shard's group."""
 
     def __init__(self, model: Model, n_slots: int = 4, max_len: int = 512,
                  fused: bool = True, cache_dtype=torch.float32,
@@ -147,7 +148,7 @@ class ContinuousBatcher:
         if mega:
             from .megadecode import default_lm, stack_cache_batched, stack_serving
 
-            st = stack_serving(model)
+            st = stack_serving(model, tp=True)
             if st is not None:
                 self._mega = st
                 self.cache = stack_cache_batched(self.cache)
@@ -304,14 +305,19 @@ class SpeculativeBatcher(ContinuousBatcher):
     `use_draft_megakernel` (default: tensors on CUDA) and the cache length
     is a multiple of 128; then it takes at most 8 slots. `fused_lm` (off by
     default, as the reference's batchers) verifies through the batched
-    kernel's terminal lm rows (mode d, `megadecode.stack_lm`)."""
+    kernel's terminal lm rows (mode d, `megadecode.stack_lm`). The chunk
+    mode has no tp > 1 mode: a tensor-parallel shard (target or draft) takes
+    the per-layer route."""
 
     def __init__(self, model: Model, draft: Model, k: int = 4, n_slots: int = 4,
                  max_len: int = 512, fused: bool = True, cache_dtype=torch.float32,
                  use_draft_megakernel: Optional[bool] = None,
                  use_megakernel: Optional[bool] = None, fused_lm: bool = False):
         from ..ops.model_fused import MAX_BATCH
+        from ..parallel.sharding import tp_group
 
+        if tp_group(model) is not None:
+            use_megakernel = False   # the chunk verify has no tp > 1 mode
         super().__init__(model, n_slots, max_len, fused, cache_dtype,
                          use_megakernel=use_megakernel)
         if fused_lm:

@@ -74,9 +74,10 @@ def beam_search(
     search runs on the device of its tensors."""
     from .engine import init_cache, prefill
     from .megadecode import (default_lm, init_pool_batched, model_step_batch_paged,
-                             scatter_prefill_pages, stack_serving)
+                             refuse_shard, scatter_prefill_pages, stack_serving)
     from .paged import _copy_pool_page
 
+    refuse_shard(model.params, "beam_search")
     st = stack_serving(model)
     if st is None:
         raise ValueError("model does not satisfy the megakernel contract")

@@ -24,8 +24,9 @@ from ..models.model import Model
 
 
 def stack_flat(model: Model, st=None):
-    """(stack, meta) for the flat kernel, or None. `st` may pass a
-    precomputed megadecode.stack_serving result."""
+    """(stack, meta) for the flat kernel, or None (a tensor-parallel shard
+    among them, as stack_serving declines it). `st` may pass a precomputed
+    megadecode.stack_serving result."""
     from ..ops.model_flat import stack_flat_params
     from .megadecode import stack_serving
 
@@ -64,6 +65,9 @@ def _flat_step(params, stack, meta, cfg, tok, cache, pos: int):
 def decode_loop_flat(params, stack, meta, cfg, token, cache, pos0: int, n: int):
     """Greedy-decode n tokens, one kernel launch per token (lm_head and
     argmax included). token [1,1] -> (tokens [1,n], cache)."""
+    from .megadecode import refuse_shard
+
+    refuse_shard(params, "decode_loop_flat")
     toks = []
     tok = token
     for i in range(n):
@@ -96,6 +100,9 @@ def decode_loop_flat_seg(params, stack, meta, cfg, token, cache, pos0: int, n: i
     [1,1] -> (tokens [1, ceil(n/kseg)*kseg], cache): the last segment's
     surplus tokens are decoded too and extend the same greedy sequence; the
     caller keeps the first n."""
+    from .megadecode import refuse_shard
+
+    refuse_shard(params, "decode_loop_flat_seg")
     toks = []
     tok = token
     for s in range(-(-n // kseg)):

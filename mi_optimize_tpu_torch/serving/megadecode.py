@@ -67,7 +67,23 @@ def _zconst(layers, name):
     return float(z[0]) - float(qrange(lin.spec.wbit, lin.spec.w_unsigned).qmin)
 
 
-def stack_serving(model: Model):
+def refuse_shard(params, what: str) -> None:
+    """The one check that keeps a tensor-parallel shard (parallel.shard_model)
+    off the tp = 1 whole-model kernels: they would run a rank's heads and MLP
+    columns as a whole model, with no sum of the o_proj and down_proj
+    partials over the group, and return wrong tokens without an error.
+    Raises ValueError naming `what`. stack_serving declines a shard by the
+    same test; the loops that are handed a shard's stack raise here."""
+    from ..parallel.sharding import tp_group
+
+    if tp_group(params) is not None:
+        raise ValueError(
+            f"{what} runs a tp = 1 whole-model kernel and this model is a tensor-parallel "
+            "shard: serve it through ContinuousBatcher or PagedMegaBatcher (the batched "
+            "kernel's mode (e)) or the per-layer route")
+
+
+def stack_serving(model: Model, tp: bool = False):
     """(stack dict, meta tuple) for the whole-model kernels, or None.
 
     meta = (bits, g_qkv, g_o, g_gu, g_d, zc_qkv, zc_o, zc_gu, zc_d); a zc is
@@ -75,10 +91,17 @@ def stack_serving(model: Model):
     then its bias tables are stacked too ("qz", "oz", "guz", "dz"). A
     symmetric model stacks no bias table. The model's blocks are rebound to
     views of the stack (same values); a second call returns the same words
-    and tables, not a copy."""
+    and tables, not a copy. A tensor-parallel shard is declined unless the
+    caller asks with `tp`: only the batched kernel's mode (e) serves a
+    shard's stack (ContinuousBatcher, PagedMegaBatcher)."""
     layers = model.params["layers"]
     if not layers or any("mega" not in b for b in layers):
         return None
+    if not tp:
+        from ..parallel.sharding import tp_group
+
+        if tp_group(model) is not None:
+            return None
 
     def key(b):
         return ((b["qkv_proj"].spec.wbit, b["qkv_proj"].spec.w_unsigned)
@@ -210,6 +233,7 @@ def _model_step(params, stack, meta, cfg, tok, cache, pos: int):
 def decode_loop_model(params, stack, meta, cfg, token, cache, pos0: int, n: int):
     """Greedy-decode n tokens, ONE whole-model launch per token.
     token [1,1] -> (tokens [1,n], cache)."""
+    refuse_shard(params, "decode_loop_model")
     toks = []
     tok = token
     for i in range(n):
@@ -276,6 +300,7 @@ def model_step_batch(params, stack, meta, cfg, tokens, cache, positions, lm=None
     per slot) -> (logits [B,V], cache). ONE launch for the whole decoder
     stack: the weights stream once for all B slots. With `lm` (stack_lm) the
     logits come from the kernel's terminal lm rows."""
+    refuse_shard(params, "the batched whole-model step (tp = 1)")
     logits, cache = _step_rows(params, stack, meta, cfg, tokens, cache, positions, lm=lm,
                                lm_meta=lm_meta)
     return logits[:, 0], cache
@@ -560,7 +585,8 @@ def stack_serving_tp(model: Model, ntp: int, rank: int):
 def model_step_batch_tp(params, stack, meta, cfg, tokens, cache, positions, group):
     """One B-slot decode step of this rank, tensor-parallel over `group`
     (model_step_batch with the kernel's mode (e)): `stack` is the rank's
-    (`stack_serving_tp`, or stack_serving of a parallel.shard_model model),
+    (`stack_serving_tp`, or stack_serving(..., tp=True) of a
+    parallel.shard_model model),
     `cache` its kv heads [L, B, Hkv/tp, T, D]. Returns (logits [B, V],
     cache), the logits the same on every rank; the rank's new rows are
     scattered into its cache in place."""

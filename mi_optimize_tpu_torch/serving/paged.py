@@ -203,7 +203,7 @@ class PagedMegaBatcher:
         if self._tp is not None and prefix_cache:
             raise ValueError("the prefix cache's chunk steps run on one rank: a tensor-"
                              "parallel shard serves without it")
-        st = stack_serving(model)
+        st = stack_serving(model, tp=True)
         if st is None:
             raise ValueError("model does not satisfy the megakernel contract")
         self.model = model
@@ -592,7 +592,9 @@ class PagedSpeculativeBatcher(PagedMegaBatcher):
     n_slots, free ones included, as the reference; a short wave repeats its
     last slot (the duplicate rows rewrite the same data). The draft takes at
     most 8 slots (the batched kernel's rows). `fused_lm` as
-    SpeculativeBatcher's."""
+    SpeculativeBatcher's. A tensor-parallel shard, as target or draft, is
+    refused with ValueError: the chunk mode has no tp > 1 mode and this
+    batcher has no per-layer route."""
 
     def __init__(self, model: Model, draft: Model, k: int = 4, n_slots: int = 4,
                  max_len: int = 512, page_size: int = 128, n_pages: Optional[int] = None,
@@ -600,8 +602,10 @@ class PagedSpeculativeBatcher(PagedMegaBatcher):
         from ..ops.model_fused import MAX_BATCH
         from .batching import verify_lm
         from .engine import init_cache
-        from .megadecode import stack_cache_batched, stack_serving
+        from .megadecode import refuse_shard, stack_cache_batched, stack_serving
 
+        refuse_shard(model.params, "PagedSpeculativeBatcher's verify")
+        refuse_shard(draft.params, "PagedSpeculativeBatcher's draft")
         super().__init__(model, n_slots, max_len, page_size, n_pages)
         if fused_lm:
             self._lm = verify_lm(model, self._mega)

@@ -43,6 +43,14 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "mi_optimize_tpu", "safetensors")
              or m.startswith(("jax.", "flax.", "mi_optimize_tpu.", "safetensors.")))
 assert "mi_optimize_tpu_torch.parallel.overlap" in names, names  # parallel/ is scanned
+new = {"eval.latency", "eval.lmeval", "eval.squad_metrics", "eval.lmeval_tasks",
+       "eval.lmeval_gen_tasks", "eval.lmeval_more_tasks", "datasets.lmdatasets", "cli.common",
+       "cli.benchmark_ppl", "cli.benchmark_ceval", "cli.benchmark_cmmlu", "cli.benchmark_lm_eval",
+       "cli.benchmark_latency", "cli.quantize", "cli.quantization", "cli.quantize_eval",
+       "cli.eval", "cli.inference", "cli.serve"}
+assert {"mi_optimize_tpu_torch." + n for n in new} <= set(names), names
+from mi_optimize_tpu_torch.eval.lmeval import expand_task_names
+expand_task_names([])  # the task tables, imported for their registry
 print(len(names), bad)
 """
 

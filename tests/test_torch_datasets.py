@@ -22,6 +22,7 @@ from mi_optimize_tpu_torch.datasets import calibration as C
 from mi_optimize_tpu_torch.datasets.tokenizer import ByteTokenizer
 from mi_optimize_tpu_torch.eval.benchmark import Benchmark
 from mi_optimize_tpu_torch.eval.ppl import compute_ppl
+from mi_optimize_tpu_torch.models.model import Model
 from mi_optimize_tpu_torch.quant.config import CalibrationConfig
 from tests.test_torch_convert import port_model
 
@@ -102,16 +103,20 @@ def test_train_split_falls_back_to_validation(bare, caplog):
 
 def test_not_ported_sets_raise(bare):
     # the C-Eval, CMMLU and BOSS sets are ported (tests/test_torch_eval_mcqa.py
-    # holds them against JAX's); lm-eval and the latency benchmark are not
+    # holds them against JAX's), and so are lm-eval and the latency benchmark
+    # (tests/test_torch_lmeval.py, test_torch_latency.py): only an unknown
+    # set, an unknown lm-eval task or an HBM rate the CPU does not have raise
     for name in ("ceval", "cmmlu", "boss"):
         got = C.get_calibrate_loader(ByteTokenizer(), CalibrationConfig(name=name, nsamples=1))
         assert got and all(g.dtype == np.int64 and g.shape[0] == 1 for g in got)
     with pytest.raises(ValueError, match="unsupported"):
         C.get_calibrate_loader(ByteTokenizer(), CalibrationConfig(name="nope"))
     b = Benchmark(device="cpu")
-    for fn, item in ((b.eval_lmeval, "A11"), (b.eval_latency, "A5")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn(None, None)
+    model = Model.tiny_llama(device="cpu")
+    with pytest.raises(ValueError, match="unknown lm-eval task"):
+        b.eval_lmeval(model, ByteTokenizer(), ["nope"])
+    with pytest.raises(ValueError, match="hbm_bytes_per_s"):
+        b.eval_latency(model, seqlen=8, prompt_len=8, decode_tokens=2)
 
 
 def test_quantize_with_config_driven_calibration(bare):
